@@ -1,0 +1,93 @@
+"""The weight bridge: the JAX package's parameter trees -> the port's module state.
+
+A JAX tree is nested dicts/lists of numpy arrays, as ``jax.device_get`` returns them or as
+``convert/store.load_params`` reads them from a ``.npz``. The port's modules name their
+parameters after the same tree paths ('/' -> '.'), with torch's leaf names:
+
+* ``w`` of rank 4 (conv, HWIO) -> ``weight`` in OIHW;
+* ``w`` of rank 2 (dense, (in, out)) -> ``weight`` in nn.Linear's (out, in) — K2's weights
+  included, since the K2 kernel takes the nn.Linear layout;
+* ``b`` -> ``bias``; norm ``scale`` / ``bias`` -> ``weight`` / ``bias``;
+* the text tower's ``token_embedding`` / ``position_embedding`` tables as they are.
+
+The bridge is strict: a leaf it cannot place raises in :func:`from_jax_tree`, and
+:func:`load` raises on any parameter the module expects but the tree lacks, or on a shape
+mismatch (``load_state_dict(strict=True)``).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from diffsim_tpu_torch.convert.store import _flatten, unflatten
+
+KINDS = ("unet", "vae", "text")
+_TEXT_TABLES = ("token_embedding", "position_embedding")
+
+
+def _convert(path: str, leaf: np.ndarray, kind: str) -> tuple[str, np.ndarray]:
+    *prefix, name = path.split("/")
+    arr = np.asarray(leaf)
+    if kind == "text" and path in _TEXT_TABLES:
+        return path, arr
+    if name == "w" and arr.ndim == 4:
+        return ".".join(prefix + ["weight"]), arr.transpose(3, 2, 0, 1)
+    if name == "w" and arr.ndim == 2:
+        return ".".join(prefix + ["weight"]), arr.T
+    if name in ("b", "bias") and arr.ndim == 1:
+        return ".".join(prefix + ["bias"]), arr
+    if name == "scale" and arr.ndim == 1:
+        return ".".join(prefix + ["weight"]), arr
+    raise KeyError(f"bridge ({kind}): no rule for leaf {path!r} of shape {arr.shape}")
+
+
+def from_jax_tree(tree, kind: str) -> dict[str, np.ndarray]:
+    """The JAX parameter tree of a ``kind`` model ('unet', 'vae' or 'text') as the port's flat
+    state: {parameter name: numpy array in the port's layout}. Every leaf is consumed."""
+    if kind not in KINDS:
+        raise ValueError(f"bridge: unknown kind {kind!r} (one of {KINDS})")
+    state = {}
+    for path, leaf in _flatten(tree).items():
+        key, arr = _convert(path, leaf, kind)
+        if key in state:
+            raise KeyError(f"bridge ({kind}): two leaves map to {key!r}")
+        state[key] = np.ascontiguousarray(arr)
+    return state
+
+
+def load(module: nn.Module, tree, kind: str, device, dtype) -> nn.Module:
+    """Fill ``module`` (typically built on the meta device) from a JAX tree, strictly: every
+    leaf of the tree is consumed and every parameter of the module is provided, with the
+    module's shapes. Tensors are placed on ``device`` in ``dtype``."""
+    state = {k: torch.tensor(np.asarray(v, np.float32), dtype=dtype, device=device)
+             for k, v in from_jax_tree(tree, kind).items()}
+    module.load_state_dict(state, strict=True, assign=True)
+    return module
+
+
+def to_jax_tree(state, kind: str):
+    """The inverse of :func:`from_jax_tree`: a port state {name: tensor or array} as the JAX
+    package's parameter tree of numpy arrays (conv OIHW -> HWIO, dense (out, in) -> (in, out),
+    norm ``weight`` -> ``scale``)."""
+    if kind not in KINDS:
+        raise ValueError(f"bridge: unknown kind {kind!r} (one of {KINDS})")
+    arrays = {k: v.detach().float().cpu().numpy() if isinstance(v, torch.Tensor)
+              else np.asarray(v) for k, v in state.items()}
+    flat = {}
+    for name, arr in arrays.items():
+        if kind == "text" and name in _TEXT_TABLES:
+            flat[name] = arr
+            continue
+        prefix, leaf = name.rsplit(".", 1)
+        norm = arrays[f"{prefix}.weight"].ndim == 1
+        if leaf == "weight":
+            key, arr = ("scale", arr) if norm else (
+                "w", arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T)
+        elif leaf == "bias":
+            key = "bias" if norm else "b"
+        else:
+            raise KeyError(f"bridge ({kind}): no rule for parameter {name!r}")
+        flat["/".join(prefix.split(".") + [key])] = np.ascontiguousarray(arr)
+    return unflatten(flat)

@@ -1,0 +1,77 @@
+"""K2 ``fused_geglu_ff``: the transformer GEGLU feed-forward.
+
+Replaces the TPU kernel ``diffsim_tpu/ops/pallas/ff.py:fused_geglu_ff``. The CUDA kernels are
+``csrc/geglu_ff.cu`` (design and bound in its header). Weights are in the nn.Linear (out, in)
+layout: W1 (8C, C), W2 (C, 4C). On a CPU tensor the wrapper runs :func:`fused_geglu_ff_plain`;
+on a CUDA tensor it launches the kernels or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from diffsim_tpu_torch.ops.kernels import build
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def fused_geglu_ff_plain(x, w1, b1, w2, b2) -> torch.Tensor:
+    """The TPU kernel's arithmetic: f32 accumulation, f32 bias and exact-erf GEGLU epilogue,
+    the intermediate cast to x's dtype, f32 output bias, output in x's dtype."""
+    hg = F.linear(x.float(), w1.float(), b1.float())
+    h, g = hg.chunk(2, dim=-1)
+    y = (h * (0.5 * g * (1.0 + torch.erf(g * 0.7071067811865476)))).to(x.dtype)
+    return F.linear(y.float(), w2.float(), b2.float()).to(x.dtype)
+
+
+def _lib() -> ctypes.CDLL:
+    lib = build.library("geglu_ff")
+    if lib.geglu_ff_fwd.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.geglu_ff_fwd.argtypes = [p, p, p, p, p, p, p, i, i, i, p]
+        lib.geglu_ff_fwd.restype = i
+    return lib
+
+
+def fused_geglu_ff(x, w1, b1, w2, b2) -> torch.Tensor:
+    """x (N, C) -> (N, C). CUDA: contiguous tensors of one dtype (bfloat16 or float32),
+    C % 32 == 0. One call launches the two GEMM kernels and counts one launch in
+    ``fused_geglu_ff.launches``."""
+    if x.device.type == "cpu":
+        return fused_geglu_ff_plain(x, w1, b1, w2, b2)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_geglu_ff: unsupported device {x.device}")
+    n, c = x.shape
+    shapes = {"w1": (8 * c, c), "b1": (8 * c,), "w2": (c, 4 * c), "b2": (c,)}
+    args = {"w1": w1, "b1": b1, "w2": w2, "b2": b2}
+    for name, t in args.items():
+        if tuple(t.shape) != shapes[name]:
+            raise ValueError(f"fused_geglu_ff: {name} has shape {tuple(t.shape)}, "
+                             f"expected {shapes[name]}")
+    tensors = [x, *args.values()]
+    if x.dtype not in _DTYPES or any(t.dtype != x.dtype for t in tensors):
+        raise ValueError("fused_geglu_ff: x and the weights must share one dtype of "
+                         "bfloat16, float32")
+    if any(t.device != x.device or not t.is_contiguous() or t.data_ptr() % 16 for t in tensors):
+        raise ValueError("fused_geglu_ff: tensors must be contiguous, 16-byte aligned and on "
+                         "one device")
+    if c % 32 or (n + 63) // 64 > 65535:
+        raise ValueError(f"fused_geglu_ff: shape {(n, c)} not supported by the kernel "
+                         "(C % 32 == 0, N <= 65535*64)")
+    y = torch.empty((n, 4 * c), dtype=x.dtype, device=x.device)
+    out = torch.empty_like(x)
+    lib = _lib()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.geglu_ff_fwd(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+                              b2.data_ptr(), y.data_ptr(), out.data_ptr(), n, c,
+                              _DTYPES[x.dtype], stream)
+    build.check(lib, rc, "fused_geglu_ff")
+    fused_geglu_ff.launches += 1
+    return out
+
+
+fused_geglu_ff.launches = 0
