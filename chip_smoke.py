@@ -8,27 +8,42 @@ Phases, each of which fails the run (non-zero exit, no result line) if anything 
 1. the card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
 2. the build: every ``diffsim_tpu_torch/csrc/*.cu`` compiled by nvcc for sm_90a, in parallel;
 3. K1 ``fused_self_attention`` at the SD-1.5 main-path shapes (B = 24: 4 triplets x 6 CFG
-   rows), at S = 1280, in float32, and at every head dim it takes, against its plain version;
-   timed beside the plain version, ``F.scaled_dot_product_attention`` (a yardstick only; the
-   port never calls it) and the card's bound;
-4. K2 ``fused_geglu_ff`` at its two main-path shapes, the same way (no single PyTorch call
+   rows) and the SDXL ones (B = 12: 2 triplets), at S = 1280, in float32, and at every head
+   dim it takes, against its plain version; timed beside the plain version,
+   ``F.scaled_dot_product_attention`` (a yardstick only; the port never calls it) and the
+   card's bound;
+4. K2 ``fused_geglu_ff`` at its main-path shapes, the same way (no single PyTorch call
    computes GEGLU-FF, so K2 has no library time), and at ragged row counts and other widths
    in both dtypes;
-5. end-to-end correctness: a tiny float32 ``DiffSimSD15`` at 32 px (256-token latents, so K1
-   and K2 route) scored on the card and on the CPU from one seeded numpy weight tree and one
-   ``noise_override``, with TF32 off;
-6. the main path at full SD-1.5 width: ``DiffSimSD15(img_size=512)`` in bf16 with random weights
-   drawn on the card, ``score_triplet_batch`` on 4 triplets with the canonical CUTE arguments,
-   ``score_batch`` on 2 pairs and ``diffsim`` on two PNG paths, counting kernel launches per
-   UNet forward (8 K1, 4 K2).
+5. K3 ``cross_self_partials`` (the fused readout) at the SDXL tap, (80, 1024, 64) bf16, in
+   both similarities, at the SD-1.5 up-block-2/3 taps, at DiT's head dim 72 and in float32,
+   scores against its plain version (no single PyTorch call computes the partials; two
+   ``scaled_dot_product_attention`` calls plus the reduction are timed as information);
+6. K4 ``streaming_self_attention`` at the 1024 px VAE mid attention (2, 1, 16384, 512) in
+   float32 (the SDXL main path) and bf16, and at a ragged S = 8448, with SDPA as its library
+   time;
+7. end-to-end correctness, card vs CPU from one seeded numpy weight tree and one
+   ``noise_override``, in float32 with TF32 off: a tiny ``DiffSimSD15`` at 32 px (K1, K2) and a
+   tiny ``DiffSimXL`` at 256 px (all four kernels);
+8. the SD-1.5 main path at full width: ``DiffSimSD15(img_size=512)`` in bf16 with random
+   weights drawn on the card, ``score_triplet_batch`` on 4 triplets with the canonical CUTE
+   arguments, ``score_batch`` on 2 pairs and ``diffsim`` on two PNG paths (8 K1, 4 K2 per UNet
+   forward), then ``score_batch`` at the up-block-2 tap (``fix_layer_collapse``), through K3;
+9. the SDXL main path at full width: ``DiffSimXL(img_size=1024)`` in bf16 with the float32
+   VAE, ``score_triplet_batch`` on 2 triplets with the ``bench_backbones.py`` arguments,
+   ``score_batch`` on 2 pairs and ``diffsim_score`` on two PNG paths, each with its exact
+   launch counts of all four kernels, a profile of one triplet call, and the share of the
+   call that its float32 VAE encode takes.
 
 The line before the last is one JSON object ``{"kernels": [...]}``; the last line is
-``{"ok": true, "device": {...}}``. Timings use CUDA events (median of 20 after 3 warm-ups).
-Bounds use the H100 SXM's published dense peaks: 989 TFLOP/s bf16 tensor cores, 3.35 TB/s.
+``{"ok": true, "device": {...}}``. Timings use CUDA events (median of 20 after 3 warm-ups; 5
+for the slowest plain versions). Bounds use the H100 SXM's published dense peaks: 989 TFLOP/s
+bf16 tensor cores, 67 TFLOP/s float32 outside the tensor cores, 3.35 TB/s.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -44,22 +59,51 @@ import torch.nn.functional as F
 from diffsim_tpu_torch.convert import bridge
 from diffsim_tpu_torch.core.tokenizer import HashTokenizer
 from diffsim_tpu_torch.metrics.diffsim_sd15 import DiffSimSD15
+from diffsim_tpu_torch.metrics.diffsim_xl import DiffSimXL
+from diffsim_tpu_torch.metrics.scorer_base import to_device_pixels
 from diffsim_tpu_torch.models.clip_text import CLIPText, CLIPTextConfig
 from diffsim_tpu_torch.models.unet import UNet, UNetConfig
-from diffsim_tpu_torch.models.vae import Encoder, VAEConfig
+from diffsim_tpu_torch.models.vae import Encoder, VAEConfig, encode_chunked
 from diffsim_tpu_torch.ops import kernels
 from diffsim_tpu_torch.ops.kernels import build
 from diffsim_tpu_torch.ops.kernels.attention import fused_self_attention, fused_self_attention_plain
+from diffsim_tpu_torch.ops.kernels.attention_stream import (
+    streaming_self_attention,
+    streaming_self_attention_plain,
+)
 from diffsim_tpu_torch.ops.kernels.ff import fused_geglu_ff, fused_geglu_ff_plain
+from diffsim_tpu_torch.ops.kernels.readout import fused_direction_score, fused_direction_score_plain
 
-PEAK_FLOPS = 989e12  # bf16 dense tensor-core peak, H100 SXM
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # H100 SXM: bf16 tensor, FP32 SIMT
 PEAK_BYTES = 3.35e12  # HBM3 bandwidth, H100 SXM
 CUTE = dict(prompt="The photo of a cat", target_block="up_blocks", target_layer=(0,),
             target_step=600, similarity="cosine", seed=2334)
-# one UNet forward at the canonical tap: K1 sites (tokens, head dim, launches per forward)
-K1_SITES = [(4096, 40, 2), (1024, 80, 2), (256, 160, 4)]
-K2_SITES = [(4096, 320, 2), (1024, 640, 2)]  # (tokens, channels, launches per forward)
-BATCH = 24  # 4 triplets x 3 images x 2 CFG halves
+XL_ARGS = dict(prompt="The photo of a benchmark", target_block="up_blocks",
+               target_layer=(0, 1, 1), target_step=900, similarity="cosine", seed=2334)
+BATCH = 24  # SD-1.5: 4 triplets x 3 images x 2 CFG halves
+XL_T, XL_BATCH = 2, 12  # SDXL: 2 triplets (bench_backbones.py) x 3 images x 2 CFG halves
+# (batch, heads, tokens, head dim): launches per SD-1.5 forward (canonical tap) and per SDXL
+# triplet call (tap (0, 1, 1))
+K1_SITES = {(BATCH, 8, 4096, 40): (2, 0), (BATCH, 8, 1024, 80): (2, 0),
+            (BATCH, 8, 256, 160): (4, 0), (XL_BATCH, 10, 4096, 64): (0, 4),
+            (XL_BATCH, 20, 1024, 64): (0, 41)}
+K2_SITES = {(BATCH * 4096, 320): (2, 0), (BATCH * 1024, 640): (2, 0),
+            (XL_BATCH * 4096, 640): (0, 4)}  # (rows, channels)
+K3_MAIN = (XL_T * 2 * 20, 1024, 64)  # (P * B * heads, tokens, head dim) at the SDXL tap
+K4_MAIN = (2, 1, 16384, 512)  # one VAE chunk of two 1024 px images
+# exact launches of each scoring call, derived from the configs (each kernel-routed site of
+# the forward up to the tap, the readout's two directions per pair score, one K4 per VAE chunk)
+NONE = dict.fromkeys(("fused_self_attention", "fused_geglu_ff", "cross_self_partials",
+                      "streaming_self_attention"), 0)
+SD15_CALL = {**NONE, "fused_self_attention": 8, "fused_geglu_ff": 4}
+SD15_K3_CALL = {**NONE, "fused_self_attention": 11, "fused_geglu_ff": 6, "cross_self_partials": 2}
+XL_FORWARD = {"fused_self_attention": 45, "fused_geglu_ff": 4}
+XL_TRIPLET_CALL = {**XL_FORWARD, "cross_self_partials": 4, "streaming_self_attention": 3}
+XL_PAIRS_CALL = {**XL_FORWARD, "cross_self_partials": 2, "streaming_self_attention": 2}
+XL_ONE_PAIR_CALL = {**XL_FORWARD, "cross_self_partials": 2, "streaming_self_attention": 1}
+TINY_SD15_CALL = {**NONE, "fused_self_attention": 3, "fused_geglu_ff": 3}  # K1: 2 UNet, 1 VAE
+TINY_XL_CALL = {"fused_self_attention": 7, "fused_geglu_ff": 7, "cross_self_partials": 2,
+                "streaming_self_attention": 1}
 
 
 def phase(name: str) -> None:
@@ -82,8 +126,8 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
-def bound(flops: float, nbytes: float) -> tuple[float, str]:
-    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+def bound(flops: float, nbytes: float, dtype=torch.bfloat16) -> tuple[float, str]:
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype] * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -93,6 +137,21 @@ def check_close(name, out, ref, atol, rtol, quiet: bool = False) -> float:
     if not quiet or not ok:
         print(f"  {name}: max|kernel - plain| = {err:.3e} (atol {atol}, rtol {rtol}) "
               f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok or not torch.isfinite(out).all():
+        raise SystemExit(f"{name}: kernel disagrees with its plain version")
+    return err
+
+
+def check_score(name, out, ref, similarity, atol, rtol) -> float:
+    """Hold a kernel's scores to its plain version's: within ``atol`` and within ``rtol`` times
+    the plain version's distance (1 - cosine, or the mse), so that a near-miss of a score near
+    1 cannot pass as a small absolute error."""
+    err = (out - ref).abs().max().item()
+    dist = (1.0 - ref if similarity == "cosine" else ref).abs()
+    ok = err <= atol and bool(((out - ref).abs() <= rtol * dist).all())
+    print(f"  {name}: scores {out.tolist()}, max|kernel - plain| = {err:.3e} (atol {atol}, "
+          f"rtol {rtol} of the distance {dist.min().item():.3e}) {'ok' if ok else 'FAIL'}",
+          flush=True)
     if not ok or not torch.isfinite(out).all():
         raise SystemExit(f"{name}: kernel disagrees with its plain version")
     return err
@@ -108,9 +167,21 @@ def card() -> str:
     return line
 
 
+def _timed(row, kernel, plain, library, flops, nbytes, dtype=torch.bfloat16, plain_reps=20):
+    row["ms"] = time_ms(kernel)
+    row["plain_ms"] = time_ms(plain, reps=plain_reps)
+    row["library_ms"] = None if library is None else time_ms(library)
+    row["bound_ms"], row["bound_by"] = bound(flops, nbytes, dtype)
+    row["peak"] = ("989 TFLOP/s bf16 tensor" if dtype == torch.bfloat16
+                   else "67 TFLOP/s FP32 non-tensor") + " | 3.35 TB/s"
+    lib = "none" if library is None else f"{row['library_ms']:.4f}"
+    print(f"    ms {row['ms']:.4f}  plain {row['plain_ms']:.4f}  library {lib}  bound "
+          f"{row['bound_ms']:.4f} ({row['bound_by']})", flush=True)
+
+
 def k1_phase(gen) -> dict:
     phase("K1 fused_self_attention vs plain (bf16 atol=rtol=1e-2, float32 atol=1e-5)")
-    shapes = [(BATCH, 8, s, d, torch.bfloat16) for s, d, _ in K1_SITES]
+    shapes = [(*site, torch.bfloat16) for site in K1_SITES]
     shapes += [(2, 8, 1280, 64, torch.bfloat16), (2, 8, 1024, 80, torch.float32)]
     rows, main_err = [], 0.0
     for b, h, s, d, dtype in shapes:
@@ -124,16 +195,13 @@ def k1_phase(gen) -> dict:
         del out, ref
         row = {"shape": [b, h, s, d], "dtype": str(dtype).replace("torch.", ""),
                "max_abs_err": err}
-        if (s, d) in [(s_, d_) for s_, d_, _ in K1_SITES] and b == BATCH:
+        if (b, h, s, d) in K1_SITES:
             main_err = max(main_err, err)
-            row["ms"] = time_ms(lambda: fused_self_attention(q, k, v))
-            row["plain_ms"] = time_ms(lambda: fused_self_attention_plain(q, k, v))
-            row["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(q, k, v))
-            row["bound_ms"], row["bound_by"] = bound(4 * b * h * s * s * d,
-                                                     4 * b * h * s * d * q.element_size())
-            print(f"    ms {row['ms']:.4f}  plain {row['plain_ms']:.4f}  "
-                  f"sdpa {row['library_ms']:.4f}  bound {row['bound_ms']:.4f} "
-                  f"({row['bound_by']})", flush=True)
+            row["launches_sd15_forward"], row["launches_sdxl_call"] = K1_SITES[(b, h, s, d)]
+            _timed(row, lambda: fused_self_attention(q, k, v),
+                   lambda: fused_self_attention_plain(q, k, v),
+                   lambda: F.scaled_dot_product_attention(q, k, v),
+                   4 * b * h * s * s * d, 4 * b * h * s * d * q.element_size())
         rows.append(row)
         del q, k, v
         torch.cuda.empty_cache()
@@ -153,12 +221,11 @@ def k1_phase(gen) -> dict:
 def k2_phase(gen) -> dict:
     phase("K2 fused_geglu_ff vs plain (bf16 atol=rtol=1e-2)")
     rows, main_err = [], 0.0
-    for tokens, c, _ in K2_SITES:
-        n = BATCH * tokens
 
-        def rand(shape, scale):
-            return (torch.randn(shape, generator=gen, device="cuda") * scale).to(torch.bfloat16)
+    def rand(shape, scale, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
 
+    for (n, c), launches in K2_SITES.items():
         x = rand((n, c), 1.0)
         w1, b1 = rand((8 * c, c), c**-0.5), rand((8 * c,), 0.1)
         w2, b2 = rand((c, 4 * c), (4 * c) ** -0.5), rand((c,), 0.1)
@@ -168,25 +235,107 @@ def k2_phase(gen) -> dict:
         err = check_close(f"K2 {(n, c)} bf16", out, fused_geglu_ff_plain(*args), 1e-2, 1e-2)
         main_err = max(main_err, err)
         row = {"shape": [n, c], "dtype": "bfloat16", "max_abs_err": err,
-               "ms": time_ms(lambda: fused_geglu_ff(*args)),
-               "plain_ms": time_ms(lambda: fused_geglu_ff_plain(*args)),
-               "library_ms": None}
-        nbytes = (2 * n * c + 12 * c * c + 9 * c) * 2
-        row["bound_ms"], row["bound_by"] = bound(24 * n * c * c, nbytes)
-        print(f"    ms {row['ms']:.4f}  plain {row['plain_ms']:.4f}  bound "
-              f"{row['bound_ms']:.4f} ({row['bound_by']})", flush=True)
+               "launches_sd15_forward": launches[0], "launches_sdxl_call": launches[1]}
+        _timed(row, lambda: fused_geglu_ff(*args), lambda: fused_geglu_ff_plain(*args), None,
+               24 * n * c * c, (2 * n * c + 12 * c * c + 9 * c) * 2)
         rows.append(row)
         del x, w1, b1, w2, b2, args, out
         torch.cuda.empty_cache()
     # ragged row counts and other widths, both dtypes (float32 at atol = rtol = 1e-4)
     for n, c in [(8, 32), (300, 32), (1000, 64), (136, 160), (24 * 256, 1280)]:
         for dtype, tol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-4)):
-            args = tuple((torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
-                         for shape, scale in [((n, c), 1.0), ((8 * c, c), c**-0.5),
-                                              ((8 * c,), 0.1), ((c, 4 * c), (4 * c) ** -0.5),
-                                              ((c,), 0.1)])
+            args = (rand((n, c), 1.0, dtype), rand((8 * c, c), c**-0.5, dtype),
+                    rand((8 * c,), 0.1, dtype), rand((c, 4 * c), (4 * c) ** -0.5, dtype),
+                    rand((c,), 0.1, dtype))
             check_close(f"K2 {(n, c)} {dtype}", fused_geglu_ff(*args),
                         fused_geglu_ff_plain(*args), tol, tol)
+    return {"rows": rows, "max_abs_err": main_err}
+
+
+def _sdpa_readout(taps, similarity):
+    """The same scores from two library attention calls per direction plus the reductions
+    (information for PERF.md; the port never calls this)."""
+    qa, ka, va, kb, vb = (t.flatten(0, 2) for t in taps)
+    o1 = F.scaled_dot_product_attention(qa, kb, vb).float()
+    o2 = F.scaled_dot_product_attention(qa, ka, va).float()
+    if similarity == "mse":
+        return ((o1 - o2) ** 2).sum()
+    return (o1 * o2).sum() / ((o1 * o1).sum().sqrt() * (o2 * o2).sum().sqrt())
+
+
+def k3_phase(gen) -> dict:
+    phase("K3 cross_self_partials (fused readout) vs plain: scores, bf16 atol 1e-3 and rtol 1e-3 "
+          "of the distance, float32 atol 1e-5 and rtol 1e-5")
+    # (P, B, H, S, D): the SDXL tap of the main path (N = 80), the SD-1.5 up-block-2/3 taps of
+    # a 2-pair score_batch, DiT-XL/2's head dim 72, and the SDXL tap in float32
+    shapes = [((XL_T, 2, 20, 1024, 64), torch.bfloat16), ((2, 2, 8, 1024, 80), torch.bfloat16),
+              ((2, 2, 8, 4096, 40), torch.bfloat16), ((2, 2, 16, 1024, 72), torch.bfloat16),
+              ((XL_T, 2, 20, 1024, 64), torch.float32)]
+    rows, main_err = [], 0.0
+    for shape, dtype in shapes:
+        # image B's keys and values are image A's plus noise, so that the scores sit where
+        # DiffSim's do (cosine ~0.9): a kernel that pairs the wrong head or the wrong K/V
+        # gives unrelated outputs and a cosine near 0
+        qa, ka, va = (torch.randn(shape, generator=gen, device="cuda") for _ in range(3))
+        kb, vb = (x + 0.3 * torch.randn(shape, generator=gen, device="cuda") for x in (ka, va))
+        taps = [x.to(dtype) for x in (qa, ka, va, kb, vb)]
+        del qa, ka, va, kb, vb
+        p, b, h, s, d = shape
+        n = p * b * h
+        main = (n, s, d) == K3_MAIN and dtype == torch.bfloat16
+        for similarity in ("cosine", "mse"):
+            out = fused_direction_score(*taps, similarity)
+            torch.cuda.synchronize()
+            ref = fused_direction_score_plain(*taps, similarity)
+            tol = 1e-3 if dtype == torch.bfloat16 else 1e-5
+            err = check_score(f"K3 {shape} {dtype} {similarity}", out, ref, similarity, tol, tol)
+            row = {"shape": [n, s, d], "taps": list(shape), "similarity": similarity,
+                   "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err}
+            if main:
+                main_err = max(main_err, err)
+                row["launches_sdxl_call"] = 4 if similarity == "cosine" else 0
+            if similarity == "cosine" and (main or dtype == torch.float32 or d == 80):
+                _timed(row, lambda: fused_direction_score(*taps, similarity),
+                       lambda: fused_direction_score_plain(*taps, similarity), None,
+                       8 * n * s * s * d, 5 * n * s * d * taps[0].element_size(), dtype,
+                       plain_reps=5)
+                row["sdpa_pair_ms"] = time_ms(lambda: _sdpa_readout(taps, similarity))
+                print(f"    two SDPA calls + reduction (information): "
+                      f"{row['sdpa_pair_ms']:.4f} ms", flush=True)
+            rows.append(row)
+        del taps
+        torch.cuda.empty_cache()
+    return {"rows": rows, "max_abs_err": main_err}
+
+
+def k4_phase(gen) -> dict:
+    phase("K4 streaming_self_attention vs plain (float32 atol 1e-5, bf16 atol=rtol=1e-2)")
+    shapes = [(K4_MAIN, torch.float32), (K4_MAIN, torch.bfloat16),
+              ((1, 1, 8448, 512), torch.float32), ((1, 1, 8448, 512), torch.bfloat16)]
+    rows, main_err = [], 0.0
+    for shape, dtype in shapes:
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(3))
+        out = streaming_self_attention(q, k, v)
+        torch.cuda.synchronize()
+        ref = streaming_self_attention_plain(q, k, v)
+        tol = (1e-5, 0.0) if dtype == torch.float32 else (1e-2, 1e-2)
+        err = check_close(f"K4 {shape} {dtype}", out, ref, *tol)
+        del out, ref
+        row = {"shape": list(shape), "dtype": str(dtype).replace("torch.", ""),
+               "max_abs_err": err}
+        if shape == K4_MAIN:
+            b, h, s, d = shape
+            if dtype == torch.float32:
+                main_err = err
+                row["launches_sdxl_call"] = 3
+            _timed(row, lambda: streaming_self_attention(q, k, v),
+                   lambda: streaming_self_attention_plain(q, k, v),
+                   lambda: F.scaled_dot_product_attention(q, k, v),
+                   4 * b * h * s * s * d, 4 * b * h * s * d * q.element_size(), dtype,
+                   plain_reps=5)
+        rows.append(row)
+        del q, k, v
+        torch.cuda.empty_cache()
     return {"rows": rows, "max_abs_err": main_err}
 
 
@@ -207,11 +356,49 @@ def _random_tree(factory, kind: str, rng) -> dict:
     return bridge.to_jax_tree(state, kind)
 
 
-def tiny_phase() -> None:
-    phase("end to end, tiny config at 32 px in float32: card vs CPU (|dscore| <= 1e-4)")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+@contextlib.contextmanager
+def tf32_off():
+    """Full float32 products and convolutions on the card, restored afterwards."""
+    old = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     print("  torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False")
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = old
+
+
+# card-vs-CPU limits on each score: |d| <= 1e-4 and |d| <= atol + 1e-4 * the distance (1 -
+# cosine, or the mse), with atol near float32's resolution of the score
+CARD_CPU_ATOL = {"cosine": 1e-6, "mse": 1e-7}
+
+
+def _card_vs_cpu(name, make_scorer, pix_a, pix_b, noise, args, expected) -> None:
+    for similarity in ("cosine", "mse"):
+        scores = {}
+        for device in ("cuda", "cpu"):
+            scorer = make_scorer(device)
+            kernels.reset_launch_counts()
+            scores[device] = scorer.score_batch(pix_a, pix_b, **{**args, "similarity": similarity},
+                                                noise_override=noise)
+            counts = kernels.launch_counts()
+            if device == "cuda":
+                print(f"  launches on the card ({similarity}): {counts}")
+                if counts != expected:
+                    raise SystemExit(f"{name}: expected launches {expected}")
+            del scorer
+        gap = np.abs(scores["cuda"] - scores["cpu"])
+        dist = np.abs(1.0 - scores["cpu"] if similarity == "cosine" else scores["cpu"])
+        limit = np.minimum(1e-4, CARD_CPU_ATOL[similarity] + 1e-4 * dist)
+        print(f"  {similarity}: card {scores['cuda']}, cpu {scores['cpu']}, "
+              f"max|d| = {gap.max():.3e}, limits {limit}", flush=True)
+        if not (np.isfinite(scores["cuda"]).all() and (gap <= limit).all()):
+            raise SystemExit(f"{name}: the card disagrees with the CPU")
+
+
+def tiny_phase() -> None:
+    phase("end to end, tiny SD-1.5 at 32 px in float32: card vs CPU (|dscore| <= 1e-4 and "
+          "<= atol + 1e-4 of the distance)")
     rng = np.random.default_rng(2334)
     cfgs = dict(unet_cfg=UNetConfig.tiny(), vae_cfg=VAEConfig.tiny(),
                 text_cfg=CLIPTextConfig.tiny())
@@ -220,36 +407,45 @@ def tiny_phase() -> None:
               "text": _random_tree(lambda: CLIPText(cfgs["text_cfg"]), "text", rng)}
     pix_a, pix_b = (rng.integers(0, 256, (4, 32, 32, 3), dtype=np.uint8) for _ in range(2))
     noise = tuple(rng.standard_normal((2, 16, 16, 4)).astype(np.float32) for _ in range(2))
-    for similarity in ("cosine", "mse"):
-        scores = {}
-        for device in ("cuda", "cpu"):
-            scorer = DiffSimSD15(params, img_size=32, dtype=torch.float32, device=device,
-                                 tokenizer=HashTokenizer(cfgs["text_cfg"].vocab_size), **cfgs)
-            kernels.reset_launch_counts()
-            scores[device] = scorer.score_batch(pix_a, pix_b, **{**CUTE, "similarity": similarity},
-                                                noise_override=noise)
-            counts = kernels.launch_counts()
-            if device == "cuda":
-                print(f"  launches on the card ({similarity}): {counts}")
-                if min(counts.values()) == 0:
-                    raise SystemExit("tiny run: a kernel of the path did not launch")
-        delta = float(np.abs(scores["cuda"] - scores["cpu"]).max())
-        print(f"  {similarity}: card {scores['cuda']}, cpu {scores['cpu']}, "
-              f"max|d| = {delta:.3e}", flush=True)
-        if not (np.isfinite(scores["cuda"]).all() and delta <= 1e-4):
-            raise SystemExit("tiny run: the card disagrees with the CPU")
+    with tf32_off():
+        _card_vs_cpu("tiny SD-1.5", lambda device: DiffSimSD15(
+            params, img_size=32, dtype=torch.float32, device=device,
+            tokenizer=HashTokenizer(cfgs["text_cfg"].vocab_size), **cfgs),
+            pix_a, pix_b, noise, CUTE, TINY_SD15_CALL)
 
 
-def _checked_call(name: str, fn):
-    """Run one scoring call with the launch counts at zero; fail unless it launched exactly one
-    UNet forward's worth of kernels (8 K1, 4 K2)."""
+def tiny_xl_phase() -> None:
+    phase("end to end, tiny SDXL at 256 px in float32, one pair: card vs CPU (|dscore| <= 1e-4 "
+          "and <= atol + 1e-4 of the distance; VAE mid 16384 tokens at D 256 -> K4, UNet 4096 tokens -> K1, C 64 -> K2, tap 4096 "
+          "tokens at hd 32 -> K3)")
+    rng = np.random.default_rng(2335)
+    text2 = CLIPTextConfig(vocab_size=1000, hidden=32, layers=2, heads=2, intermediate=64,
+                           act="gelu", projection_dim=16)
+    cfgs = dict(unet_cfg=UNetConfig.tiny_xl(64), text_cfg=CLIPTextConfig.tiny(), text2_cfg=text2,
+                vae_cfg=VAEConfig(block_out_channels=(32, 256), layers_per_block=1,
+                                  scaling_factor=0.13025))
+    params = {"unet": _random_tree(lambda: UNet(cfgs["unet_cfg"]), "unet", rng),
+              "vae": _random_tree(lambda: Encoder(cfgs["vae_cfg"]), "vae", rng),
+              "text": _random_tree(lambda: CLIPText(cfgs["text_cfg"]), "text", rng),
+              "text2": _random_tree(lambda: CLIPText(text2), "text2", rng)}
+    pix_a, pix_b = (rng.integers(0, 256, (1, 256, 256, 3), dtype=np.uint8) for _ in range(2))
+    noise = tuple(rng.standard_normal((2, 128, 128, 4)).astype(np.float32) for _ in range(2))
+    with tf32_off():
+        _card_vs_cpu("tiny SDXL", lambda device: DiffSimXL(
+            params, img_size=256, dtype=torch.float32, device=device,
+            tokenizer=HashTokenizer(1000), **cfgs), pix_a, pix_b, noise, XL_ARGS, TINY_XL_CALL)
+
+
+def _checked_call(name: str, fn, expected: dict):
+    """Run one scoring call with the launch counts at zero; fail unless it launched exactly the
+    ``expected`` kernels."""
     kernels.reset_launch_counts()
     out = fn()
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
     print(f"  {name}: launches {counts}", flush=True)
-    if counts != {"fused_self_attention": 8, "fused_geglu_ff": 4}:
-        raise SystemExit(f"{name}: expected 8 K1 and 4 K2 launches per UNet forward")
+    if counts != {**NONE, **expected}:
+        raise SystemExit(f"{name}: expected launches {expected}")
     return out, counts
 
 
@@ -259,34 +455,28 @@ def _check_scores(name: str, *arrays) -> None:
             raise SystemExit(f"{name}: scores not finite in [-1, 1]: {a}")
 
 
-def main_path_phase(card_line: str) -> dict:
-    phase("main path: SD-1.5 at full width, 512 px, bf16, canonical CUTE tap")
-    t0 = time.perf_counter()
-    scorer = DiffSimSD15(img_size=512)  # cuda, bf16, random weights from a seeded generator
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for m in (scorer.unet, scorer.vae, scorer.text)
-                   for p in m.parameters())
-    print(f"  init {time.perf_counter() - t0:.2f} s, {n_params / 1e6:.1f} M parameters")
-    rng = np.random.default_rng(0)
-    pix_a, pix_b, pix_c = (rng.integers(0, 256, (4, 512, 512, 3), dtype=np.uint8)
-                           for _ in range(3))
+def _drive(name, scorer, pix, args, card_line, calls, diffsim) -> dict:
+    """The shared main-path drive: a triplet call with its exact launches, a timed repeat that
+    must give the same scores, a 2-pair score_batch and the path entry point on two PNGs."""
+    pix_a, pix_b, pix_c = pix
     torch.cuda.reset_peak_memory_stats()
     (s_ab, s_ac), counts = _checked_call(
-        "score_triplet_batch (4 triplets)", lambda: scorer.score_triplet_batch(
-            pix_a, pix_b, pix_c, **CUTE))
+        f"score_triplet_batch ({len(pix_a)} triplets)",
+        lambda: scorer.score_triplet_batch(pix_a, pix_b, pix_c, **args), calls["triplet"])
     _check_scores("score_triplet_batch", s_ab, s_ac)
     t0 = time.perf_counter()
-    again_ab, again_ac = scorer.score_triplet_batch(pix_a, pix_b, pix_c, **CUTE)
+    again_ab, again_ac = scorer.score_triplet_batch(pix_a, pix_b, pix_c, **args)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     if not (np.array_equal(again_ab, s_ab) and np.array_equal(again_ac, s_ac)):
-        raise SystemExit("score_triplet_batch: a repeat call gave other scores")
+        raise SystemExit(f"{name} score_triplet_batch: a repeat call gave other scores")
+    peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"  s_ab {s_ab}\n  s_ac {s_ac}")
-    print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    print(f"  repeat call {wall * 1e3:.1f} ms: {8 / wall:.2f} pairs/s on {card_line} "
+    print(f"  peak device memory {peak:.2f} GiB")
+    print(f"  repeat call {wall * 1e3:.1f} ms: {2 * len(pix_a) / wall:.2f} pairs/s on {card_line} "
           "(information only, not a benchmark)", flush=True)
     pairs, _ = _checked_call("score_batch (2 pairs)", lambda: scorer.score_batch(
-        pix_a[:2], pix_b[:2], **CUTE))
+        pix_a[:2], pix_b[:2], **args), calls["pairs"])
     _check_scores("score_batch", pairs)
     print(f"  score_batch {pairs} vs s_ab[:2] {s_ab[:2]}")
     if not np.allclose(pairs, s_ab[:2], atol=1e-2):
@@ -297,15 +487,61 @@ def main_path_phase(card_line: str) -> dict:
         paths = [os.path.join(tmp, f"{i}.png") for i in range(2)]
         for path, arr in zip(paths, (pix_a[0], pix_b[0])):
             Image.fromarray(arr).save(path)
-        score, _ = _checked_call("diffsim(a.png, b.png)",
-                                 lambda: scorer.diffsim(paths[0], paths[1], **CUTE))
-    _check_scores("diffsim", np.array([score]))
-    print(f"  diffsim(a.png, b.png) = {score}", flush=True)
-    profile_call(lambda: scorer.score_triplet_batch(pix_a, pix_b, pix_c, **CUTE))
-    return counts
+        score, _ = _checked_call(f"{diffsim}(a.png, b.png)", lambda: getattr(scorer, diffsim)(
+            paths[0], paths[1], **args), calls["one_pair"])
+    _check_scores(diffsim, np.array([score]))
+    print(f"  {diffsim}(a.png, b.png) = {score}", flush=True)
+    return {"counts": counts, "peak_gib": peak, "repeat_ms": wall * 1e3}
 
 
-def profile_call(fn, top: int = 12) -> None:
+def sd15_phase(card_line: str) -> dict:
+    phase("main path: SD-1.5 at full width, 512 px, bf16, canonical CUTE tap")
+    t0 = time.perf_counter()
+    scorer = DiffSimSD15(img_size=512)  # cuda, bf16, random weights from a seeded generator
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for m in (scorer.unet, scorer.vae, scorer.text)
+                   for p in m.parameters())
+    print(f"  init {time.perf_counter() - t0:.2f} s, {n_params / 1e6:.1f} M parameters")
+    rng = np.random.default_rng(0)
+    pix = [rng.integers(0, 256, (4, 512, 512, 3), dtype=np.uint8) for _ in range(3)]
+    out = _drive("SD-1.5", scorer, pix, CUTE, card_line,
+                 {"triplet": SD15_CALL, "pairs": SD15_CALL, "one_pair": SD15_CALL}, "diffsim")
+    profile_call(lambda: scorer.score_triplet_batch(*pix, **CUTE), "SD-1.5 triplet call")
+    phase("SD-1.5 at the up-block-2 tap (target_layer=[1], fix_layer_collapse): K3 readout")
+    k3_args = {**CUTE, "target_layer": [1]}
+    scores, _ = _checked_call("score_batch (2 pairs, up block 2)", lambda: scorer.score_batch(
+        pix[0][:2], pix[1][:2], fix_layer_collapse=True, **k3_args), SD15_K3_CALL)
+    _check_scores("score_batch at up block 2", scores)
+    print(f"  scores {scores}", flush=True)
+    return out
+
+
+def sdxl_phase(card_line: str) -> dict:
+    phase("main path: SDXL at full width, 1024 px, bf16 with the float32 VAE, tap (0, 1, 1)")
+    t0 = time.perf_counter()
+    scorer = DiffSimXL(img_size=1024)  # cuda, bf16, random weights from a seeded generator
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for m in (scorer.unet, scorer.vae, scorer.text, scorer.text2)
+                   for p in m.parameters())
+    print(f"  init {time.perf_counter() - t0:.2f} s, {n_params / 1e6:.1f} M parameters")
+    rng = np.random.default_rng(1)
+    pix = [rng.integers(0, 256, (XL_T, 1024, 1024, 3), dtype=np.uint8) for _ in range(3)]
+    out = _drive("SDXL", scorer, pix, XL_ARGS, card_line,
+                 {"triplet": XL_TRIPLET_CALL, "pairs": XL_PAIRS_CALL,
+                  "one_pair": XL_ONE_PAIR_CALL}, "diffsim_score")
+    profile_call(lambda: scorer.score_triplet_batch(*pix, **XL_ARGS), "SDXL triplet call")
+    # the float32 VAE encode of the call's six images against the whole call (CUDA events)
+    x = to_device_pixels(pix, scorer.device, scorer.enc_dtype)
+    with torch.inference_mode():
+        vae_ms = time_ms(lambda: encode_chunked(scorer.vae, x), reps=3, warmup=1)
+    call_ms = time_ms(lambda: scorer.score_triplet_batch(*pix, **XL_ARGS), reps=3, warmup=1)
+    print(f"  layers of one SDXL triplet call: VAE encode {vae_ms:.1f} ms of {call_ms:.1f} ms "
+          f"({100 * vae_ms / call_ms:.1f} %), text cache, UNet to the tap and readout the rest",
+          flush=True)
+    return out
+
+
+def profile_call(fn, what: str, top: int = 14) -> None:
     """Device time by kernel over one call, from torch.profiler (information for PERF.md):
     the device's busy time is the sum of kernel self times (one stream, no overlap)."""
     from torch.profiler import ProfilerActivity, profile
@@ -324,34 +560,52 @@ def profile_call(fn, top: int = 12) -> None:
     if not kern:
         print("  profile: the profiler recorded no device time (not measured)")
         return
-    print(f"  profile of one triplet call: wall {wall_ms:.1f} ms under the profiler, device "
+    print(f"  profile of one {what}: wall {wall_ms:.1f} ms under the profiler, device "
           f"busy {busy:.1f} ms ({100 * busy / wall_ms:.1f} %) in {sum(r[1] for r in kern)} "
           "kernel launches; top kernels by device time:")
     for name, count, ms in kern[:top]:
         print(f"    {ms:8.2f} ms {100 * ms / busy:5.1f} % x{count:<4d} {name[:100]}")
 
 
-def kernel_entry(name, source, replaces, launches, result, keys) -> dict:
-    """One kernel's entry of the kernels line. Its times are summed over one UNet forward's
-    launches at B = 24: ``keys`` maps each main-path row's trailing shape to its launches per
-    forward."""
-    rows = [(r, keys[tuple(r["shape"][-2:])]) for r in result["rows"]
-            if tuple(r["shape"][-2:]) in keys and "ms" in r]
+def _totals(rows, key) -> dict | None:
+    """A kernel's numbers summed over one call's launches: ``key`` names each timed row's
+    launches per call."""
+    rows = [r for r in rows if r.get(key) and "ms" in r]
+    if not rows:
+        return None
 
-    def total(key):
-        if any(r[key] is None for r, _ in rows):
+    def total(field):
+        if any(r[field] is None for r in rows):
             return None
-        return sum(r[key] * n for r, n in rows)
+        return sum(r[field] * r[key] for r in rows)
 
     ms, bound_ms = total("ms"), total("bound_ms")
-    ops_ms = sum(r["bound_ms"] * n for r, n in rows if r["bound_by"] == "operations")
-    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches, "max_abs_err": result["max_abs_err"], "ms": ms,
-            "plain_ms": total("plain_ms"), "bound_ms": bound_ms,
+    ops_ms = sum(r["bound_ms"] * r[key] for r in rows if r["bound_by"] == "operations")
+    return {"ms": ms, "plain_ms": total("plain_ms"), "bound_ms": bound_ms,
             "bound_by": "operations" if ops_ms >= bound_ms / 2 else "bytes",
             "library_ms": total("library_ms"), "roofline_share": bound_ms / ms,
-            "per": "one UNet forward at B=24 (sum over its launches)",
-            "shapes": result["rows"]}
+            "peak": rows[0]["peak"]}
+
+
+SD15_PER = "one SD-1.5 UNet forward at B=24 (sum over its launches)"
+XL_PER = f"one SDXL score_triplet_batch call ({XL_T} triplets, 1024 px), the sum over its launches"
+
+
+def _path(result, launches, key, per) -> dict:
+    return {"launches": launches, **_totals(result["rows"], key), "per": per}
+
+
+def kernel_entry(name, source, replaces, result, path, sdxl=None) -> dict:
+    """One kernel's entry of the kernels line. ``path`` = (launches, row key, per) gives the
+    top-level numbers, summed over one call of the path the kernel was ported on: one SD-1.5
+    UNet forward for K1 and K2 (as the first slice reported them), one SDXL triplet call for
+    K3 and K4. ``sdxl`` gives K1's and K2's numbers over one SDXL triplet call, under "sdxl"."""
+    entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+             "max_abs_err": result["max_abs_err"], **_path(result, *path)}
+    if sdxl is not None:
+        entry["sdxl"] = _path(result, *sdxl)
+    entry["shapes"] = result["rows"]
+    return entry
 
 
 def main() -> int:
@@ -372,15 +626,33 @@ def main() -> int:
     gen.manual_seed(0)
     k1 = k1_phase(gen)
     k2 = k2_phase(gen)
+    k3 = k3_phase(gen)
+    k4 = k4_phase(gen)
     tiny_phase()
-    counts = main_path_phase(card_line)
+    tiny_xl_phase()
+    sd15 = sd15_phase(card_line)["counts"]
+    torch.cuda.empty_cache()
+    xl = sdxl_phase(card_line)["counts"]
+
+    def on_sd15(kernel):
+        return sd15[kernel], "launches_sd15_forward", SD15_PER
+
+    def on_xl(kernel):
+        return xl[kernel], "launches_sdxl_call", XL_PER
+
     line = {"kernels": [
         kernel_entry("fused_self_attention", "diffsim_tpu_torch/csrc/fused_attention.cu",
-                     "diffsim_tpu/ops/pallas/attention.py:101", counts["fused_self_attention"],
-                     k1, {(s, d): n for s, d, n in K1_SITES}),
+                     "diffsim_tpu/ops/pallas/attention.py:101", k1,
+                     on_sd15("fused_self_attention"), on_xl("fused_self_attention")),
         kernel_entry("fused_geglu_ff", "diffsim_tpu_torch/csrc/geglu_ff.cu",
-                     "diffsim_tpu/ops/pallas/ff.py:75", counts["fused_geglu_ff"], k2,
-                     {(BATCH * s, c): n for s, c, n in K2_SITES}),
+                     "diffsim_tpu/ops/pallas/ff.py:75", k2,
+                     on_sd15("fused_geglu_ff"), on_xl("fused_geglu_ff")),
+        kernel_entry("cross_self_partials", "diffsim_tpu_torch/csrc/fused_readout.cu",
+                     "diffsim_tpu/ops/pallas/readout.py:71", k3,
+                     on_xl("cross_self_partials")),
+        kernel_entry("streaming_self_attention", "diffsim_tpu_torch/csrc/streaming_attention.cu",
+                     "diffsim_tpu/ops/pallas/attention_stream.py:94", k4,
+                     on_xl("streaming_self_attention")),
     ]}
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

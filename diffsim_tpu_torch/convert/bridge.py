@@ -8,7 +8,8 @@ parameters after the same tree paths ('/' -> '.'), with torch's leaf names:
 * ``w`` of rank 2 (dense, (in, out)) -> ``weight`` in nn.Linear's (out, in) — K2's weights
   included, since the K2 kernel takes the nn.Linear layout;
 * ``b`` -> ``bias``; norm ``scale`` / ``bias`` -> ``weight`` / ``bias``;
-* the text tower's ``token_embedding`` / ``position_embedding`` tables as they are.
+* the text towers' ``token_embedding`` / ``position_embedding`` tables as they are (``text``
+  and SDXL's ``text2``, whose ``text_projection`` is a dense ``w`` without a bias).
 
 The bridge is strict: a leaf it cannot place raises in :func:`from_jax_tree`, and
 :func:`load` raises on any parameter the module expects but the tree lacks, or on a shape
@@ -23,14 +24,15 @@ from torch import nn
 
 from diffsim_tpu_torch.convert.store import _flatten, unflatten
 
-KINDS = ("unet", "vae", "text")
+KINDS = ("unet", "vae", "text", "text2")
+_TEXT_KINDS = ("text", "text2")
 _TEXT_TABLES = ("token_embedding", "position_embedding")
 
 
 def _convert(path: str, leaf: np.ndarray, kind: str) -> tuple[str, np.ndarray]:
     *prefix, name = path.split("/")
     arr = np.asarray(leaf)
-    if kind == "text" and path in _TEXT_TABLES:
+    if kind in _TEXT_KINDS and path in _TEXT_TABLES:
         return path, arr
     if name == "w" and arr.ndim == 4:
         return ".".join(prefix + ["weight"]), arr.transpose(3, 2, 0, 1)
@@ -44,8 +46,9 @@ def _convert(path: str, leaf: np.ndarray, kind: str) -> tuple[str, np.ndarray]:
 
 
 def from_jax_tree(tree, kind: str) -> dict[str, np.ndarray]:
-    """The JAX parameter tree of a ``kind`` model ('unet', 'vae' or 'text') as the port's flat
-    state: {parameter name: numpy array in the port's layout}. Every leaf is consumed."""
+    """The JAX parameter tree of a ``kind`` model ('unet', 'vae', 'text' or 'text2') as the
+    port's flat state: {parameter name: numpy array in the port's layout}. Every leaf is
+    consumed."""
     if kind not in KINDS:
         raise ValueError(f"bridge: unknown kind {kind!r} (one of {KINDS})")
     state = {}
@@ -77,7 +80,7 @@ def to_jax_tree(state, kind: str):
               else np.asarray(v) for k, v in state.items()}
     flat = {}
     for name, arr in arrays.items():
-        if kind == "text" and name in _TEXT_TABLES:
+        if kind in _TEXT_KINDS and name in _TEXT_TABLES:
             flat[name] = arr
             continue
         prefix, leaf = name.rsplit(".", 1)

@@ -1,4 +1,4 @@
-"""SD-1.5 noise-schedule tables (the port's own copy of the SD-1.5 part of
+"""SD-1.5 and SDXL noise-schedule tables (the port's own copy of the SD-1.5 and SDXL parts of
 ``diffsim_tpu/core/schedulers.py``; numpy only).
 
 The scorer needs one closed form for the tensor that enters the UNet:
@@ -69,3 +69,31 @@ def sd15_noise_spec(target_step: int, num_inference_steps: int = 1000) -> NoiseS
     t = int(table[target_step])
     ac = alphas_cumprod("scaled_linear")[min(t, NUM_TRAIN_TIMESTEPS - 1)]
     return NoiseSpec(model_t=float(t), a=float(np.sqrt(ac)), b=float(np.sqrt(1.0 - ac)))
+
+
+@lru_cache(maxsize=None)
+def _euler_sigmas(n: int = NUM_TRAIN_TIMESTEPS) -> np.ndarray:
+    ac = alphas_cumprod("scaled_linear", n)
+    sig = np.sqrt((1.0 - ac) / ac)
+    sig.setflags(write=False)
+    return sig
+
+
+def euler_init_noise_sigma() -> float:
+    sig = _euler_sigmas()
+    return float(np.sqrt(sig.max() ** 2 + 1.0))
+
+
+def sdxl_noise_spec(target_step: int, num_inference_steps: int = 1000) -> NoiseSpec:
+    """SDXL: EulerDiscrete "leading" timesteps with offset 1 are [1000, 999, ..., 1], so
+    t = 1000 - target_step. The reference pipeline scales the clean latents by
+    ``init_noise_sigma``, adds sigma_t * eps and divides by sqrt(sigma_t^2 + 1), which reduces
+    to a = init_noise_sigma * c_in, b = sigma_t * c_in: the image signal is amplified ~14.6x
+    relative to a standard q_sample (quirk Q6, kept for parity). sigma_t comes from np.interp
+    over the 1000-entry table, which clamps t = 1000 to index 999."""
+    t = NUM_TRAIN_TIMESTEPS - target_step
+    sig = _euler_sigmas()
+    sigma_t = float(np.interp(float(t), np.arange(len(sig), dtype=np.float64), sig))
+    c_in = 1.0 / np.sqrt(sigma_t**2 + 1.0)
+    return NoiseSpec(model_t=float(t), a=float(euler_init_noise_sigma() * c_in),
+                     b=float(sigma_t * c_in))

@@ -17,15 +17,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from diffsim_tpu_torch.core import prng, schedulers
+from diffsim_tpu_torch.core import schedulers
 from diffsim_tpu_torch.core.image import load_and_process
 from diffsim_tpu_torch.core.tokenizer import HashTokenizer
-from diffsim_tpu_torch.metrics import readout
 from diffsim_tpu_torch.metrics.scorer_base import (
     build_module,
     fetchable,
     fetchable_pair,
+    pair_score,
     resolve_device,
+    role_noise,
     to_device_pixels,
 )
 from diffsim_tpu_torch.models.clip_text import CLIPText, CLIPTextConfig
@@ -152,16 +153,6 @@ class DiffSimSD15:
         n, P = len(roles), roles[0].shape[0]
         return moments.reshape((n, P) + moments.shape[1:]).transpose(0, 1)
 
-    def _role_noise(self, seed: int, h: int, w: int, noise_override=None):
-        """(eps_vae, eps_noise), each (2, C, h, w) f32 on the device: roles [A, B]."""
-        if noise_override is not None:
-            return tuple(torch.as_tensor(np.asarray(e, np.float32), device=self.device)
-                         .permute(0, 3, 1, 2) for e in noise_override)
-        vae_a, vae_b, noise_a, noise_b = prng.role_noise(
-            seed, (h, w, self.vae_cfg.latent_channels), self.device)
-        return (torch.stack([vae_a, vae_b]).permute(0, 3, 1, 2),
-                torch.stack([noise_a, noise_b]).permute(0, 3, 1, 2))
-
     def _taps(self, moments, embeds, eps_vae, eps_noise, spec, tap: TapSpec):
         """Moments (P, n, 2C, h, w) of n images per item, per-image noise (n, C, h, w) (eps_vae
         None => posterior mean) -> q, k, v each (P, n * per_img, heads, S, D), and per_img."""
@@ -186,12 +177,6 @@ class DiffSimSD15:
         _, taps = self.unet(x_in, model_t, ctx, tap=tap)
         nb = n * per_img
         return [t.reshape((P, nb) + t.shape[1:]) for t in (taps["q"], taps["k"], taps["v"])], per_img
-
-    @staticmethod
-    def _pair_score(qkv, sl_a: slice, sl_b: slice, similarity: str):
-        q, k, v = qkv
-        return readout.cross_attention_score(q[:, sl_a], k[:, sl_a], v[:, sl_a],
-                                             q[:, sl_b], k[:, sl_b], v[:, sl_b], similarity)
 
     # ------------------------------------------------------------------
     # public API
@@ -230,12 +215,13 @@ class DiffSimSD15:
             raise ValueError(f"{len(prompts)} prompts for {P} pairs")
         moments = self._encode([pix_a, pix_b])
         h, w = moments.shape[-2:]
-        eps_vae, eps_noise = self._role_noise(seed, h, w, noise_override)
+        eps_vae, eps_noise = role_noise(seed, h, w, self.vae_cfg.latent_channels, self.device,
+                                        noise_override)
         if self.vae_mode and noise_override is None:
             eps_vae = None
         qkv, per_img = self._taps(moments, self._embeds(prompts), eps_vae, eps_noise,
                                   schedulers.sd15_noise_spec(int(target_step)), tap)
-        scores = self._pair_score(qkv, slice(0, per_img), slice(per_img, 2 * per_img),
+        scores = pair_score(qkv, slice(0, per_img), slice(per_img, 2 * per_img),
                                   similarity)
         return fetchable(scores, blocking)
 
@@ -272,14 +258,15 @@ class DiffSimSD15:
             sl = slice(i, i + step)
             moments = self._encode([pix_a[sl], pix_b[sl], pix_c[sl]])
             h, w = moments.shape[-2:]
-            eps_vae, eps_noise = self._role_noise(seed, h, w)
+            eps_vae, eps_noise = role_noise(seed, h, w, self.vae_cfg.latent_channels,
+                                            self.device)
             idx = torch.tensor([0, 1, 1], device=self.device)  # roles A, B, B
             qkv, per_img = self._taps(
                 moments, self._embeds(prompts[sl]),
                 None if self.vae_mode else eps_vae[idx], eps_noise[idx], spec, tap)
             a, b, c = (slice(j * per_img, (j + 1) * per_img) for j in range(3))
-            s_ab.append(self._pair_score(qkv, a, b, similarity))
-            s_ac.append(self._pair_score(qkv, a, c, similarity))
+            s_ab.append(pair_score(qkv, a, b, similarity))
+            s_ac.append(pair_score(qkv, a, c, similarity))
         return fetchable_pair(torch.cat(s_ab), torch.cat(s_ac), blocking)
 
     def diffsim(self, image_a, image_b, img_size=None, prompt="", target_block="up_blocks",

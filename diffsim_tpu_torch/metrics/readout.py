@@ -8,9 +8,10 @@ for two images it computes
 reduced with full-flatten cosine (eps 1e-8) or MSE over everything but the leading pair axis,
 and averaged over both directions. Taps are (P, B, heads, seq, head_dim).
 
-Tap shapes that the JAX package routes to its fused readout kernel (K3: S >= 512, D <= 128, the
-SD-1.5 up-block-2/3 taps) raise on CUDA until K3 is ported; on the CPU they take the math
-path, which is K3's plain version.
+Tap shapes that the JAX package routes to its fused readout kernel (K3: S >= 512, S % 512 == 0,
+D <= 128: every SDXL tap, the SD-1.5 up-block-2/3 taps) go, both directions, through the port's
+K3 ``fused_direction_score`` (``ops/kernels/readout.py``), which never writes the four attention
+outputs; on a CPU tensor that is K3's plain version.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import torch
 
 from diffsim_tpu_torch.ops.attention import sdpa
 from diffsim_tpu_torch.ops.kernels import routes
+from diffsim_tpu_torch.ops.kernels.readout import fused_direction_score
 
 _COS_EPS = 1e-8
 
@@ -41,10 +43,10 @@ def cross_attention_score(qa, ka, va, qb, kb, vb, similarity: str = "cosine") ->
     """(P,) DiffSim scores from per-image taps of shape (P, B, heads, seq, head_dim)."""
     if similarity not in ("cosine", "mse"):
         raise ValueError(f"unknown similarity: {similarity}")
-    if (qa.dim() == 5 and qa.shape == kb.shape and routes.use_fused_readout(qa.shape)
-            and qa.device.type != "cpu"):
-        raise routes.unported("K3 fused_direction_score", "diffsim_tpu/ops/pallas/readout.py",
-                              qa.shape)
+    if qa.dim() == 5 and qa.shape == kb.shape and routes.use_fused_readout(qa.shape):
+        a_on_b = fused_direction_score(qa, ka, va, kb, vb, similarity)
+        b_on_a = fused_direction_score(qb, kb, vb, ka, va, similarity)
+        return (a_on_b + b_on_a) / 2.0
     attn_a_on_b = sdpa(qa, kb, vb)
     attn_b_on_a = sdpa(qb, ka, va)
     self_attn_a = sdpa(qa, ka, va)

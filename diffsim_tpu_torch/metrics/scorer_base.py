@@ -10,6 +10,8 @@ import torch
 from torch import nn
 
 from diffsim_tpu_torch.convert import bridge
+from diffsim_tpu_torch.core import prng
+from diffsim_tpu_torch.metrics import readout
 
 
 def resolve_device(device) -> torch.device:
@@ -82,3 +84,23 @@ def to_device_pixels(roles, device: torch.device, dtype: torch.dtype) -> torch.T
         pix = torch.from_numpy(np.concatenate([np.asarray(r, np.float32) for r in roles]))
         pix = pix.to(device=device, dtype=dtype)
     return pix.permute(0, 3, 1, 2).contiguous()
+
+
+def role_noise(seed: int, h: int, w: int, channels: int, device: torch.device,
+               noise_override=None):
+    """(eps_vae, eps_noise), each (2, C, h, w) f32 on ``device``: roles [A, B]. The draws come
+    from ``seed`` (``core/prng.py``) unless ``noise_override`` gives them as two NHWC arrays
+    (2, h, w, C), the cross-framework parity mode."""
+    if noise_override is not None:
+        return tuple(torch.as_tensor(np.asarray(e, np.float32), device=device)
+                     .permute(0, 3, 1, 2) for e in noise_override)
+    vae_a, vae_b, noise_a, noise_b = prng.role_noise(seed, (h, w, channels), device)
+    return (torch.stack([vae_a, vae_b]).permute(0, 3, 1, 2),
+            torch.stack([noise_a, noise_b]).permute(0, 3, 1, 2))
+
+
+def pair_score(qkv, sl_a: slice, sl_b: slice, similarity: str) -> torch.Tensor:
+    """(P,) scores between the images at rows ``sl_a`` and ``sl_b`` of taps (P, rows, ...)."""
+    q, k, v = qkv
+    return readout.cross_attention_score(q[:, sl_a], k[:, sl_a], v[:, sl_a],
+                                         q[:, sl_b], k[:, sl_b], v[:, sl_b], similarity)

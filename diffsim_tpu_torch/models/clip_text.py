@@ -1,7 +1,10 @@
-"""CLIP text encoder (the SD-1.5 ViT-L/14 text tower), on the math path.
+"""CLIP text encoders (the SD-1.5 ViT-L/14 text tower; SDXL adds OpenCLIP bigG), on the math
+path.
 
-Counterpart of ``diffsim_tpu/models/clip_text.py`` for SD-1.5: the causal 77-token encoder whose
-final-LN ``last_hidden_state`` conditions the UNet. The SDXL towers come with the SDXL slice.
+Counterpart of ``diffsim_tpu/models/clip_text.py``: the causal 77-token encoder. SD-1.5 takes the
+final-LN ``last_hidden_state``; SDXL takes the penultimate hidden state of both towers
+(``output_hidden_states``: the list before the final LayerNorm) and tower 2's projected pooled
+EOS embedding.
 """
 
 from __future__ import annotations
@@ -12,7 +15,7 @@ import torch
 from torch import nn
 
 from diffsim_tpu_torch.ops.attention import merge_heads, split_heads
-from diffsim_tpu_torch.ops.blocks import LayerNorm, quick_gelu
+from diffsim_tpu_torch.ops.blocks import LayerNorm, gelu, quick_gelu
 
 
 @dataclasses.dataclass(frozen=True)
@@ -23,11 +26,18 @@ class CLIPTextConfig:
     heads: int = 12
     intermediate: int = 3072
     max_positions: int = 77
+    act: str = "quick_gelu"
     eps: float = 1e-5
+    projection_dim: int | None = None  # set => a text_projection (SDXL tower 2)
 
     @staticmethod
     def sd15() -> "CLIPTextConfig":
         return CLIPTextConfig()
+
+    @staticmethod
+    def sdxl_big_g() -> "CLIPTextConfig":
+        return CLIPTextConfig(hidden=1280, layers=32, heads=20, intermediate=5120, act="gelu",
+                              projection_dim=1280)
 
     @staticmethod
     def tiny(vocab_size: int = 1000) -> "CLIPTextConfig":
@@ -62,10 +72,11 @@ class _Layer(nn.Module):
         self.norm2 = LayerNorm(cfg.hidden, cfg.eps)
         self.fc1 = nn.Linear(cfg.hidden, cfg.intermediate)
         self.fc2 = nn.Linear(cfg.intermediate, cfg.hidden)
+        self.act = quick_gelu if cfg.act == "quick_gelu" else gelu
 
     def forward(self, x):
         x = x + self.attn(self.norm1(x))
-        return x + self.fc2(quick_gelu(self.fc1(self.norm2(x))))
+        return x + self.fc2(self.act(self.fc1(self.norm2(x))))
 
 
 class CLIPText(nn.Module):
@@ -76,10 +87,29 @@ class CLIPText(nn.Module):
         self.position_embedding = nn.Parameter(torch.empty(cfg.max_positions, cfg.hidden))
         self.layers = nn.ModuleList(_Layer(cfg) for _ in range(cfg.layers))
         self.final_norm = LayerNorm(cfg.hidden, cfg.eps)
+        if cfg.projection_dim is not None:
+            self.text_projection = nn.Linear(cfg.hidden, cfg.projection_dim, bias=False)
 
     def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
         """input_ids (B, 77) -> last_hidden_state (B, 77, hidden), after the final LayerNorm."""
+        return self.encode(input_ids)["last_hidden_state"]
+
+    def encode(self, input_ids: torch.Tensor, output_hidden_states: bool = False) -> dict:
+        """input_ids (B, 77) -> {'last_hidden_state', 'pooled'} plus 'text_embeds' (the
+        projected pooled embedding, with a projection) and 'hidden_states' (the embeddings and
+        every layer's output, before the final LayerNorm, with ``output_hidden_states``).
+        ``pooled`` is the final-LN state at argmax(input_ids): CLIP's EOS pooling (EOS has the
+        largest id of both CLIP vocabularies)."""
         x = self.token_embedding[input_ids] + self.position_embedding[None, : input_ids.shape[1]]
+        hidden_states = [x]
         for layer in self.layers:
             x = layer(x)
-        return self.final_norm(x)
+            hidden_states.append(x)
+        last = self.final_norm(x)
+        pooled = last[torch.arange(last.shape[0], device=last.device), input_ids.argmax(dim=-1)]
+        out = {"last_hidden_state": last, "pooled": pooled}
+        if self.cfg.projection_dim is not None:
+            out["text_embeds"] = self.text_projection(pooled)
+        if output_hidden_states:
+            out["hidden_states"] = hidden_states
+        return out

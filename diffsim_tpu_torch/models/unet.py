@@ -1,4 +1,4 @@
-"""UNet2DCondition (SD-1.5), NCHW inside, with first-class taps and an early exit.
+"""UNet2DCondition (SD-1.5 and SDXL), NCHW inside, with first-class taps and an early exit.
 
 Counterpart of ``diffsim_tpu/models/unet.py``. ``forward`` returns ``(eps_pred, taps)``. Tap
 addresses are absolute block coordinates ``(block_idx, attn_idx, tblock_idx)`` under
@@ -44,11 +44,28 @@ class UNetConfig:
     mid_transformer_depth: int = 1
     heads: tuple = (8, 8, 8, 8)
     cross_attention_dim: int = 768
+    linear_proj: bool = False
     norm_eps: float = 1e-5
+    addition_embed: str | None = None  # 'text_time' for SDXL
+    addition_time_embed_dim: int = 256
+    projection_class_embeddings_input_dim: int = 2816
 
     @staticmethod
     def sd15() -> "UNetConfig":
         return UNetConfig()
+
+    @staticmethod
+    def sdxl() -> "UNetConfig":
+        return UNetConfig(
+            block_out_channels=(320, 640, 1280),
+            cross_attn_blocks=(False, True, True),
+            transformer_depth=(0, 2, 10),
+            mid_transformer_depth=10,
+            heads=(5, 10, 20),
+            cross_attention_dim=2048,
+            linear_proj=True,
+            addition_embed="text_time",
+        )
 
     @staticmethod
     def tiny(cross_attention_dim: int = 32) -> "UNetConfig":
@@ -59,6 +76,22 @@ class UNetConfig:
             transformer_depth=(1, 0),
             heads=(2, 2),
             cross_attention_dim=cross_attention_dim,
+        )
+
+    @staticmethod
+    def tiny_xl(cross_attention_dim: int = 32) -> "UNetConfig":
+        return UNetConfig(
+            block_out_channels=(32, 64),
+            cross_attn_blocks=(False, True),
+            layers_per_block=1,
+            transformer_depth=(0, 2),
+            mid_transformer_depth=2,
+            heads=(2, 2),
+            cross_attention_dim=cross_attention_dim,
+            linear_proj=True,
+            addition_embed="text_time",
+            addition_time_embed_dim=8,
+            projection_class_embeddings_input_dim=16 + 8 * 6,
         )
 
     @property
@@ -94,7 +127,8 @@ class _Mid(nn.Module):
         c, ted = cfg.block_out_channels[-1], cfg.time_embed_dim
         self.resnet1 = ResnetBlock(c, c, ted, cfg.norm_eps)
         self.attentions = nn.ModuleList([SpatialTransformer(
-            c, cfg.mid_heads, cfg.cross_attention_dim, cfg.mid_transformer_depth)])
+            c, cfg.mid_heads, cfg.cross_attention_dim, cfg.mid_transformer_depth,
+            cfg.linear_proj)])
         self.resnet2 = ResnetBlock(c, c, ted, cfg.norm_eps)
 
 
@@ -117,11 +151,13 @@ class UNet(nn.Module):
         self.cfg = cfg
         chans, ted, eps = cfg.block_out_channels, cfg.time_embed_dim, cfg.norm_eps
         self.time_embedding = TimeMLP(chans[0], ted)
+        if cfg.addition_embed == "text_time":
+            self.add_embedding = TimeMLP(cfg.projection_class_embeddings_input_dim, ted)
         self.conv_in = conv3x3(cfg.in_channels, chans[0])
 
         def transformer(c, i):
             return SpatialTransformer(c, cfg.heads[i], cfg.cross_attention_dim,
-                                      cfg.transformer_depth[i])
+                                      cfg.transformer_depth[i], cfg.linear_proj)
 
         down, skip_channels, cin = [], [chans[0]], chans[0]
         for i, cout in enumerate(chans):
@@ -156,16 +192,24 @@ class UNet(nn.Module):
         self.norm_out = GroupNorm(chans[0], eps)
         self.conv_out = conv3x3(chans[0], cfg.out_channels)
 
-    def forward(self, x, t, context, *, tap: TapSpec | None = None, stop_at_tap: bool = True):
+    def forward(self, x, t, context, *, tap: TapSpec | None = None, stop_at_tap: bool = True,
+                added_cond: dict | None = None):
         """x: (B, C, H, W) noisy latents; t: scalar or (B,) timestep tensor; context:
-        (B, 77, cdim) text embeddings. Returns ``(eps_pred, taps)``; ``eps_pred`` is None when
-        the forward stopped at the tap."""
+        (B, 77, cdim) text embeddings; ``added_cond`` for SDXL: {'text_embeds': (B, 1280),
+        'time_ids': (B, 6)}. Returns ``(eps_pred, taps)``; ``eps_pred`` is None when the forward
+        stopped at the tap."""
         stop = stop_at_tap and tap is not None
         t = torch.as_tensor(t, dtype=torch.float32, device=x.device)
         if t.dim() == 0:
             t = t.expand(x.shape[0])
         emb = self.time_embedding(
             timestep_embedding(t, self.cfg.block_out_channels[0]).to(x.dtype))
+        if self.cfg.addition_embed == "text_time":
+            time_ids = added_cond["time_ids"]
+            tproj = timestep_embedding(time_ids.reshape(-1), self.cfg.addition_time_embed_dim)
+            add = torch.cat([added_cond["text_embeds"],
+                             tproj.reshape(time_ids.shape[0], -1).to(x.dtype)], dim=-1)
+            emb = emb + self.add_embedding(add.to(x.dtype))
 
         taps: dict = {}
         h = self.conv_in(x)

@@ -2,8 +2,8 @@
 
 Counterpart of the encoder half of ``diffsim_tpu/models/vae.py``: the scorers only encode. The
 decoder is not ported yet (ROADMAP.md). The mid attention is single-head at d = 512; at 512 px
-(4096 tokens) it takes the math path, as in the JAX package; at >= 8192 tokens the JAX package
-routes it to the K4 streaming kernel, which raises here on CUDA until K4 is ported.
+(4096 tokens) it takes the math path, as in the JAX package; at >= 8192 tokens (1024 px, the
+SDXL path) it runs the K4 streaming kernel (``ops/kernels/attention_stream.py``).
 """
 
 from __future__ import annotations
@@ -28,6 +28,10 @@ class VAEConfig:
     @staticmethod
     def sd() -> "VAEConfig":
         return VAEConfig()
+
+    @staticmethod
+    def sdxl() -> "VAEConfig":
+        return VAEConfig(scaling_factor=0.13025)
 
     @staticmethod
     def tiny() -> "VAEConfig":
@@ -106,6 +110,23 @@ class Encoder(nn.Module):
         h = self.mid(h)
         h = self.conv_out(silu(self.norm_out(h)))
         return self.quant_conv(h)
+
+
+def default_chunk(x: torch.Tensor) -> int:
+    """The JAX package's default encode chunk: 16 images at 512 px in bf16, so 2 at 1024 px in
+    f32 (the input pixels of a slice are held at 8 MiB). The formula is a TPU memory
+    calibration, kept for parity of the chunking."""
+    budget = 16 * 512 * 512 * 2
+    return max(1, budget // (x.shape[-2] * x.shape[-1] * x.element_size()))
+
+
+def encode_chunked(encoder: Encoder, x: torch.Tensor, chunk: int | None = None) -> torch.Tensor:
+    """``encoder`` over (B, 3, H, W) in slices of ``chunk`` images (default
+    :func:`default_chunk`), a Python loop standing in for the JAX package's
+    ``encoder_apply_chunked`` (``lax.map`` plus one remainder slice). Slicing bounds the
+    full-resolution activations, the largest live buffers of the scoring graph."""
+    chunk = chunk or default_chunk(x)
+    return torch.cat([encoder(x[i:i + chunk]) for i in range(0, x.shape[0], chunk)])
 
 
 def sample_latents(moments, scaling_factor: float, noise=None, mode: bool = False):

@@ -1,4 +1,4 @@
-"""Shared neural-net blocks of the SD-1.5 models, as torch modules (NCHW inside).
+"""Shared neural-net blocks of the SD-1.5 and SDXL models, as torch modules (NCHW inside).
 
 Counterpart of ``diffsim_tpu/ops/blocks.py``. Parameter names follow the JAX parameter tree
 (``to_q``, ``norm1``, ``proj_in``, ...), with torch's leaf names (``weight``/``bias``), so the
@@ -233,23 +233,31 @@ class BasicTransformerBlock(nn.Module):
 
 
 class SpatialTransformer(nn.Module):
-    """Transformer2DModel: GN(32, eps 1e-6) -> 1x1-conv proj_in -> tokens -> blocks ->
-    1x1-conv proj_out -> +res (SD-1.5; SDXL's linear projections come with its slice)."""
+    """Transformer2DModel: GN(32, eps 1e-6) -> proj_in -> tokens -> blocks -> proj_out -> +res.
+    SD-1.5 projects with 1x1 convolutions; SDXL (``linear_proj=True``) with nn.Linear on the
+    tokens."""
 
-    def __init__(self, channels: int, heads: int, context_dim: int, depth: int = 1):
+    def __init__(self, channels: int, heads: int, context_dim: int, depth: int = 1,
+                 linear_proj: bool = False):
         super().__init__()
+        self.linear_proj = linear_proj
+        proj = nn.Linear if linear_proj else conv1x1
         self.norm = GroupNorm(channels, eps=1e-6)
-        self.proj_in = conv1x1(channels, channels)
+        self.proj_in = proj(channels, channels)
         self.blocks = nn.ModuleList(
             BasicTransformerBlock(channels, heads, context_dim) for _ in range(depth))
-        self.proj_out = conv1x1(channels, channels)
+        self.proj_out = proj(channels, channels)
 
     def forward(self, x, context, *, tap=None, stop: bool = False):
         """``tap`` is None or {'tblock': int, 'attn': str, 'capture': str}; negative tblock
         indices count from the end."""
         b, c, hgt, wid = x.shape
         res = x
-        h = self.proj_in(self.norm(x)).flatten(2).transpose(1, 2)
+        h = self.norm(x)
+        if self.linear_proj:
+            h = self.proj_in(h.flatten(2).transpose(1, 2))
+        else:
+            h = self.proj_in(h).flatten(2).transpose(1, 2)
         taps = {}
         n = len(self.blocks)
         for i, blk in enumerate(self.blocks):
@@ -258,7 +266,12 @@ class SpatialTransformer(nn.Module):
             taps.update(t)
             if t and stop:
                 return None, taps
-        return self.proj_out(h.transpose(1, 2).reshape(b, c, hgt, wid)) + res, taps
+        if self.linear_proj:
+            h = self.proj_out(h)
+        h = h.transpose(1, 2).reshape(b, c, hgt, wid)
+        if not self.linear_proj:
+            h = self.proj_out(h)
+        return h + res, taps
 
 
 # ---------------------------------------------------------------------------

@@ -1,12 +1,14 @@
 """Build the CUDA sources under ``diffsim_tpu_torch/csrc`` at first use and load them.
 
-Each ``csrc/<name>.cu`` has a plain C interface and becomes its own shared library:
+Each ``csrc/<name>.cu`` has a plain C interface and becomes its own shared library (the
+``csrc/*.cuh`` headers are included by the sources):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
 
-into ``diffsim_tpu_torch/_build/`` (git-ignored), named by a hash of the source so an edited
-source is rebuilt. Libraries are loaded with ``ctypes``. Nothing here runs at import time:
-the CPU tests import every module of the port, and this machine may have no ``nvcc``.
+into ``diffsim_tpu_torch/_build/`` (git-ignored), named by a hash of the source and the headers
+so an edited source or header is rebuilt. Libraries are loaded with ``ctypes``. Nothing here runs
+at import time: the CPU tests import every module of the port, and a machine without a card may
+have no ``nvcc``.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import threading
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
-SOURCES = ("fused_attention", "geglu_ff")
+SOURCES = ("fused_attention", "geglu_ff", "fused_readout", "streaming_attention")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -39,8 +41,12 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for fname in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC_DIR, fname), "rb") as f:
+            digest.update(f.read())
+    digest = digest.hexdigest()[:12]
     return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
 
 

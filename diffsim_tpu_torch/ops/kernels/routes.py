@@ -7,9 +7,6 @@ They are the shape parts of the JAX package's route predicates, ported exactly:
 (``pallas_route``) becomes the tensor's device in the port: a CPU tensor runs the kernel's
 plain version, a CUDA tensor launches the kernel. The ``DIFFSIM_TPU_NO_PALLAS`` kill switch is
 deliberately absent.
-
-A shape that routes to a kernel the port does not have yet raises on CUDA
-(:func:`unported`) instead of quietly taking the math path.
 """
 
 from __future__ import annotations
@@ -56,10 +53,3 @@ def use_streaming(q_shape, k_shape) -> bool:
     s, d = q_shape[-2], q_shape[-1]
     return q_shape[-2] == k_shape[-2] and s >= MIN_STREAM_SEQ and s % 256 == 0 and 160 < d <= 1024
 
-
-def unported(kernel: str, where: str, shape) -> NotImplementedError:
-    """The error a CUDA call raises when its shape routes to a TPU kernel not yet ported."""
-    return NotImplementedError(
-        f"{kernel} ({where}) is not ported to CUDA yet: shape {tuple(shape)} routes to it. "
-        "See ROADMAP.md, Queue 2."
-    )

@@ -17,43 +17,57 @@ from diffsim_tpu_torch.models.unet import UNet, UNetConfig
 from diffsim_tpu_torch.models.vae import Encoder, VAEConfig
 
 
-def _jax_tree(kind):
+# SDXL's tower 2 at tiny width: gelu and a bias-free text projection
+TEXT2 = dict(vocab_size=1000, hidden=32, layers=2, heads=2, intermediate=64, act="gelu",
+             projection_dim=16)
+
+
+def _jax_tree(case):
     key = jax.random.PRNGKey(3)
-    if kind == "unet":
+    if case == "unet":
         return jax.device_get(junet.init(key, junet.UNetConfig.tiny(), jnp.float32))
-    if kind == "vae":
+    if case == "unet_xl":
+        return jax.device_get(junet.init(key, junet.UNetConfig.tiny_xl(64), jnp.float32))
+    if case == "vae":
         return jax.device_get(jvae.encoder_init(key, jvae.VAEConfig.tiny(), jnp.float32))
+    if case == "text2":
+        return jax.device_get(jclip.init(key, jclip.CLIPTextConfig(**TEXT2), jnp.float32))
     return jax.device_get(jclip.init(key, jclip.CLIPTextConfig.tiny(), jnp.float32))
 
 
 _FACTORIES = {
     "unet": lambda: UNet(UNetConfig.tiny()),
+    "unet_xl": lambda: UNet(UNetConfig.tiny_xl(64)),
     "vae": lambda: Encoder(VAEConfig.tiny()),
     "text": lambda: CLIPText(CLIPTextConfig.tiny()),
+    "text2": lambda: CLIPText(CLIPTextConfig(**TEXT2)),
 }
+_KINDS = {"unet_xl": "unet"}  # the bridge kind of each case, where it differs from the name
 
 
-def _built(kind, tree):
+def _built(case, tree):
     with torch.device("meta"):
-        module = _FACTORIES[kind]()
-    return bridge.load(module, tree, kind, "cpu", torch.float32)
+        module = _FACTORIES[case]()
+    return bridge.load(module, tree, _KINDS.get(case, case), "cpu", torch.float32)
 
 
-@pytest.mark.parametrize("kind", ["unet", "vae", "text"])
+@pytest.mark.parametrize("kind", ["unet", "vae", "text", "text2", "unet_xl"])
 def test_bridge_round_trips_tiny_init_trees_strictly(kind):
+    """SD-1.5's three trees and SDXL's two new shapes (the bigG-style tower, the UNet with
+    linear projections and the text_time addition embedding)."""
     tree = _jax_tree(kind)
     flat = jax_store._flatten(tree)
     module = _built(kind, tree)
     state = module.state_dict()
     assert len(state) == len(flat)  # every leaf consumed, every parameter provided
     assert not any(t.is_meta for t in state.values())
-    back = store._flatten(bridge.to_jax_tree(state, kind))
+    back = store._flatten(bridge.to_jax_tree(state, _KINDS.get(kind, kind)))
     assert set(back) == set(flat)
     for key, arr in flat.items():
         np.testing.assert_array_equal(back[key], arr)
 
 
-@pytest.mark.parametrize("kind", ["unet", "vae", "text"])
+@pytest.mark.parametrize("kind", ["unet", "vae", "text", "text2"])
 def test_bridge_rejects_an_unknown_leaf(kind):
     tree = _jax_tree(kind)
     tree["surplus"] = {"gamma": np.zeros((3,), np.float32)}

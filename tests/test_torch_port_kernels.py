@@ -74,7 +74,8 @@ def test_cpu_tensors_take_the_plain_versions_without_counting_launches():
     w = [torch.from_numpy(_rand(sh, 14 + i)) for i, sh in
          enumerate([(256, 32), (256,), (32, 128), (32,)])]
     assert torch.equal(fused_geglu_ff(x, *w), fused_geglu_ff_plain(x, *w))
-    assert kernels.launch_counts() == {"fused_self_attention": 0, "fused_geglu_ff": 0}
+    assert kernels.launch_counts() == {"fused_self_attention": 0, "fused_geglu_ff": 0,
+                                       "cross_self_partials": 0, "streaming_self_attention": 0}
 
 
 ATTN_SHAPES = [
@@ -126,13 +127,14 @@ def _meta(shape):
 
 
 def test_unported_kernels_raise_off_the_cpu():
-    """Off the CPU, a shape routed to a kernel the port does not have yet (K3, K4) raises
-    instead of quietly taking the math path (meta tensors stand in for CUDA ones here)."""
+    """Off the CPU, a routed shape never quietly takes the math path: it reaches its kernel's
+    wrapper (K3, K4 included, now ported), which launches on CUDA and raises on any other
+    device (meta tensors stand in for CUDA ones here)."""
     big = _meta((1, 1, 16384, 512))
-    with pytest.raises(NotImplementedError, match="K4 streaming_self_attention"):
+    with pytest.raises(ValueError, match="streaming_self_attention: unsupported device"):
         tattn.sdpa(big, big, big)
     tap = _meta((1, 2, 8, 1024, 80))
-    with pytest.raises(NotImplementedError, match="K3 fused_direction_score"):
+    with pytest.raises(ValueError, match="cross_self_partials: unsupported device"):
         treadout.cross_attention_score(tap, tap, tap, tap, tap, tap)
     with pytest.raises(ValueError, match="unsupported device"):
         fused_self_attention(_meta((1, 1, 256, 40)), _meta((1, 1, 256, 40)),
