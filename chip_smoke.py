@@ -10,7 +10,8 @@ Phases, each of which fails the run (non-zero exit, no result line) if anything 
 3. K1 ``fused_self_attention`` at the SD-1.5 main-path shapes (B = 24: 4 triplets x 6 CFG
    rows) and the SDXL ones (B = 12: 2 triplets), at S = 1280, in float32, and at every head
    dim it takes, against its plain version; timed beside the plain version,
-   ``F.scaled_dot_product_attention`` (a yardstick only; the port never calls it) and the
+   ``F.scaled_dot_product_attention`` (a yardstick only; the port never calls it), its
+   previous design (v2, ``csrc/attention_v2.cu``, also held to the plain version) and the
    card's bound;
 4. K2 ``fused_geglu_ff`` at its main-path shapes, the same way (no single PyTorch call
    computes GEGLU-FF, so K2 has no library time), and at ragged row counts and other widths
@@ -21,7 +22,7 @@ Phases, each of which fails the run (non-zero exit, no result line) if anything 
    ``scaled_dot_product_attention`` calls plus the reduction are timed as information);
 6. K4 ``streaming_self_attention`` at the 1024 px VAE mid attention (2, 1, 16384, 512) in
    float32 (the SDXL main path) and bf16, and at a ragged S = 8448, with SDPA as its library
-   time;
+   time and, in float32, its previous design (v2) beside it;
 7. end-to-end correctness, card vs CPU from one seeded numpy weight tree and one
    ``noise_override``, in float32 with TF32 off: a tiny ``DiffSimSD15`` at 32 px (K1, K2) and a
    tiny ``DiffSimXL`` at 256 px (all four kernels);
@@ -37,13 +38,18 @@ Phases, each of which fails the run (non-zero exit, no result line) if anything 
 
 The line before the last is one JSON object ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Timings use CUDA events (median of 20 after 3 warm-ups; 5
-for the slowest plain versions). Bounds use the H100 SXM's published dense peaks: 989 TFLOP/s
-bf16 tensor cores, 67 TFLOP/s float32 outside the tensor cores, 3.35 TB/s.
+for the slowest plain versions); a kernel, its library call and its v2 are timed in turns,
+twice, and each keeps its lower median. A bound is the largest of three times at the H100
+SXM's published dense peaks: the products (989 TFLOP/s bf16 tensor cores; K4 float32 three
+TF32 passes at 495 TFLOP/s; 67 TFLOP/s float32 outside the tensor cores), the exponentials
+(3.9e12/s on the special-function units, FlashAttention-3 section 1: b h s^2 for K1 and K4,
+twice that per direction for K3) and the bytes (3.35 TB/s).
 """
 
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import json
 import os
 import statistics
@@ -75,6 +81,8 @@ from diffsim_tpu_torch.ops.kernels.ff import fused_geglu_ff, fused_geglu_ff_plai
 from diffsim_tpu_torch.ops.kernels.readout import fused_direction_score, fused_direction_score_plain
 
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # H100 SXM: bf16 tensor, FP32 SIMT
+PEAK_TF32 = 495e12  # H100 SXM dense TF32 tensor cores: K4 float32 runs three passes (3xTF32)
+PEAK_EXP = 3.9e12  # exp/s of the H100 SXM's special-function units (FlashAttention-3, section 1)
 PEAK_BYTES = 3.35e12  # HBM3 bandwidth, H100 SXM
 CUTE = dict(prompt="The photo of a cat", target_block="up_blocks", target_layer=(0,),
             target_step=600, similarity="cosine", seed=2334)
@@ -126,9 +134,17 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
-def bound(flops: float, nbytes: float, dtype=torch.bfloat16) -> tuple[float, str]:
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype] * 1e3, nbytes / PEAK_BYTES * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+def bound(flops: float, nbytes: float, dtype=torch.bfloat16, exps: float = 0.0,
+          tf32x3: bool = False) -> tuple[float, str, dict]:
+    """The least time the card could take for the work, in ms: the largest of the products
+    over their peak (3 x the FLOP over the TF32 peak for a 3xTF32 kernel), the exponentials
+    over the special-function units' rate and the bytes over the memory rate. Products and
+    exponentials are both "operations"."""
+    t_ops = (3 * flops / PEAK_TF32 if tf32x3 else flops / PEAK_FLOPS[dtype]) * 1e3
+    terms = {"ops_ms": t_ops, "exp_ms": exps / PEAK_EXP * 1e3,
+             "bytes_ms": nbytes / PEAK_BYTES * 1e3}
+    t = max(terms.values())
+    return t, "bytes" if t == terms["bytes_ms"] else "operations", terms
 
 
 def check_close(name, out, ref, atol, rtol, quiet: bool = False) -> float:
@@ -167,16 +183,51 @@ def card() -> str:
     return line
 
 
-def _timed(row, kernel, plain, library, flops, nbytes, dtype=torch.bfloat16, plain_reps=20):
-    row["ms"] = time_ms(kernel)
+def _timed(row, kernel, plain, library, flops, nbytes, dtype=torch.bfloat16, plain_reps=20,
+           exps: float = 0.0, tf32x3: bool = False, v2=None):
+    """Time the kernel, the library call and the kernel's previous design (``v2``) in turns,
+    twice over, and keep each one's lower median: none of them gets the warmer card."""
+    timed = {"ms": kernel, "library_ms": library, "v2_ms": v2}
+    runs = {key: [] for key, fn in timed.items() if fn is not None}
+    for _ in range(2):
+        for key in runs:
+            runs[key].append(time_ms(timed[key]))
+    row.update({key: min(ms) for key, ms in runs.items()})
+    row.setdefault("library_ms", None)
     row["plain_ms"] = time_ms(plain, reps=plain_reps)
-    row["library_ms"] = None if library is None else time_ms(library)
-    row["bound_ms"], row["bound_by"] = bound(flops, nbytes, dtype)
-    row["peak"] = ("989 TFLOP/s bf16 tensor" if dtype == torch.bfloat16
-                   else "67 TFLOP/s FP32 non-tensor") + " | 3.35 TB/s"
+    row["bound_ms"], row["bound_by"], row["bound_terms"] = bound(flops, nbytes, dtype, exps,
+                                                                 tf32x3)
+    ops = ("495 TFLOP/s TF32 tensor, 3 passes (3xTF32)" if tf32x3
+           else "989 TFLOP/s bf16 tensor" if dtype == torch.bfloat16
+           else "67 TFLOP/s FP32 non-tensor")
+    row["peak"] = f"{ops} | {PEAK_EXP:.1e} exp/s | 3.35 TB/s"
     lib = "none" if library is None else f"{row['library_ms']:.4f}"
-    print(f"    ms {row['ms']:.4f}  plain {row['plain_ms']:.4f}  library {lib}  bound "
-          f"{row['bound_ms']:.4f} ({row['bound_by']})", flush=True)
+    v2_ms = f"  v2 {row['v2_ms']:.4f}" if v2 is not None else ""
+    terms = ", ".join(f"{k[:-3]} {v:.4f}" for k, v in row["bound_terms"].items())
+    print(f"    ms {row['ms']:.4f}{v2_ms}  plain {row['plain_ms']:.4f}  library {lib}  bound "
+          f"{row['bound_ms']:.4f} ({row['bound_by']}: {terms})", flush=True)
+
+
+def _v2_lib():
+    lib = build.library("attention_v2")
+    if lib.fused_attention_v2_fwd.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        for fn in (lib.fused_attention_v2_fwd, lib.streaming_attention_v2_fwd):
+            fn.argtypes = [p, p, p, p, i, i, i, ctypes.c_float, p]
+            fn.restype = i
+    return lib
+
+
+def v2_kernel(name: str, q, k, v):
+    """The previous design of K1 (bf16) or K4 (float32) on the same inputs: a yardstick that
+    counts no launch of the port's kernels."""
+    lib = _v2_lib()
+    b, h, s, d = q.shape
+    out = torch.empty_like(v)
+    rc = getattr(lib, name)(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h, s,
+                            d, float(d**-0.5), torch.cuda.current_stream().cuda_stream)
+    build.check(lib, rc, name)
+    return out
 
 
 def k1_phase(gen) -> dict:
@@ -192,18 +243,21 @@ def k1_phase(gen) -> dict:
         ref = fused_self_attention_plain(q, k, v)
         tol = (1e-2, 1e-2) if dtype == torch.bfloat16 else (1e-5, 0.0)
         err = check_close(f"K1 {(b, h, s, d)} {dtype}", out, ref, *tol)
-        del out, ref
+        del out
         row = {"shape": [b, h, s, d], "dtype": str(dtype).replace("torch.", ""),
                "max_abs_err": err}
         if (b, h, s, d) in K1_SITES:
             main_err = max(main_err, err)
             row["launches_sd15_forward"], row["launches_sdxl_call"] = K1_SITES[(b, h, s, d)]
+            v2 = lambda: v2_kernel("fused_attention_v2_fwd", q, k, v)  # noqa: E731
+            check_close(f"K1 v2 {(b, h, s, d)}", v2(), ref, *tol, quiet=True)
             _timed(row, lambda: fused_self_attention(q, k, v),
                    lambda: fused_self_attention_plain(q, k, v),
                    lambda: F.scaled_dot_product_attention(q, k, v),
-                   4 * b * h * s * s * d, 4 * b * h * s * d * q.element_size())
+                   4 * b * h * s * s * d, 4 * b * h * s * d * q.element_size(),
+                   exps=b * h * s * s, v2=v2)
         rows.append(row)
-        del q, k, v
+        del q, k, v, ref
         torch.cuda.empty_cache()
     # every head dim the kernel takes (D % 8 == 0, D <= 160: ten padded widths), two S
     errs = []
@@ -298,7 +352,7 @@ def k3_phase(gen) -> dict:
                 _timed(row, lambda: fused_direction_score(*taps, similarity),
                        lambda: fused_direction_score_plain(*taps, similarity), None,
                        8 * n * s * s * d, 5 * n * s * d * taps[0].element_size(), dtype,
-                       plain_reps=5)
+                       plain_reps=5, exps=2 * n * s * s)
                 row["sdpa_pair_ms"] = time_ms(lambda: _sdpa_readout(taps, similarity))
                 print(f"    two SDPA calls + reduction (information): "
                       f"{row['sdpa_pair_ms']:.4f} ms", flush=True)
@@ -320,19 +374,23 @@ def k4_phase(gen) -> dict:
         ref = streaming_self_attention_plain(q, k, v)
         tol = (1e-5, 0.0) if dtype == torch.float32 else (1e-2, 1e-2)
         err = check_close(f"K4 {shape} {dtype}", out, ref, *tol)
-        del out, ref
+        del out
         row = {"shape": list(shape), "dtype": str(dtype).replace("torch.", ""),
                "max_abs_err": err}
         if shape == K4_MAIN:
             b, h, s, d = shape
+            v2 = None
             if dtype == torch.float32:
                 main_err = err
                 row["launches_sdxl_call"] = 3
+                v2 = lambda: v2_kernel("streaming_attention_v2_fwd", q, k, v)  # noqa: E731
+                check_close(f"K4 v2 {shape} {dtype}", v2(), ref, *tol, quiet=True)
             _timed(row, lambda: streaming_self_attention(q, k, v),
                    lambda: streaming_self_attention_plain(q, k, v),
                    lambda: F.scaled_dot_product_attention(q, k, v),
                    4 * b * h * s * s * d, 4 * b * h * s * d * q.element_size(), dtype,
-                   plain_reps=5)
+                   plain_reps=5, exps=b * h * s * s, tf32x3=dtype == torch.float32, v2=v2)
+        del ref
         rows.append(row)
         del q, k, v
         torch.cuda.empty_cache()
@@ -575,19 +633,24 @@ def _totals(rows, key) -> dict | None:
         return None
 
     def total(field):
-        if any(r[field] is None for r in rows):
+        if any(r.get(field) is None for r in rows):
             return None
         return sum(r[field] * r[key] for r in rows)
 
     ms, bound_ms = total("ms"), total("bound_ms")
     ops_ms = sum(r["bound_ms"] * r[key] for r in rows if r["bound_by"] == "operations")
-    return {"ms": ms, "plain_ms": total("plain_ms"), "bound_ms": bound_ms,
-            "bound_by": "operations" if ops_ms >= bound_ms / 2 else "bytes",
-            "library_ms": total("library_ms"), "roofline_share": bound_ms / ms,
-            "peak": rows[0]["peak"]}
+    out = {"ms": ms, "plain_ms": total("plain_ms"), "bound_ms": bound_ms,
+           "bound_by": "operations" if ops_ms >= bound_ms / 2 else "bytes",
+           "library_ms": total("library_ms"), "roofline_share": bound_ms / ms,
+           "peak": rows[0]["peak"]}
+    if total("v2_ms") is not None:
+        out["v2_ms"] = total("v2_ms")
+    return out
 
 
 SD15_PER = "one SD-1.5 UNet forward at B=24 (sum over its launches)"
+K1_DESIGN = "wgmma+TMA, persistent, 3 ping-ponged consumer warpgroups (bf16)"
+K4_DESIGN = "3xTF32 mma.sync (float32)"
 XL_PER = f"one SDXL score_triplet_batch call ({XL_T} triplets, 1024 px), the sum over its launches"
 
 
@@ -595,13 +658,13 @@ def _path(result, launches, key, per) -> dict:
     return {"launches": launches, **_totals(result["rows"], key), "per": per}
 
 
-def kernel_entry(name, source, replaces, result, path, sdxl=None) -> dict:
+def kernel_entry(name, source, replaces, design, result, path, sdxl=None) -> dict:
     """One kernel's entry of the kernels line. ``path`` = (launches, row key, per) gives the
     top-level numbers, summed over one call of the path the kernel was ported on: one SD-1.5
     UNet forward for K1 and K2 (as the first slice reported them), one SDXL triplet call for
     K3 and K4. ``sdxl`` gives K1's and K2's numbers over one SDXL triplet call, under "sdxl"."""
     entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-             "max_abs_err": result["max_abs_err"], **_path(result, *path)}
+             "design": design, "max_abs_err": result["max_abs_err"], **_path(result, *path)}
     if sdxl is not None:
         entry["sdxl"] = _path(result, *sdxl)
     entry["shapes"] = result["rows"]
@@ -616,7 +679,7 @@ def main() -> int:
     card_line = card()
     phase("build")
     t0 = time.perf_counter()
-    reports = build.build()
+    reports = build.build(build.SOURCES + build.BASELINES)
     print(f"  built {sorted(reports) or 'nothing (cached)'} in {time.perf_counter() - t0:.1f} s")
     for name, log in reports.items():
         for line in log.splitlines():
@@ -642,18 +705,23 @@ def main() -> int:
 
     line = {"kernels": [
         kernel_entry("fused_self_attention", "diffsim_tpu_torch/csrc/fused_attention.cu",
-                     "diffsim_tpu/ops/pallas/attention.py:101", k1,
+                     "diffsim_tpu/ops/pallas/attention.py:101", K1_DESIGN, k1,
                      on_sd15("fused_self_attention"), on_xl("fused_self_attention")),
         kernel_entry("fused_geglu_ff", "diffsim_tpu_torch/csrc/geglu_ff.cu",
-                     "diffsim_tpu/ops/pallas/ff.py:75", k2,
+                     "diffsim_tpu/ops/pallas/ff.py:75", "mma.sync + cp.async", k2,
                      on_sd15("fused_geglu_ff"), on_xl("fused_geglu_ff")),
         kernel_entry("cross_self_partials", "diffsim_tpu_torch/csrc/fused_readout.cu",
-                     "diffsim_tpu/ops/pallas/readout.py:71", k3,
+                     "diffsim_tpu/ops/pallas/readout.py:71", "mma.sync + cp.async", k3,
                      on_xl("cross_self_partials")),
         kernel_entry("streaming_self_attention", "diffsim_tpu_torch/csrc/streaming_attention.cu",
-                     "diffsim_tpu/ops/pallas/attention_stream.py:94", k4,
+                     "diffsim_tpu/ops/pallas/attention_stream.py:94", K4_DESIGN, k4,
                      on_xl("streaming_self_attention")),
     ]}
+    k1_xl = line["kernels"][0]["sdxl"]
+    k4_row = next(r for r in k4["rows"] if r.get("launches_sdxl_call"))
+    print(f"  K1 per SDXL triplet call {k1_xl['ms']:.3f} ms (v2 {k1_xl['v2_ms']:.3f}, SDPA "
+          f"{k1_xl['library_ms']:.3f}); K4 float32 per launch {k4_row['ms']:.3f} ms (v2 "
+          f"{k4_row['v2_ms']:.3f}, SDPA {k4_row['library_ms']:.3f}), on {card_line}", flush=True)
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,6 @@
-// Shared machinery of the attention kernels: K1 (fused_attention.cu) and K3 (fused_readout.cu)
-// use the tile loops below, K4 (streaming_attention.cu) the primitives.
+// Shared machinery of the attention kernels: K3 (fused_readout.cu), K1's float32 check path
+// (fused_attention.cu) and K1's previous bf16 design (attention_v2.cu) use the tile loops
+// below, K4 (streaming_attention.cu) the primitives.
 //
 // The tile loops compute one online-softmax attention pass for a block's 64 query rows over
 // every key of one head, keeping the JAX kernels' numerics contract: f32 logits and softmax
@@ -8,7 +9,7 @@
 // (f32 accumulation). The caller applies 1 / rowsum.
 //
 // bf16: mma.sync.m16n8k16 with register-resident Q fragments, score tile, probabilities and
-// accumulator; K/V tiles double-buffered with cp.async (see fused_attention.cu's header).
+// accumulator; K/V tiles double-buffered with cp.async.
 // float32: plain FMAs with the score tile and the accumulator in shared memory.
 
 #pragma once

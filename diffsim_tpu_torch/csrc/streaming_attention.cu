@@ -13,14 +13,26 @@
 // lives in registers, spread over the warps ALONG D, never in shared memory, and 8 warps
 // share each K/V tile.
 //
-// float32 (the SDXL main path, whose VAE encodes in f32): CUDA-core FMAs, no TF32.
+// float32 (the SDXL main path, whose VAE encodes in f32): 3xTF32 on the tensor cores
+//   (mma.sync.m16n8k8.tf32; PERF.md says why not wgmma). Each float32 operand is split where its
+//   fragment is loaded, hi = tf32(x) rounded to nearest, lo = x - hi, and each product is
+//   a_lo b_hi + a_hi b_lo + a_hi b_hi with f32 accumulation: the dropped a_lo b_lo term is
+//   ~2^-22 relative, near float32's own rounding, while one TF32 pass (2^-11) would miss the
+//   1e-5 check against the plain version. The tensor cores' f32 sums truncate instead of
+//   rounding, a bias that grows with every step summed into one accumulator (2048 k8 steps in
+//   a 16384-key row); so every product sum is kept short (one 64-column chunk of Q K^T, one
+//   8-key chunk of P V) and then added into the running sums with rounded f32 adds.
 //   D % 64 == 0, D <= 512, S % 64 == 0 (stream_f32_q64): a 64-row q tile whose Q stays in
 //   shared memory (132 KB at D = 512) and 64-key tiles. K streams in 64 x 64 chunks along D,
-//   then V in 8-key chunks, through a ring of 4 chunk buffers filled by cp.async three chunks
-//   ahead, with one barrier per chunk. Each thread keeps a 4 x 4 score tile over all of D (8
-//   FMAs per 16-byte shared load, each load one conflict-free wavefront) and 16 rows x 8
-//   columns of O (128 registers; per key four broadcast loads of P and two of V feed 128
-//   FMAs). A 64-row tile reads each K/V byte from L2 once per 64 query rows.
+//   then V in 8-key chunks (one k8 step of P V), through a ring of 4 chunk buffers filled by
+//   cp.async three chunks ahead, with one barrier per chunk. Q K^T: warp w owns a 16 x 32
+//   score tile (rows 16 (w % 4), keys 32 (w / 4)) over all of D; the tile's scores meet in
+//   shared memory for the softmax (4 threads a row), which writes P back in place. P V: warp w
+//   owns all 64 rows and output columns [64 w, 64 w + 64): 32 m16n8 accumulator tiles, 128
+//   registers a thread, so each V value is loaded and split by one warp only, and each B
+//   fragment feeds 4 x 3 products. With each k8 step's k order permuted, a thread's A and K
+//   values come as 8-byte loads, and every fragment load is conflict-free (leading dims = 8
+//   mod 32 for Q, K and P, 4 mod 32 for V).
 // bf16 (vae_fp32=False), D % 8 == 0, D <= 512, S % 32 == 0 (stream_bf16): mma.sync.m16n8k16
 //   with f32 accumulation, a 32-row q tile and 32-key K/V tiles, one Q, K and V tile in shared
 //   memory. Warp w computes one 16 x 8 tile of the 32 x 32 scores over all of D (A from Q, B
@@ -32,9 +44,11 @@
 // Other shapes are refused (cudaErrorInvalidValue): no model of the repo gives them.
 //
 // Bound on the H100: 4*S^2*D FLOP per head against 4*S*D*itemsize bytes, thousands of FLOP per
-// byte at S = 16384, so the kernel is bound by operations: the 67 TFLOP/s non-tensor FP32 peak
-// for float32, the 989 TFLOP/s bf16 tensor-core peak for bf16. See PERF.md for the measured
-// share.
+// byte at S = 16384, so the kernel is bound by operations: for float32 three TF32 passes on the
+// tensor cores, 3 x 4 S^2 D FLOP at 495 TFLOP/s (6.66 ms at (2, 1, 16384, 512); the FP32 SIMT
+// peak of 67 TFLOP/s that bounded the CUDA-core version gives 16.4 ms); for bf16 the 989
+// TFLOP/s tensor-core peak. The S^2 exponentials (about 3.9e12/s) weigh little at D = 512. See
+// PERF.md for the measured share.
 //
 // C interface (loaded with ctypes): every entry point returns cudaGetLastError().
 
@@ -65,7 +79,7 @@ constexpr int Q64 = 64;      // q rows per block
 constexpr int K64 = 64;      // keys per tile
 constexpr int DC = 64;       // columns of one K chunk
 constexpr int VC = 8;        // keys of one V chunk
-constexpr int LDC = DC + 4;  // leading dim of a K chunk and of the score / probability tile
+constexpr int LDC = DC + 8;  // leading dim of a K chunk and of the score / probability tile
 constexpr int SLOTS = 4;     // ring of chunk buffers: 3 copies in flight behind the one in use
 constexpr int SLOT_FLOATS = K64 * LDC;  // one K chunk; one V chunk (8 x (d + 4)) fits for d <= 512
 
@@ -73,13 +87,63 @@ __device__ inline void cp_async_wait_slots() {  // all but the SLOTS - 2 newest 
   asm volatile("cp.async.wait_group %0;\n" ::"n"(SLOTS - 2));
 }
 
-// Shared memory (bytes): the Q tile (leading dim d + 4), the chunk ring, the score tile
-// (row-major, then the probabilities key-major in the same place) and the row statistics.
+// x = hi + lo: hi = tf32(x), rounded to nearest with ties away from zero (cvt.rna's rounding,
+// done with two integer operations instead of the slower conversion), lo = x - hi exactly
+// (|lo| <= 2^-11 |x|). lo goes to the tensor cores as it is: they read the top 19 bits of a tf32
+// operand, so lo is truncated to tf32 there, an error of at most 2^-22 |x|.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// c (16x8, f32) += a (16x8, tf32, row) * b (8x8, tf32, col). Fragments (PTX ISA, mma.m16n8k8,
+// lane = 4 g + t): a = (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4); b = (t, g), (t + 4, g);
+// c = (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1).
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c = a b + 0: the first product of a fresh sum
+__device__ __forceinline__ void mma_tf32_first(float (&c)[4], const uint32_t (&a)[4],
+                                               uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=f"(c[0]), "=f"(c[1]), "=f"(c[2]), "=f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.0f));
+}
+
+// The k index of every k8 step is permuted: the fragment's k = t and k = t + 4 are the
+// step's columns 2t and 2t + 1, so that a thread's two values of a row are one 8-byte load. A
+// dot product does not depend on the order of its terms, as long as A and B take the same one.
+//
+// Load the A fragment of rows (row0 + g, row0 + g + 8) x columns (col0 + 2t, col0 + 2t + 1) of
+// a row-major f32 tile of leading dim ld (ld = 8 mod 32: conflict-free), split into hi and lo.
+__device__ __forceinline__ void load_a_3xtf32(uint32_t (&ah)[4], uint32_t (&al)[4],
+                                              const float* tile, int ld, int row0, int col0,
+                                              int g, int t) {
+  const float* p = tile + (row0 + g) * ld + col0 + 2 * t;
+  const float2 lo_row = *reinterpret_cast<const float2*>(p);
+  const float2 hi_row = *reinterpret_cast<const float2*>(p + 8 * ld);
+  split_tf32(lo_row.x, ah[0], al[0]);
+  split_tf32(hi_row.x, ah[1], al[1]);
+  split_tf32(lo_row.y, ah[2], al[2]);
+  split_tf32(hi_row.y, ah[3], al[3]);
+}
+
+// Shared memory (bytes): the Q tile (leading dim d + 8), the chunk ring, the score tile
+// (row-major; the probabilities overwrite it in place) and the row statistics.
 struct LayoutQ64 {
   size_t q, ring, s, m, l, c, total;
-  int ldq;
+  int ldq, ldv;
   __host__ __device__ LayoutQ64(int d) {
-    ldq = d + 4;
+    ldq = d + 8;  // = 8 mod 32 for d % 64 == 0: float2 A loads are conflict-free
+    ldv = d + 4;  // = 4 mod 32: the B loads of rows 2t and 2t + 1 are conflict-free
     size_t off = 0;
     q = off; off = align128(off + size_t(Q64) * ldq * 4);
     ring = off; off = align128(off + size_t(SLOTS) * SLOT_FLOATS * 4);
@@ -95,7 +159,7 @@ struct LayoutQ64 {
 // 64) of its 64 keys) then 8 V chunks (8 keys, all columns), each copied with cp.async into
 // ring slot g % SLOTS. One cp.async group per stage, empty past the end.
 __device__ inline void issue_stage_q64(int g, int total, int n_stages, int nkc, const float* kh,
-                                       const float* vh, int d, int ldq, float* ring) {
+                                       const float* vh, int d, int ldv, float* ring) {
   if (g < total) {
     const int tile = g / n_stages, st = g % n_stages;
     const int key0 = tile * K64;
@@ -110,39 +174,33 @@ __device__ inline void issue_stage_q64(int g, int total, int n_stages, int nkc, 
       const float* src = vh + size_t(key0 + (st - nkc) * VC) * d;
       for (int i = threadIdx.x; i < VC * 128; i += THREADS) {
         const int r = i >> 7, c4 = i & 127;
-        if (c4 < d / 4) attn::cp_async16(dst + r * ldq + 4 * c4, src + size_t(r) * d + 4 * c4);
+        if (c4 < d / 4) attn::cp_async16(dst + r * ldv + 4 * c4, src + size_t(r) * d + 4 * c4);
       }
     }
   }
   attn::cp_async_commit();
 }
 
-// Thread layout. Scores: the 64 x 64 tile in 4 x 4 register tiles over all of D (no partial
-// sums), rows ty + 16 a and keys tx + 16 b, a warp spanning 4 rows x 8 keys so that each
-// 16-byte shared load of Q or K is one conflict-free wavefront. Softmax: 4 threads per row,
-// 16 keys each. PV: warp w owns rows r0 = 16 (w % 4) .. r0 + 15 and lane l the columns
-// 4 (32 (w / 4) + l + 64 n), n < 2: 128 accumulators a thread, fed per key by four broadcast
-// float4 loads of P and two float4 loads of V.
 __global__ void __launch_bounds__(THREADS, 1)
 stream_f32_q64(const float* __restrict__ q, const float* __restrict__ k,
                const float* __restrict__ v, float* __restrict__ o, int s_len, int d,
                float scale) {
-  constexpr int PR = 16;  // PV rows per warp
-  constexpr int NCH = 2;  // PV column groups of 4 per lane: D <= 512
+  constexpr int MT = Q64 / 16;  // m16 tiles of P V a warp: all 64 rows
+  constexpr int NT = 8;         // n8 tiles of P V a warp: 64 output columns
   extern __shared__ __align__(128) unsigned char smem[];
   const LayoutQ64 L(d);
-  const int ldq = L.ldq;
+  const int ldq = L.ldq, ldv = L.ldv;
   float* Qs = reinterpret_cast<float*>(smem + L.q);
   float* ring = reinterpret_cast<float*>(smem + L.ring);
-  float* Ss = reinterpret_cast<float*>(smem + L.s);  // scores [row][key], then P [key][row]
+  float* Ss = reinterpret_cast<float*>(smem + L.s);  // scores, then P, [row][key]
   float* Ms = reinterpret_cast<float*>(smem + L.m);
   float* Ls = reinterpret_cast<float*>(smem + L.l);
   float* Cs = reinterpret_cast<float*>(smem + L.c);
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
   const size_t head = size_t(blockIdx.y) * s_len * d;
   const int q0 = blockIdx.x * Q64;
-  const int d4 = d / 4;
   const int nkc = d / DC;
   const int n_stages = nkc + K64 / VC;
   const int total = (s_len / K64) * n_stages;
@@ -154,72 +212,74 @@ stream_f32_q64(const float* __restrict__ q, const float* __restrict__ k,
     Ls[i] = 0.0f;
   }
   load_rows_f32(Qs, ldq, q + head + size_t(q0) * d, Q64, d);  // in stage 0's group
-  for (int g = 0; g < SLOTS - 1; ++g)
-    issue_stage_q64(g, total, n_stages, nkc, kh, vh, d, ldq, ring);
+  for (int gs = 0; gs < SLOTS - 1; ++gs)
+    issue_stage_q64(gs, total, n_stages, nkc, kh, vh, d, ldv, ring);
 
-  const int ty = (warp / 2) * 4 + lane / 8, tx = (warp % 2) * 8 + lane % 8;  // scores
-  const int rs = tid / 4, qk = tid % 4;                                      // softmax
-  const int r0 = PR * (warp % 4), cb = 32 * (warp / 4);                      // PV
-  float acc[PR][NCH][4];
+  const int mw = 16 * (warp % 4);  // Q K^T: this warp's 16 rows
+  const int nw = 32 * (warp / 4);  // and its 32 keys of the score tile
+  const int cb = 64 * warp;        // P V: this warp's 64 output columns, all 64 rows
+  const bool pv_warp = cb < d;     // warp-uniform: D < 512 leaves the last warps idle in P V
+  const int rs = tid / 4, qk = tid % 4;  // softmax: row rs, keys [16 qk, + 16)
+  float acc[MT][NT][4];
 #pragma unroll
-  for (int r = 0; r < PR; ++r)
+  for (int m = 0; m < MT; ++m)
 #pragma unroll
-    for (int n = 0; n < NCH; ++n) acc[r][n][0] = acc[r][n][1] = acc[r][n][2] = acc[r][n][3] = 0.f;
+    for (int n = 0; n < NT; ++n) acc[m][n][0] = acc[m][n][1] = acc[m][n][2] = acc[m][n][3] = 0.0f;
   float sacc[4][4];
 
-  for (int g = 0; g < total; ++g) {
-    const int st = g % n_stages;
-    const float* chunk = ring + (g % SLOTS) * SLOT_FLOATS;
-    // stage g has landed, and every thread is done with stage g - 1, whose slot the copy of
-    // stage g + SLOTS - 1 reuses
+  for (int gs = 0; gs < total; ++gs) {
+    const int st = gs % n_stages;
+    const float* chunk = ring + (gs % SLOTS) * SLOT_FLOATS;
+    // stage gs has landed, and every thread is done with stage gs - 1, whose slot the copy of
+    // stage gs + SLOTS - 1 reuses
     cp_async_wait_slots();
     __syncthreads();
-    issue_stage_q64(g + SLOTS - 1, total, n_stages, nkc, kh, vh, d, ldq, ring);
+    issue_stage_q64(gs + SLOTS - 1, total, n_stages, nkc, kh, vh, d, ldv, ring);
 
     if (st < nkc) {
-      if (st == 0) {
+      // this chunk's 64 columns of Q K^T, summed apart and then added to the scores: the
+      // tensor cores' f32 sums truncate, so each running sum takes few of their additions
+      float part[4][4];
 #pragma unroll
-        for (int a = 0; a < 4; ++a)
+      for (int n = 0; n < 4; ++n) part[n][0] = part[n][1] = part[n][2] = part[n][3] = 0.0f;
+#pragma unroll 2
+      for (int ks = 0; ks < DC / 8; ++ks) {
+        uint32_t ah[4], al[4];
+        load_a_3xtf32(ah, al, Qs, ldq, mw, st * DC + 8 * ks, g, t);
 #pragma unroll
-          for (int b = 0; b < 4; ++b) sacc[a][b] = 0.0f;
+        for (int n = 0; n < 4; ++n) {
+          const float2 kp =
+              *reinterpret_cast<const float2*>(chunk + (nw + 8 * n + g) * LDC + 8 * ks + 2 * t);
+          uint32_t bh0, bl0, bh1, bl1;
+          split_tf32(kp.x, bh0, bl0);
+          split_tf32(kp.y, bh1, bl1);
+          mma_tf32(part[n], al, bh0, bh1);
+          mma_tf32(part[n], ah, bl0, bl1);
+          mma_tf32(part[n], ah, bh0, bh1);
+        }
       }
-      const float* Qc = Qs + st * DC;
 #pragma unroll
-      for (int c4 = 0; c4 < DC / 4; ++c4) {
-        float4 qv[4], kv[4];
+      for (int n = 0; n < 4; ++n)
 #pragma unroll
-        for (int a = 0; a < 4; ++a)
-          qv[a] = *reinterpret_cast<const float4*>(Qc + (ty + 16 * a) * ldq + 4 * c4);
-#pragma unroll
-        for (int b = 0; b < 4; ++b)
-          kv[b] = *reinterpret_cast<const float4*>(chunk + (tx + 16 * b) * LDC + 4 * c4);
-#pragma unroll
-        for (int a = 0; a < 4; ++a)
-#pragma unroll
-          for (int b = 0; b < 4; ++b) {
-            float s = sacc[a][b];
-            s = fmaf(qv[a].x, kv[b].x, s);
-            s = fmaf(qv[a].y, kv[b].y, s);
-            s = fmaf(qv[a].z, kv[b].z, s);
-            s = fmaf(qv[a].w, kv[b].w, s);
-            sacc[a][b] = s;
-          }
-      }
+        for (int e = 0; e < 4; ++e) sacc[n][e] = st == 0 ? part[n][e] : sacc[n][e] + part[n][e];
       if (st == nkc - 1) {
         // the tile's scores are complete: online softmax of row rs over keys [16 qk, +16)
 #pragma unroll
-        for (int a = 0; a < 4; ++a)
-#pragma unroll
-          for (int b = 0; b < 4; ++b) Ss[(ty + 16 * a) * LDC + tx + 16 * b] = sacc[a][b];
+        for (int n = 0; n < 4; ++n) {
+          float* srow = Ss + (mw + g) * LDC + nw + 8 * n + 2 * t;
+          *reinterpret_cast<float2*>(srow) = make_float2(sacc[n][0], sacc[n][1]);
+          *reinterpret_cast<float2*>(srow + 8 * LDC) = make_float2(sacc[n][2], sacc[n][3]);
+        }
         __syncthreads();
+        float* srow = Ss + rs * LDC + 16 * qk;
         float x[16];
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          const float4 t = *reinterpret_cast<const float4*>(Ss + rs * LDC + 16 * qk + 4 * i);
-          x[4 * i] = t.x;
-          x[4 * i + 1] = t.y;
-          x[4 * i + 2] = t.z;
-          x[4 * i + 3] = t.w;
+          const float4 v4 = *reinterpret_cast<const float4*>(srow + 4 * i);
+          x[4 * i] = v4.x;
+          x[4 * i + 1] = v4.y;
+          x[4 * i + 2] = v4.z;
+          x[4 * i + 3] = v4.w;
         }
         float mx = -INFINITY;
 #pragma unroll
@@ -237,74 +297,71 @@ stream_f32_q64(const float* __restrict__ q, const float* __restrict__ k,
         }
         sum += __shfl_xor_sync(0xffffffffu, sum, 1);
         sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-        __syncthreads();  // every thread has read its scores: the tile now takes P
 #pragma unroll
-        for (int j = 0; j < 16; ++j) Ss[(16 * qk + j) * LDC + rs] = x[j];
+        for (int i = 0; i < 4; ++i)
+          *reinterpret_cast<float4*>(srow + 4 * i) =
+              make_float4(x[4 * i], x[4 * i + 1], x[4 * i + 2], x[4 * i + 3]);
         if (qk == 0) {
           Ms[rs] = m_new;
           Ls[rs] = Ls[rs] * corr + sum;
           Cs[rs] = corr;
         }
       }
-    } else {
-      // O[warp rows, lane columns] += P V over this chunk's 8 keys (rescaled once per tile)
+    } else if (pv_warp) {
+      // O[all rows, warp columns] += P V over this chunk's 8 keys (rescaled once per tile). Each
+      // (m, n) tile's three products go to a fresh sum that is then added in f32, again so that
+      // the truncating tensor-core sums stay short.
       const int vc = st - nkc;
       if (vc == 0) {
 #pragma unroll
-        for (int r = 0; r < PR; ++r) {
-          const float c = Cs[r0 + r];
+        for (int m = 0; m < MT; ++m) {
+          const float c_lo = Cs[16 * m + g], c_hi = Cs[16 * m + g + 8];
 #pragma unroll
-          for (int n = 0; n < NCH; ++n) {
-            acc[r][n][0] *= c;
-            acc[r][n][1] *= c;
-            acc[r][n][2] *= c;
-            acc[r][n][3] *= c;
+          for (int n = 0; n < NT; ++n) {
+            acc[m][n][0] *= c_lo;
+            acc[m][n][1] *= c_lo;
+            acc[m][n][2] *= c_hi;
+            acc[m][n][3] *= c_hi;
           }
         }
       }
+      uint32_t ah[MT][4], al[MT][4];
 #pragma unroll
-      for (int j = 0; j < VC; ++j) {
-        const float* prow = Ss + (vc * VC + j) * LDC + r0;
-        float p[PR];
+      for (int m = 0; m < MT; ++m) load_a_3xtf32(ah[m], al[m], Ss, LDC, 16 * m, vc * VC, g, t);
 #pragma unroll
-        for (int i = 0; i < PR / 4; ++i) {
-          const float4 t = *reinterpret_cast<const float4*>(prow + 4 * i);
-          p[4 * i] = t.x;
-          p[4 * i + 1] = t.y;
-          p[4 * i + 2] = t.z;
-          p[4 * i + 3] = t.w;
-        }
+      for (int n = 0; n < NT; ++n) {
+        const int col = cb + 8 * n + g;
+        uint32_t bh0, bl0, bh1, bl1;
+        split_tf32(chunk[2 * t * ldv + col], bh0, bl0);  // keys 2t and 2t + 1: the permuted k
+        split_tf32(chunk[(2 * t + 1) * ldv + col], bh1, bl1);
 #pragma unroll
-        for (int n = 0; n < NCH; ++n) {
-          const int c4 = cb + lane + 64 * n;
-          if (c4 < d4) {
-            const float4 vv = *reinterpret_cast<const float4*>(chunk + j * ldq + 4 * c4);
+        for (int m = 0; m < MT; ++m) {
+          float part[4];
+          mma_tf32_first(part, al[m], bh0, bh1);
+          mma_tf32(part, ah[m], bl0, bl1);
+          mma_tf32(part, ah[m], bh0, bh1);
 #pragma unroll
-            for (int r = 0; r < PR; ++r) {
-              acc[r][n][0] = fmaf(p[r], vv.x, acc[r][n][0]);
-              acc[r][n][1] = fmaf(p[r], vv.y, acc[r][n][1]);
-              acc[r][n][2] = fmaf(p[r], vv.z, acc[r][n][2]);
-              acc[r][n][3] = fmaf(p[r], vv.w, acc[r][n][3]);
-            }
-          }
+          for (int e = 0; e < 4; ++e) acc[m][n][e] += part[e];
         }
       }
     }
   }
   __syncthreads();
 
+  if (pv_warp) {
 #pragma unroll
-  for (int r = 0; r < PR; ++r) {
-    const int row = r0 + r;
-    const float inv = 1.0f / Ls[row];
-    float* orow = o + head + size_t(q0 + row) * d;
+    for (int m = 0; m < MT; ++m) {
+      const float inv_lo = 1.0f / Ls[16 * m + g], inv_hi = 1.0f / Ls[16 * m + g + 8];
+      float* o_lo = o + head + size_t(q0 + 16 * m + g) * d;
+      float* o_hi = o_lo + size_t(8) * d;
 #pragma unroll
-    for (int n = 0; n < NCH; ++n) {
-      const int c4 = cb + lane + 64 * n;
-      if (c4 < d4)
-        *reinterpret_cast<float4*>(orow + 4 * c4) =
-            make_float4(acc[r][n][0] * inv, acc[r][n][1] * inv, acc[r][n][2] * inv,
-                        acc[r][n][3] * inv);
+      for (int n = 0; n < NT; ++n) {
+        const int col = cb + 8 * n + 2 * t;
+        *reinterpret_cast<float2*>(o_lo + col) =
+            make_float2(acc[m][n][0] * inv_lo, acc[m][n][1] * inv_lo);
+        *reinterpret_cast<float2*>(o_hi + col) =
+            make_float2(acc[m][n][2] * inv_hi, acc[m][n][3] * inv_hi);
+      }
     }
   }
 }

@@ -37,12 +37,15 @@ def test_port_and_chip_smoke_import_no_jax():
     assert out.stdout.startswith("ok")
 
 
-def test_scorer_without_a_device_raises_when_cuda_is_absent(monkeypatch):
+@pytest.mark.parametrize("scorer", ["DiffSimSD15", "DiffSimXL"])
+def test_scorer_without_a_device_raises_when_cuda_is_absent(monkeypatch, scorer):
     from diffsim_tpu_torch.metrics.diffsim_sd15 import DiffSimSD15
+    from diffsim_tpu_torch.metrics.diffsim_xl import DiffSimXL
 
+    cls = {"DiffSimSD15": DiffSimSD15, "DiffSimXL": DiffSimXL}[scorer]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        DiffSimSD15()
+        cls()
 
 
 def test_chip_smoke_refuses_to_run_without_cuda():

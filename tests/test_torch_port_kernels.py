@@ -145,7 +145,7 @@ def test_unported_kernels_raise_off_the_cpu():
 
 
 def test_every_kernel_source_is_present():
-    for name in build.SOURCES:
+    for name in build.SOURCES + build.BASELINES:
         path = os.path.join(build.CSRC_DIR, f"{name}.cu")
         with open(path) as f:
             src = f.read()
