@@ -13,13 +13,16 @@ Phases, each of which fails the run (non-zero exit, no result line) if anything 
    ``F.scaled_dot_product_attention`` (a yardstick only; the port never calls it), its
    previous design (v2, ``csrc/attention_v2.cu``, also held to the plain version) and the
    card's bound;
-4. K2 ``fused_geglu_ff`` at its main-path shapes, the same way (no single PyTorch call
-   computes GEGLU-FF, so K2 has no library time), and at ragged row counts and other widths
-   in both dtypes;
+4. K2 ``fused_geglu_ff`` at its main-path shapes, the same way, beside its previous design
+   (v2, ``csrc/geglu_ff_v2.cu``) and, as information, cuBLAS's two projections with PyTorch's
+   elementwise GEGLU between them (no single PyTorch call computes GEGLU-FF, so K2 has no
+   library time), and at ragged row counts and other widths in both dtypes;
 5. K3 ``cross_self_partials`` (the fused readout) at the SDXL tap, (80, 1024, 64) bf16, in
    both similarities, at the SD-1.5 up-block-2/3 taps, at DiT's head dim 72 and in float32,
-   scores against its plain version (no single PyTorch call computes the partials; two
-   ``scaled_dot_product_attention`` calls plus the reduction are timed as information);
+   scores against its plain version and its previous design (v2, ``csrc/fused_readout_v2.cu``);
+   the kernel timed apart from the wrapper's per-pair torch epilogue, beside v2 and, as
+   information, two 4-D ``scaled_dot_product_attention`` calls on the flash backend plus the
+   reduction;
 6. K4 ``streaming_self_attention`` at the 1024 px VAE mid attention (2, 1, 16384, 512) in
    float32 (the SDXL main path) and bf16, and at a ragged S = 8448, with SDPA as its library
    time and, in float32, its previous design (v2) beside it;
@@ -37,10 +40,15 @@ Phases, each of which fails the run (non-zero exit, no result line) if anything 
    call that its float32 VAE encode takes.
 
 The line before the last is one JSON object ``{"kernels": [...]}``; the last line is
-``{"ok": true, "device": {...}}``. Timings use CUDA events (median of 20 after 3 warm-ups; 5
-for the slowest plain versions); a kernel, its library call and its v2 are timed in turns,
-twice, and each keeps its lower median. A bound is the largest of three times at the H100
-SXM's published dense peaks: the products (989 TFLOP/s bf16 tensor cores; K4 float32 three
+``{"ok": true, "device": {...}}``. A kernel's time (``ms``), its library call's and its v2's are
+device times that host work cannot enter: the CUPTI durations of the kernels each call launched,
+from ``torch.profiler``, over 20 back-to-back calls after 3 warm-ups (the first launch sets
+shared-memory limits), summed and divided by 20. They are timed in turns, twice, and each keeps
+its lower reading. ``call_ms`` is the whole wrapper call between two CUDA events (median of 20),
+host work included, as information; plain versions are timed that way too (5 calls for the
+slowest). Each phase header prints the card's SM clock, power and throttle reasons: a card held
+at its power limit lowers its clock. A bound is the largest of three times at the H100 SXM's
+published dense peaks: the products (989 TFLOP/s bf16 tensor cores; K4 float32 three
 TF32 passes at 495 TFLOP/s; 67 TFLOP/s float32 outside the tensor cores), the exponentials
 (3.9e12/s on the special-function units, FlashAttention-3 section 1: b h s^2 for K1 and K4,
 twice that per direction for K3) and the bytes (3.35 TB/s).
@@ -50,6 +58,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import json
 import os
 import statistics
@@ -61,6 +70,7 @@ import time
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.nn.attention import SDPBackend, sdpa_kernel
 
 from diffsim_tpu_torch.convert import bridge
 from diffsim_tpu_torch.core.tokenizer import HashTokenizer
@@ -71,14 +81,18 @@ from diffsim_tpu_torch.models.clip_text import CLIPText, CLIPTextConfig
 from diffsim_tpu_torch.models.unet import UNet, UNetConfig
 from diffsim_tpu_torch.models.vae import Encoder, VAEConfig, encode_chunked
 from diffsim_tpu_torch.ops import kernels
-from diffsim_tpu_torch.ops.kernels import build
+from diffsim_tpu_torch.ops.kernels import build, readout
 from diffsim_tpu_torch.ops.kernels.attention import fused_self_attention, fused_self_attention_plain
 from diffsim_tpu_torch.ops.kernels.attention_stream import (
     streaming_self_attention,
     streaming_self_attention_plain,
 )
 from diffsim_tpu_torch.ops.kernels.ff import fused_geglu_ff, fused_geglu_ff_plain
-from diffsim_tpu_torch.ops.kernels.readout import fused_direction_score, fused_direction_score_plain
+from diffsim_tpu_torch.ops.kernels.readout import (
+    cross_self_partials,
+    fused_direction_score,
+    fused_direction_score_plain,
+)
 
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # H100 SXM: bf16 tensor, FP32 SIMT
 PEAK_TF32 = 495e12  # H100 SXM dense TF32 tensor cores: K4 float32 runs three passes (3xTF32)
@@ -116,10 +130,17 @@ TINY_XL_CALL = {"fused_self_attention": 7, "fused_geglu_ff": 7, "cross_self_part
 
 def phase(name: str) -> None:
     print(f"== {name}", flush=True)
+    # the card's state as the phase starts: a card held at its power limit lowers its clock
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu,"
+                          "clocks_throttle_reasons.active", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    print(f"  card: SM clock, power, temperature, throttle reasons = {smi.stdout.strip()}",
+          flush=True)
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median device time of ``fn`` in ms over ``reps`` runs, each between two CUDA events."""
+    """Median time of ``fn`` in ms over ``reps`` runs, each between two CUDA events: host work
+    enters whenever the host takes longer per call than the device."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -132,6 +153,28 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         events.append((start, end))
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in events)
+
+
+def device_ms(fn, reps: int = 20, warmup: int = 3) -> tuple[float, dict[str, float]]:
+    """Device time of one call of ``fn`` in ms, which host work cannot enter: the CUPTI
+    durations of the kernels it launched (``torch.profiler``) over ``reps`` back-to-back calls,
+    summed and divided by ``reps``; and the same per kernel name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by_name: dict[str, float] = {}
+    for e in prof.key_averages():  # kernel entries only (an aten op's repeats its kernels')
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0:
+            by_name[e.key] = by_name.get(e.key, 0.0) + e.self_device_time_total / 1e3 / reps
+    if not by_name:
+        raise SystemExit("the profiler recorded no device time: kernel times not measured")
+    return sum(by_name.values()), by_name
 
 
 def bound(flops: float, nbytes: float, dtype=torch.bfloat16, exps: float = 0.0,
@@ -183,17 +226,33 @@ def card() -> str:
     return line
 
 
-def _timed(row, kernel, plain, library, flops, nbytes, dtype=torch.bfloat16, plain_reps=20,
-           exps: float = 0.0, tf32x3: bool = False, v2=None):
-    """Time the kernel, the library call and the kernel's previous design (``v2``) in turns,
-    twice over, and keep each one's lower median: none of them gets the warmer card."""
-    timed = {"ms": kernel, "library_ms": library, "v2_ms": v2}
-    runs = {key: [] for key, fn in timed.items() if fn is not None}
+def _timed(row, kernel, plain, flops, nbytes, *, library=None, v2=None, info=None,
+           kernel_name=None, call=None, dtype=torch.bfloat16, plain_reps=20, exps: float = 0.0,
+           tf32x3: bool = False):
+    """Time the kernel, its library call, its previous design (``v2``) and the ``info``
+    yardsticks ({key: fn}) in turns, twice over, as device time (:func:`device_ms`), and keep
+    each one's lower reading. ``kernel_name`` (a substring of the kernel's name) keeps only the
+    kernel's own launches in ``ms``; ``call`` is the whole wrapper call (default: ``kernel``),
+    timed with CUDA events as ``call_ms`` and, where it launches more than the kernel, on the
+    device as ``call_device_ms``."""
+    timed = {"ms": kernel, "library_ms": library, "v2_ms": v2, **(info or {})}
+    timed = {key: fn for key, fn in timed.items() if fn is not None}
+    best, kernels_of = {}, {}
     for _ in range(2):
-        for key in runs:
-            runs[key].append(time_ms(timed[key]))
-    row.update({key: min(ms) for key, ms in runs.items()})
+        for key, fn in timed.items():
+            ms, by_name = device_ms(fn)
+            if key == "ms" and kernel_name is not None:
+                ms = sum(t for name, t in by_name.items() if kernel_name in name)
+                if ms == 0.0:
+                    raise SystemExit(f"no kernel named like {kernel_name!r} in {sorted(by_name)}")
+            if key not in best or ms < best[key]:
+                best[key], kernels_of[key] = ms, by_name
+    row.update(best)
     row.setdefault("library_ms", None)
+    call = kernel if call is None else call
+    row["call_ms"] = time_ms(call)
+    if kernel_name is not None:
+        row["call_device_ms"] = device_ms(call)[0]
     row["plain_ms"] = time_ms(plain, reps=plain_reps)
     row["bound_ms"], row["bound_by"], row["bound_terms"] = bound(flops, nbytes, dtype, exps,
                                                                  tf32x3)
@@ -202,32 +261,83 @@ def _timed(row, kernel, plain, library, flops, nbytes, dtype=torch.bfloat16, pla
            else "67 TFLOP/s FP32 non-tensor")
     row["peak"] = f"{ops} | {PEAK_EXP:.1e} exp/s | 3.35 TB/s"
     lib = "none" if library is None else f"{row['library_ms']:.4f}"
-    v2_ms = f"  v2 {row['v2_ms']:.4f}" if v2 is not None else ""
+    extra = "".join(f"  {key[:-3]} {row[key]:.4f}" for key in timed if key not in
+                    ("ms", "library_ms"))
+    dev = f" (device {row['call_device_ms']:.4f})" if "call_device_ms" in row else ""
     terms = ", ".join(f"{k[:-3]} {v:.4f}" for k, v in row["bound_terms"].items())
-    print(f"    ms {row['ms']:.4f}{v2_ms}  plain {row['plain_ms']:.4f}  library {lib}  bound "
-          f"{row['bound_ms']:.4f} ({row['bound_by']}: {terms})", flush=True)
+    print(f"    ms {row['ms']:.4f}{extra}  library {lib}  call {row['call_ms']:.4f}{dev}  plain "
+          f"{row['plain_ms']:.4f}  bound {row['bound_ms']:.4f} ({row['bound_by']}: {terms})",
+          flush=True)
+    # which kernels each call ran, by device time: the kernel's own split (K2's two GEMMs) and
+    # the yardsticks' (SDPA's backend)
+    for key, by_name in kernels_of.items():
+        if key != "v2_ms" and (key != "ms" or len(by_name) > 1):
+            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
+            print(f"    {key[:-3]} kernels: " + "; ".join(f"{t:.4f} {name[:90]}" for name, t in top),
+                  flush=True)
 
 
-def _v2_lib():
-    lib = build.library("attention_v2")
-    if lib.fused_attention_v2_fwd.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        for fn in (lib.fused_attention_v2_fwd, lib.streaming_attention_v2_fwd):
-            fn.argtypes = [p, p, p, p, i, i, i, ctypes.c_float, p]
-            fn.restype = i
-    return lib
+# the previous designs timed beside the shipped kernels: {entry: (library, ctypes argument
+# types)}; chip_smoke.py is their only caller, and they count no launches
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+YARDSTICKS = {
+    "fused_attention_v2_fwd": ("attention_v2", [_P] * 4 + [_I] * 3 + [_F, _P]),
+    "streaming_attention_v2_fwd": ("attention_v2", [_P] * 4 + [_I] * 3 + [_F, _P]),
+    "geglu_ff_v2_fwd": ("geglu_ff_v2", [_P] * 7 + [_I, _I, _P]),
+    "fused_readout_v2_fwd": ("fused_readout_v2", [_P] * 6 + [_I] * 3 + [_F, _I, _P]),
+}
+
+
+def _yardstick(name: str, *args) -> None:
+    lib_name, argtypes = YARDSTICKS[name]
+    lib = build.library(lib_name)
+    fn = getattr(lib, name)
+    if fn.argtypes is None:
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    build.check(lib, fn(*args, torch.cuda.current_stream().cuda_stream), name)
 
 
 def v2_kernel(name: str, q, k, v):
-    """The previous design of K1 (bf16) or K4 (float32) on the same inputs: a yardstick that
-    counts no launch of the port's kernels."""
-    lib = _v2_lib()
+    """The previous design of K1 (bf16) or K4 (float32) on the same inputs."""
     b, h, s, d = q.shape
     out = torch.empty_like(v)
-    rc = getattr(lib, name)(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h, s,
-                            d, float(d**-0.5), torch.cuda.current_stream().cuda_stream)
-    build.check(lib, rc, name)
+    _yardstick(name, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h, s, d,
+               float(d**-0.5))
     return out
+
+
+def v2_geglu_ff(x, w1, b1, w2, b2):
+    """The previous design of K2 (bf16) on the same inputs."""
+    n, c = x.shape
+    y = torch.empty((n, 4 * c), dtype=x.dtype, device=x.device)
+    out = torch.empty_like(x)
+    _yardstick("geglu_ff_v2_fwd", *(t.data_ptr() for t in (x, w1, b1, w2, b2, y, out)), n, c)
+    return out
+
+
+def readout_launch(name: str, q, k1, v1, k2, v2, mse: bool = False) -> torch.Tensor:
+    """K3's previous design on (N, S, D) rows: the kernel alone, into the (N, S / 64, 3)
+    partials buffer."""
+    n, s, d = q.shape
+    out = torch.empty((n, s // 64, 3), dtype=torch.float32, device=q.device)
+    _yardstick(name, *(t.data_ptr() for t in (q, k1, v1, k2, v2, out)), n, s, d,
+               float(d**-0.5), int(mse))
+    return out
+
+
+def readout_partials(name: str):
+    """``cross_self_partials`` through :func:`readout_launch`."""
+    def partials(*rows, mse=False):
+        sums = readout_launch(name, *rows, mse=mse).sum(dim=1)
+        return sums[:, 0], sums[:, 1], sums[:, 2]
+    return partials
+
+
+def _cublas_geglu_ff(x, w1, b1, w2, b2):
+    """The same function as cuBLAS's two projections with PyTorch's elementwise GEGLU between
+    them (an information yardstick; the port never calls it)."""
+    h, g = F.linear(x, w1, b1).chunk(2, dim=-1)
+    return F.linear(h * F.gelu(g), w2, b2)
 
 
 def k1_phase(gen) -> dict:
@@ -253,9 +363,9 @@ def k1_phase(gen) -> dict:
             check_close(f"K1 v2 {(b, h, s, d)}", v2(), ref, *tol, quiet=True)
             _timed(row, lambda: fused_self_attention(q, k, v),
                    lambda: fused_self_attention_plain(q, k, v),
-                   lambda: F.scaled_dot_product_attention(q, k, v),
                    4 * b * h * s * s * d, 4 * b * h * s * d * q.element_size(),
-                   exps=b * h * s * s, v2=v2)
+                   library=lambda: F.scaled_dot_product_attention(q, k, v), v2=v2,
+                   exps=b * h * s * s)
         rows.append(row)
         del q, k, v, ref
         torch.cuda.empty_cache()
@@ -273,7 +383,7 @@ def k1_phase(gen) -> dict:
 
 
 def k2_phase(gen) -> dict:
-    phase("K2 fused_geglu_ff vs plain (bf16 atol=rtol=1e-2)")
+    phase("K2 fused_geglu_ff vs plain (bf16 atol=rtol=1e-2, float32 atol=rtol=1e-4)")
     rows, main_err = [], 0.0
 
     def rand(shape, scale, dtype=torch.bfloat16):
@@ -288,10 +398,13 @@ def k2_phase(gen) -> dict:
         torch.cuda.synchronize()
         err = check_close(f"K2 {(n, c)} bf16", out, fused_geglu_ff_plain(*args), 1e-2, 1e-2)
         main_err = max(main_err, err)
+        check_close(f"K2 v2 {(n, c)}", v2_geglu_ff(*args), out, 1e-2, 1e-2, quiet=True)
         row = {"shape": [n, c], "dtype": "bfloat16", "max_abs_err": err,
                "launches_sd15_forward": launches[0], "launches_sdxl_call": launches[1]}
-        _timed(row, lambda: fused_geglu_ff(*args), lambda: fused_geglu_ff_plain(*args), None,
-               24 * n * c * c, (2 * n * c + 12 * c * c + 9 * c) * 2)
+        _timed(row, lambda: fused_geglu_ff(*args), lambda: fused_geglu_ff_plain(*args),
+               24 * n * c * c, (2 * n * c + 12 * c * c + 9 * c) * 2,
+               v2=lambda: v2_geglu_ff(*args),
+               info={"cublas_path_ms": lambda: _cublas_geglu_ff(*args)})
         rows.append(row)
         del x, w1, b1, w2, b2, args, out
         torch.cuda.empty_cache()
@@ -308,10 +421,14 @@ def k2_phase(gen) -> dict:
 
 def _sdpa_readout(taps, similarity):
     """The same scores from two library attention calls per direction plus the reductions
-    (information for PERF.md; the port never calls this)."""
-    qa, ka, va, kb, vb = (t.flatten(0, 2) for t in taps)
-    o1 = F.scaled_dot_product_attention(qa, kb, vb).float()
-    o2 = F.scaled_dot_product_attention(qa, ka, va).float()
+    (information for PERF.md; the port never calls this). The taps go in 4-D, (P*B, H, S, D):
+    SDPA's flash backend takes only 4-D inputs, and bf16 taps are held to it."""
+    qa, ka, va, kb, vb = (t.flatten(0, 1) for t in taps)
+    backend = (SDPBackend.FLASH_ATTENTION if qa.dtype == torch.bfloat16
+               else SDPBackend.EFFICIENT_ATTENTION)
+    with sdpa_kernel(backend):
+        o1 = F.scaled_dot_product_attention(qa, kb, vb).float()
+        o2 = F.scaled_dot_product_attention(qa, ka, va).float()
     if similarity == "mse":
         return ((o1 - o2) ** 2).sum()
     return (o1 * o2).sum() / ((o1 * o1).sum().sqrt() * (o2 * o2).sum().sqrt())
@@ -320,6 +437,8 @@ def _sdpa_readout(taps, similarity):
 def k3_phase(gen) -> dict:
     phase("K3 cross_self_partials (fused readout) vs plain: scores, bf16 atol 1e-3 and rtol 1e-3 "
           "of the distance, float32 atol 1e-5 and rtol 1e-5")
+    v2_score = functools.partial(readout._direction_score,
+                                 readout_partials("fused_readout_v2_fwd"))
     # (P, B, H, S, D): the SDXL tap of the main path (N = 80), the SD-1.5 up-block-2/3 taps of
     # a 2-pair score_batch, DiT-XL/2's head dim 72, and the SDXL tap in float32
     shapes = [((XL_T, 2, 20, 1024, 64), torch.bfloat16), ((2, 2, 8, 1024, 80), torch.bfloat16),
@@ -348,14 +467,21 @@ def k3_phase(gen) -> dict:
             if main:
                 main_err = max(main_err, err)
                 row["launches_sdxl_call"] = 4 if similarity == "cosine" else 0
-            if similarity == "cosine" and (main or dtype == torch.float32 or d == 80):
-                _timed(row, lambda: fused_direction_score(*taps, similarity),
-                       lambda: fused_direction_score_plain(*taps, similarity), None,
-                       8 * n * s * s * d, 5 * n * s * d * taps[0].element_size(), dtype,
+            bf16 = dtype == torch.bfloat16
+            if bf16:
+                check_score(f"K3 v2 {shape} {similarity}", v2_score(*taps, similarity), ref,
+                            similarity, tol, tol)
+            if similarity == "cosine" and (main or not bf16 or d == 80):
+                flat = [x.reshape(n, s, d) for x in (taps[0], taps[3], taps[4], taps[1], taps[2])]
+                info = {"sdpa_pair_ms": lambda: _sdpa_readout(taps, similarity)}
+                _timed(row, lambda: cross_self_partials(*flat),
+                       lambda: fused_direction_score_plain(*taps, similarity),
+                       8 * n * s * s * d, 5 * n * s * d * taps[0].element_size(),
+                       v2=(lambda: readout_launch("fused_readout_v2_fwd", *flat)) if bf16
+                       else None, info=info, kernel_name="readout_",
+                       call=lambda: fused_direction_score(*taps, similarity), dtype=dtype,
                        plain_reps=5, exps=2 * n * s * s)
-                row["sdpa_pair_ms"] = time_ms(lambda: _sdpa_readout(taps, similarity))
-                print(f"    two SDPA calls + reduction (information): "
-                      f"{row['sdpa_pair_ms']:.4f} ms", flush=True)
+                row["epilogue_ms"] = row["call_device_ms"] - row["ms"]
             rows.append(row)
         del taps
         torch.cuda.empty_cache()
@@ -387,9 +513,9 @@ def k4_phase(gen) -> dict:
                 check_close(f"K4 v2 {shape} {dtype}", v2(), ref, *tol, quiet=True)
             _timed(row, lambda: streaming_self_attention(q, k, v),
                    lambda: streaming_self_attention_plain(q, k, v),
-                   lambda: F.scaled_dot_product_attention(q, k, v),
-                   4 * b * h * s * s * d, 4 * b * h * s * d * q.element_size(), dtype,
-                   plain_reps=5, exps=b * h * s * s, tf32x3=dtype == torch.float32, v2=v2)
+                   4 * b * h * s * s * d, 4 * b * h * s * d * q.element_size(),
+                   library=lambda: F.scaled_dot_product_attention(q, k, v), v2=v2, dtype=dtype,
+                   plain_reps=5, exps=b * h * s * s, tf32x3=dtype == torch.float32)
         del ref
         rows.append(row)
         del q, k, v
@@ -643,13 +769,18 @@ def _totals(rows, key) -> dict | None:
            "bound_by": "operations" if ops_ms >= bound_ms / 2 else "bytes",
            "library_ms": total("library_ms"), "roofline_share": bound_ms / ms,
            "peak": rows[0]["peak"]}
-    if total("v2_ms") is not None:
-        out["v2_ms"] = total("v2_ms")
+    for field in ("v2_ms", "cublas_path_ms", "epilogue_ms", "call_ms"):
+        if total(field) is not None:
+            out[field] = total(field)
     return out
 
 
 SD15_PER = "one SD-1.5 UNet forward at B=24 (sum over its launches)"
 K1_DESIGN = "wgmma+TMA, persistent, 3 ping-ponged consumer warpgroups (bf16)"
+K2_DESIGN = ("two persistent wgmma+TMA GEMMs, 2 ping-ponged consumer warpgroups on whole "
+             "128-row tiles, GEGLU epilogue under the other's products (bf16)")
+K3_DESIGN = ("K1's wgmma+TMA pipeline, cross then self pass per 128-row q block, "
+             "2 ping-ponged consumer warpgroups (bf16)")
 K4_DESIGN = "3xTF32 mma.sync (float32)"
 XL_PER = f"one SDXL score_triplet_batch call ({XL_T} triplets, 1024 px), the sum over its launches"
 
@@ -708,20 +839,29 @@ def main() -> int:
                      "diffsim_tpu/ops/pallas/attention.py:101", K1_DESIGN, k1,
                      on_sd15("fused_self_attention"), on_xl("fused_self_attention")),
         kernel_entry("fused_geglu_ff", "diffsim_tpu_torch/csrc/geglu_ff.cu",
-                     "diffsim_tpu/ops/pallas/ff.py:75", "mma.sync + cp.async", k2,
+                     "diffsim_tpu/ops/pallas/ff.py:75", K2_DESIGN, k2,
                      on_sd15("fused_geglu_ff"), on_xl("fused_geglu_ff")),
         kernel_entry("cross_self_partials", "diffsim_tpu_torch/csrc/fused_readout.cu",
-                     "diffsim_tpu/ops/pallas/readout.py:71", "mma.sync + cp.async", k3,
+                     "diffsim_tpu/ops/pallas/readout.py:71", K3_DESIGN, k3,
                      on_xl("cross_self_partials")),
         kernel_entry("streaming_self_attention", "diffsim_tpu_torch/csrc/streaming_attention.cu",
                      "diffsim_tpu/ops/pallas/attention_stream.py:94", K4_DESIGN, k4,
                      on_xl("streaming_self_attention")),
     ]}
     k1_xl = line["kernels"][0]["sdxl"]
+    k2_sd, k2_xl = line["kernels"][1], line["kernels"][1]["sdxl"]
+    k3_xl = line["kernels"][2]
     k4_row = next(r for r in k4["rows"] if r.get("launches_sdxl_call"))
-    print(f"  K1 per SDXL triplet call {k1_xl['ms']:.3f} ms (v2 {k1_xl['v2_ms']:.3f}, SDPA "
-          f"{k1_xl['library_ms']:.3f}); K4 float32 per launch {k4_row['ms']:.3f} ms (v2 "
-          f"{k4_row['v2_ms']:.3f}, SDPA {k4_row['library_ms']:.3f}), on {card_line}", flush=True)
+    print(f"  device-only kernel times on {card_line}:\n"
+          f"  K1 per SDXL triplet call {k1_xl['ms']:.3f} ms (v2 {k1_xl['v2_ms']:.3f}, SDPA "
+          f"{k1_xl['library_ms']:.3f}); K2 per SD-1.5 forward {k2_sd['ms']:.3f} ms (v2 "
+          f"{k2_sd['v2_ms']:.3f}, cuBLAS path {k2_sd['cublas_path_ms']:.3f}), per SDXL call "
+          f"{k2_xl['ms']:.3f} (v2 {k2_xl['v2_ms']:.3f}, cuBLAS path "
+          f"{k2_xl['cublas_path_ms']:.3f}); K3 per SDXL call {k3_xl['ms']:.3f} ms (v2 "
+          f"{k3_xl['v2_ms']:.3f}; the wrapper's torch epilogue {k3_xl['epilogue_ms']:.3f} on the "
+          f"device, the whole calls {k3_xl['call_ms']:.3f} by CUDA events); K4 float32 per "
+          f"launch {k4_row['ms']:.3f} ms (v2 {k4_row['v2_ms']:.3f}, SDPA "
+          f"{k4_row['library_ms']:.3f})", flush=True)
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

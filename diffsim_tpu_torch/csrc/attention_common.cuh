@@ -1,6 +1,7 @@
-// Shared machinery of the attention kernels: K3 (fused_readout.cu), K1's float32 check path
-// (fused_attention.cu) and K1's previous bf16 design (attention_v2.cu) use the tile loops
-// below, K4 (streaming_attention.cu) the primitives.
+// Shared machinery of the attention kernels: the float32 check paths of K1 (fused_attention.cu)
+// and K3 (fused_readout.cu) and the previous bf16 designs of K1 and K3 (attention_v2.cu,
+// fused_readout_v2.cu) use the tile loops below, K4 (streaming_attention.cu) the primitives.
+// The bf16 Hopper kernels of K1 and K3 share their pipeline in attention_wgmma.cuh.
 //
 // The tile loops compute one online-softmax attention pass for a block's 64 query rows over
 // every key of one head, keeping the JAX kernels' numerics contract: f32 logits and softmax

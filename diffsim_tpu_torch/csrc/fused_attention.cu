@@ -20,36 +20,21 @@
 // At (12, 10, 4096, 64) the bound is 0.521 ms of products, 0.516 ms of exps; at (24, 8, 4096,
 // 40) 0.521 ms of products against 0.826 ms of exps.
 //
-// bf16 (the main path), for sm_90a, FlashAttention-3's shape:
-//   * a persistent block of 512 threads per SM walks over 192-row q blocks (a head's blocks
-//     adjacent, so concurrent blocks share its K/V in L2): three consumer warpgroups of 64 rows
-//     and one producer warpgroup, which gives its registers to the consumers (setmaxnreg: 24 a
-//     thread for it, 160 for them). One producer thread loads Q with TMA into one of two
-//     buffers, so the next block's Q and first K/V tiles load while this block finishes, and
-//     streams K/V tiles (128 keys at DP <= 64, else 64) through a ring of 2-4 stages in shared
-//     memory, each stage guarded by a "full" mbarrier (bytes landed) and an "empty" one (all 12
-//     consumer warps done with it);
-//   * S = Q K^T is a wgmma with both operands in shared memory (64 x BN f32 accumulators a
-//     warpgroup); the softmax runs on those registers; P is cast to bf16 in registers and is the
-//     register A operand of the P V wgmma, with V read transposed from its (key, d) layout;
-//   * the exps overlap the tensor cores twice over. Within a warpgroup, tile j's Q K^T is
-//     issued together with tile j-1's P V, and the softmax of tile j runs while that P V is in
-//     flight. Across the warpgroups, named barriers pass the turn to issue products round the
-//     three (ping-pong), so two softmaxes run under each warpgroup's products. The softmax
-//     keeps its max and sum chains short (four partial chains a row);
-//   * the head dim pads to DP, a multiple of 16. Up to DP = 128 the tiles are 64-column panels
-//     (128-byte rows and swizzle: the widest TMA transfers), the last one partly unused when
-//     64 does not divide DP; above that, the 32- or 16-column panels that divide DP. TMA's zero
-//     fill supplies the columns past D, the keys past S of a partial last tile (masked) and the
-//     rows past S of a partial last q block (computed, not stored).
+// bf16 (the main path), for sm_90a: the pipeline of attention_wgmma.cuh (FlashAttention-3's
+// shape) with one pass per q block. A persistent block of 512 threads per SM walks over 192-row
+// q blocks (a head's blocks adjacent, so concurrent blocks share its K/V in L2): three consumer
+// warpgroups of 64 rows and one producer warpgroup, which gives its registers to the consumers
+// (setmaxnreg: 24 a thread for it, 160 for them). Named barriers pass the turn at the tensor
+// cores round the three consumers, so two softmaxes run under each one's products. Each
+// consumer scales its accumulator by 1 / l and stores its rows in bf16; the rows past S of a
+// partial last q block are computed on TMA's zero rows and not stored.
 //
 // float32 (a tight numerical check on the card, not on any main path): the PR 1 tiling with plain
 // FMAs, the score tile and accumulator in shared memory (attention_common.cuh).
 //
 // C interface (loaded with ctypes): every entry point returns cudaGetLastError().
 
-#include "attention_common.cuh"
-#include "hopper_common.cuh"
+#include "attention_wgmma.cuh"
 
 namespace {
 
@@ -65,102 +50,9 @@ constexpr int CONSUMER_WARPS = 4 * NWG;
 constexpr int THREADS_WG = (NWG + 1) * 128;  // + the producer warpgroup
 // the producer gives its registers to the consumers: 128 x 24 + 384 x 160 <= 65536
 constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 160;
-constexpr uint32_t BAR_TURN = 1;  // named barriers 1..3: consumer c's turn at the tensor cores
-constexpr uint32_t TURN_THREADS = 256;
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
 
 template <int DP>
-struct Cfg {
-  // keys per K/V tile: S (BN / 2), O (DP / 2) and P (BN / 4) registers fit 160 a thread
-  static constexpr int BN = DP <= 64 ? 128 : 64;
-  // panel columns: 64 (128-byte rows, the widest TMA transfers) up to DP = 128, the last panel
-  // partly unused when 64 does not divide DP (TMA zero-fills it, no product reads it); above
-  // that, the narrower panels that divide DP, so that the ring keeps two stages.
-  static constexpr int W = DP <= 128 ? 64 : DP % 32 == 0 ? 32 : 16;
-  static constexpr int PANELS = (DP + W - 1) / W;
-  static constexpr int SPAN = W * 2;  // bytes of one panel row = the swizzle span
-  static constexpr int Q_PANEL = BM * SPAN;
-  static constexpr int KV_PANEL = BN * SPAN;
-  static constexpr int Q_BYTES = PANELS * Q_PANEL;
-  static constexpr int KV_BYTES = PANELS * KV_PANEL;  // one K (or V) tile
-  static constexpr int STAGE_BYTES = 2 * KV_BYTES;
-  static constexpr int FIT = (232448 - 1024 - 256 - 2 * Q_BYTES) / STAGE_BYTES;  // of 227 KB
-  static constexpr int STAGES = FIT > 4 ? 4 : FIT;
-  // 1024 bytes of alignment slack, two Q buffers, the ring, then the mbarriers
-  static constexpr size_t SMEM = 1024 + 2 * Q_BYTES + size_t(STAGES) * STAGE_BYTES + 256;
-  static_assert(STAGES >= 2, "the K/V ring needs two stages");
-};
-
-// Online softmax of one 64 x BN score tile held in wgmma accumulator registers: rows r (i = 0)
-// and r + 8 (i = 1) of this thread, a row spread over one lane quad. Keys at or past `valid`
-// are masked (zero-filled by TMA past S). Leaves the probabilities in s, updates m and l, and
-// returns in corr the factor that rescales the accumulator (0 on the first tile).
-template <int NS>
-__device__ __forceinline__ void softmax_tile(float (&s)[NS], float (&m_run)[2], float (&l_run)[2],
-                                             float (&corr)[2], float scale_log2, int valid,
-                                             int t) {
-  if (valid < 2 * NS) {
-#pragma unroll
-    for (int n = 0; n < NS / 4; ++n)
-#pragma unroll
-      for (int e = 0; e < 2; ++e)
-        if (8 * n + 2 * t + e >= valid) s[4 * n + e] = s[4 * n + 2 + e] = -INFINITY;
-  }
-  // both rows at once, each max and sum in four partial chains: a consumer warp shares its
-  // scheduler with two others, so short dependency chains are what keeps the exp unit fed
-  float mx[2][4], sum[2][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      mx[i][c] = -INFINITY;
-      sum[i][c] = 0.0f;
-    }
-#pragma unroll
-  for (int n = 0; n < NS / 4; ++n)
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-      mx[i][n % 4] = fmaxf(mx[i][n % 4], fmaxf(s[4 * n + 2 * i], s[4 * n + 2 * i + 1]));
-  float mb[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    float m = fmaxf(fmaxf(mx[i][0], mx[i][1]), fmaxf(mx[i][2], mx[i][3]));
-    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
-    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
-    const float m_new = fmaxf(m_run[i], m);
-    corr[i] = ex2((m_run[i] - m_new) * scale_log2);  // 0 on the first tile
-    m_run[i] = m_new;
-    mb[i] = m_new * scale_log2;
-  }
-#pragma unroll
-  for (int n = 0; n < NS / 4; ++n)
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float pe = ex2(fmaf(s[4 * n + 2 * i + e], scale_log2, -mb[i]));
-        s[4 * n + 2 * i + e] = pe;
-        sum[i][n % 4] += pe;  // the row sum is taken before the cast, as the TPU kernel does
-      }
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-    l_run[i] = l_run[i] * corr[i] + ((sum[i][0] + sum[i][1]) + (sum[i][2] + sum[i][3]));
-}
-
-// The probabilities as bf16 A fragments of the P V wgmma: k16 step kk is accumulator columns
-// [16 kk, 16 kk + 16), which is exactly the register A layout.
-template <int KP>
-__device__ __forceinline__ void pack_p(uint32_t (&p)[KP][4], const float (&s)[KP * 8]) {
-#pragma unroll
-  for (int kk = 0; kk < KP; ++kk)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) p[kk][e] = pack_bf16(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1]);
-}
+using Cfg = Tiling<DP, NWG>;
 
 // Persistent: each block walks work items item = blockIdx.x + i * gridDim.x, an item being one
 // 192-row q block of one head.
@@ -169,38 +61,16 @@ __global__ void __launch_bounds__(THREADS_WG, 1)
 attention_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                 const __grid_constant__ CUtensorMap tm_v, bf16* __restrict__ o, int s_len, int d,
                 int n_items, float scale_log2) {
-  using C = Cfg<DP>;
   using namespace hopper;
-  constexpr int BN = C::BN;
-  constexpr int NS = BN / 2;  // S accumulators a thread
-  constexpr int NO = DP / 2;  // O accumulators a thread
-  constexpr int KQ = DP / 16;  // k16 steps of Q K^T
-  constexpr int KP = BN / 16;  // k16 steps of P V
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* Qs = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  unsigned char* ring = Qs + 2 * C::Q_BYTES;  // stage st: K tile, then V tile
-  uint64_t* q_full = reinterpret_cast<uint64_t*>(ring + C::STAGES * C::STAGE_BYTES);  // [2]
-  uint64_t* q_empty = q_full + 2;                                                    // [2]
-  uint64_t* full = q_full + 4;
-  uint64_t* empty = full + C::STAGES;
+  Pipeline<Cfg<DP>> pipe(smem_raw);
 
   // warp-uniform by construction, so the compiler sees the role branches as non-divergent
   const int warp = __shfl_sync(0xffffffffu, threadIdx.x / 32, 0);
   const int lane = threadIdx.x % 32;
-  const int n_tiles = (s_len + BN - 1) / BN;
   const int q_blocks = (s_len + BM - 1) / BM;
 
-  if (threadIdx.x == 0) {
-    for (int i = 0; i < 2; ++i) {
-      mbar_init(q_full + i, 1);
-      mbar_init(q_empty + i, CONSUMER_WARPS);
-    }
-    for (int i = 0; i < C::STAGES; ++i) {
-      mbar_init(full + i, 1);
-      mbar_init(empty + i, CONSUMER_WARPS);
-    }
-    mbar_fence_init();
-  }
+  if (threadIdx.x == 0) pipe.init();
   __syncthreads();
 
   if (warp >= CONSUMER_WARPS) {  // the producer warpgroup: one thread issues every copy
@@ -209,28 +79,10 @@ attention_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
       tma_prefetch_map(&tm_q);
       tma_prefetch_map(&tm_k);
       tma_prefetch_map(&tm_v);
-      int g = 0;  // K/V tiles issued so far: the ring position
       for (int item = blockIdx.x, it = 0; item < n_items; item += gridDim.x, ++it) {
         const int bh = item / q_blocks, q0 = (item % q_blocks) * BM;
-        // Q is double-buffered: item it's Q goes where item it-2's was, so the copies of this
-        // item's Q and first K/V tiles never wait for the previous item's last Q K^T
-        const int qb = it & 1;
-        mbar_wait(q_empty + qb, ((it >> 1) & 1) ^ 1);  // passes at once for the first two items
-        mbar_arrive_expect_tx(q_full + qb, C::Q_BYTES);
-        for (int p = 0; p < C::PANELS; ++p)
-          tma_load_3d(Qs + qb * C::Q_BYTES + p * C::Q_PANEL, &tm_q, p * C::W, q0, bh,
-                      q_full + qb);
-        for (int j = 0; j < n_tiles; ++j, ++g) {
-          const int st = g % C::STAGES;
-          mbar_wait(empty + st, ((g / C::STAGES) & 1) ^ 1);  // passes at once on the first round
-          mbar_arrive_expect_tx(full + st, C::STAGE_BYTES);
-          unsigned char* kt = ring + st * C::STAGE_BYTES;
-          for (int p = 0; p < C::PANELS; ++p) {
-            tma_load_3d(kt + p * C::KV_PANEL, &tm_k, p * C::W, j * BN, bh, full + st);
-            tma_load_3d(kt + C::KV_BYTES + p * C::KV_PANEL, &tm_v, p * C::W, j * BN, bh,
-                        full + st);
-          }
-        }
+        pipe.load_q(&tm_q, it, q0, bh);
+        pipe.load_kv(&tm_k, &tm_v, bh, s_len);
       }
     }
   } else {
@@ -238,102 +90,13 @@ attention_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
     // a consumer warpgroup: 64 q rows; this thread holds rows 16 (warp % 4) + g and + 8 of them
     const int c = warp / 4;
     const int g8 = lane / 4, t = lane % 4;
-    auto desc_kmajor = [](const unsigned char* panel0, int panel_bytes, int kk) {
-      return make_desc(panel0 + (kk * 16 / C::W) * panel_bytes + (kk * 16 % C::W) * 2, 16,
-                       8 * C::SPAN, C::SPAN);
-    };
-    auto desc_v = [](const unsigned char* vt, int kk) {
-      return make_desc(vt + kk * 16 * C::SPAN, C::KV_PANEL, 8 * C::SPAN, C::SPAN);
-    };
-    auto k_tile = [&](int g) { return ring + (g % C::STAGES) * C::STAGE_BYTES; };
-    auto v_tile = [&](int g) { return ring + (g % C::STAGES) * C::STAGE_BYTES + C::KV_BYTES; };
-    auto release = [&](int g) {  // this warp is done with tile g's stage
-      if (lane == 0) mbar_arrive(empty + g % C::STAGES);
-    };
-    // Named barrier 1 + c is consumer c's turn at the tensor cores, taken round the three. Each
-    // turn hands the next one on, except consumer 2's very last turn (nothing follows).
-    auto pass_turn = [&](bool last_of_block) {
-      if (c != NWG - 1 || !last_of_block) named_arrive(BAR_TURN + (c + 1) % NWG, TURN_THREADS);
-    };
-
-    float s[NS], acc[NO];
-    uint32_t p[KP][4];
-    if (c == NWG - 1) named_arrive(BAR_TURN, TURN_THREADS);  // consumer 0 takes the first turn
-
-    int g = 0;  // K/V tiles consumed so far: the ring position
+    float acc[DP / 2], l_run[2];
+    open_turns<NWG>(c);
     for (int item = blockIdx.x, it = 0; item < n_items; item += gridDim.x, ++it) {
       const int bh = item / q_blocks, q0 = (item % q_blocks) * BM;
       const bool last_item = item + gridDim.x >= n_items;
-      float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.0f, 0.0f}, corr[2];
-      const int qb = it & 1;
-      const unsigned char* q_base = Qs + qb * C::Q_BYTES + 64 * c * C::SPAN;
-      mbar_wait(q_full + qb, (it >> 1) & 1);
-
-      // tile 0: S_0 = Q K_0^T
-      mbar_wait(full + g % C::STAGES, (g / C::STAGES) & 1);
-      named_sync(BAR_TURN + c, TURN_THREADS);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < KQ; ++kk)
-        WgmmaSS<BN>::mma(s, desc_kmajor(q_base, C::Q_PANEL, kk),
-                         desc_kmajor(k_tile(g), C::KV_PANEL, kk), kk > 0);
-      wgmma_commit();
-      pass_turn(last_item && n_tiles == 1);
-      wgmma_wait<0>();
-      fence_regs(s);
-      if (n_tiles == 1 && lane == 0) mbar_arrive(q_empty + qb);
-      softmax_tile(s, m_run, l_run, corr, scale_log2, s_len, t);
-#pragma unroll
-      for (int i = 0; i < NO; ++i) acc[i] = 0.0f;
-      pack_p(p, s);
-
-      // tile j: S_j = Q K_j^T issued together with O += P_{j-1} V_{j-1}; the softmax of S_j runs
-      // while that P V is in flight
-      for (int j = 1; j < n_tiles; ++j) {
-        ++g;
-        mbar_wait(full + g % C::STAGES, (g / C::STAGES) & 1);
-        named_sync(BAR_TURN + c, TURN_THREADS);
-        wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < KQ; ++kk)
-          WgmmaSS<BN>::mma(s, desc_kmajor(q_base, C::Q_PANEL, kk),
-                           desc_kmajor(k_tile(g), C::KV_PANEL, kk), kk > 0);
-        wgmma_commit();
-#pragma unroll
-        for (int kk = 0; kk < KP; ++kk) WgmmaRS<DP>::mma(acc, p[kk], desc_v(v_tile(g - 1), kk), 1);
-        wgmma_commit();
-        pass_turn(last_item && j == n_tiles - 1);
-        wgmma_wait<1>();  // S_j has landed; P_{j-1} V_{j-1} may still run
-        fence_regs(s);
-        if (j == n_tiles - 1 && lane == 0) mbar_arrive(q_empty + qb);  // the last read of Q
-        softmax_tile(s, m_run, l_run, corr, scale_log2, s_len - j * BN, t);
-        fence_regs(s);  // keeps the compiler from sinking the exps below the wait: they overlap
-        wgmma_wait<0>();  // the P V in flight only if they are issued before it
-        fence_regs(acc);
-#pragma unroll
-        for (int kk = 0; kk < KP; ++kk) fence_regs(p[kk]);
-        release(g - 1);
-#pragma unroll
-        for (int n = 0; n < DP / 8; ++n) {
-          acc[4 * n] *= corr[0];
-          acc[4 * n + 1] *= corr[0];
-          acc[4 * n + 2] *= corr[1];
-          acc[4 * n + 3] *= corr[1];
-        }
-        pack_p(p, s);
-      }
-
-      // the last tile's P V, outside the turns: it overlaps the other consumer's products
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < KP; ++kk) WgmmaRS<DP>::mma(acc, p[kk], desc_v(v_tile(g), kk), 1);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(acc);
-#pragma unroll
-      for (int kk = 0; kk < KP; ++kk) fence_regs(p[kk]);
-      release(g);
-      ++g;
+      attend_pass<DP>(pipe, acc, l_run, pipe.wait_q(it, c), it, s_len, scale_log2, c, last_item,
+                      true);
 
       const int r = q0 + 64 * c + 16 * (warp % 4) + g8;
 #pragma unroll
@@ -355,17 +118,6 @@ attention_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
   }
 }
 
-int sm_count() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-      n = 132;
-  }
-  return n;
-}
-
 template <int DP>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, int bh, int s,
                         int d, float scale, cudaStream_t stream) {
@@ -379,7 +131,7 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, in
                                static_cast<int>(C::SMEM));
   if (err != cudaSuccess) return err;
   const int n_items = (s + BM - 1) / BM * bh;
-  const int grid = n_items < sm_count() ? n_items : sm_count();
+  const int grid = n_items < hopper::sm_count() ? n_items : hopper::sm_count();
   attention_wgmma<DP><<<grid, THREADS_WG, C::SMEM, stream>>>(tq, tk, tv, static_cast<bf16*>(o),
                                                              s, d, n_items, scale * LOG2E);
   return cudaGetLastError();

@@ -6,31 +6,206 @@
 //
 // Replaces the TPU kernel `cross_self_partials` (diffsim_tpu/ops/pallas/readout.py, body
 // `_kernel`, pallas_call in `_pallas_partials`). That kernel holds one head's whole K/V in VMEM
-// and normalises the softmax before the PV product. Here K/V stream through shared memory in
-// 64-key tiles with the online softmax of K1 (attention_common.cuh: running max over the
-// unscaled logits, f32 row sums, probabilities cast to V's dtype, f32 accumulation), and
-// 1 / rowsum is applied after the last tile. The two forms differ only by rounding: the bf16
-// cast rounds exp(s - m) instead of exp(s - m) / l.
+// and normalises the softmax before the PV product. Here K/V stream through shared memory with
+// K1's online softmax (attention_wgmma.cuh: running max over the unscaled logits, exp2 with the
+// scale folded in, f32 row sums, probabilities cast to V's dtype unnormalised, f32
+// accumulation), and 1 / rowsum is applied after the last tile. The two forms differ only by
+// rounding: the bf16 cast rounds exp(s - m) instead of exp(s - m) / l.
 //
-// Design. One block of 4 warps per (q tile, row); each warp owns 16 q rows. The block runs the
-// cross pass, then the self pass, over one Q tile loaded once; the two accumulators and row
-// sums stay in registers (bf16) or shared memory (float32). The epilogue normalises both,
-// reduces the partials over the warp with shuffles and over the block through shared memory,
-// in a fixed order. Torch sums the (N, tiles, 3) buffer in a fixed order too, so a score is
-// the same from run to run. bf16 runs mma.sync.m16n8k16 (head dim padded to a multiple of 16
-// with zero columns: every D % 8 == 0 up to 128); float32 runs plain FMAs (no TF32).
+// Bound on the H100, per row: 8 S^2 D FLOP on the bf16 tensor cores (989 TFLOP/s), 2 S^2
+// exponentials on the special-function units (about 3.9e12 exp/s) and 5 S D 2 bytes (q, two K,
+// two V read once). At (80, 1024, 64) that is 0.0434 ms of products against 0.0430 ms of exps:
+// as in K1 at hd 64, the exps weigh as much as the products, so they have to overlap them.
 //
-// Bound on the H100: 8*S^2*D FLOP per row against 5*S*D*2 bytes (q, two K, two V read once);
-// at S = 1024, D = 64 that is ~410 FLOP/byte, above the ~295 balance point, so the kernel is
-// bound by tensor-core operations. See PERF.md for the measured share.
+// bf16 design (sm_90a): K1's pipeline (attention_wgmma.cuh) with the readout's two passes:
+//   * a persistent block per SM walks over 128-row q blocks (a row's blocks adjacent, so
+//     concurrent blocks share its K/V in L2): two consumer warpgroups of 64 rows and a producer
+//     warpgroup (setmaxnreg 24 / 240). One producer thread loads a q block's Q once with TMA
+//     (double-buffered across q blocks), then streams the cross K/V tiles and after them the
+//     self K/V tiles through the one ring;
+//   * each consumer runs attend_pass twice, the cross pass and then the self pass, passing the
+//     turn at the tensor cores to the other consumer as K1 does;
+//   * after the cross pass a consumer normalises O1 (1 / l) and parks it in shared memory as
+//     f32, each thread its own accumulator elements at a 128-float stride (no bank conflicts,
+//     no registers held through the self pass); after the self pass it forms the partials from
+//     O1 and the normalised O2 element by element, reduces them over the warp with shuffles
+//     and over its four warps in a fixed order, and writes its 64-row tile's triple;
+//   * 128-row q blocks divide S = 1024 (the SDXL tap). 192-row blocks (three consumer
+//     warpgroups, as K1 takes) leave 128 of every 1152 rows idle but hide two softmaxes under
+//     each consumer's products; the two measured alike at (80, 1024, 64) (PERF.md), so the
+//     two-consumer block stays: 240 registers a thread and one code path for every head dim up
+//     to 128;
+//   * TMA's zero fill supplies the columns past D, which add zeros to the partials, and the
+//     keys past S of a partial last tile (masked).
+// Torch sums the (N, S / 64, 3) buffer in a fixed order, so a score is the same from run to
+// run.
+//
+// float32 (a tight numerical check on the card, not on any main path): one block of 4 warps per
+// (q tile, row), the cross and then the self pass through attention_common.cuh's plain-FMA
+// tile loop, both accumulators in shared memory.
 //
 // C interface (loaded with ctypes): every entry point returns cudaGetLastError().
 
-#include "attention_common.cuh"
+#include "attention_wgmma.cuh"
 
 namespace {
 
 using namespace attn;
+
+// ---------------------------------------------------------------------------
+// bf16: wgmma + TMA, a producer warpgroup and two ping-ponged consumer warpgroups
+// ---------------------------------------------------------------------------
+
+constexpr int NWG = 2;  // consumer warpgroups of 64 q rows
+constexpr int BM = 64 * NWG;
+constexpr int CONSUMER_WARPS = 4 * NWG;
+constexpr int THREADS_WG = (NWG + 1) * 128;  // + the producer warpgroup
+// the producer gives its registers to the consumers: 128 x 24 + 256 x 240 <= 65536
+constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
+constexpr uint32_t BAR_WG = 1 + NWG;  // named barriers NWG + 1..: one consumer's four warps
+constexpr int RED_BYTES = 2 * NWG * 4 * 4 * 4;  // [item parity][consumer][warp][4] floats
+
+// the kernel's own shared memory after the ring: the parked cross outputs (f32), the reduction
+template <int DP>
+using Cfg = Tiling<DP, NWG, NWG * 128 * (DP / 2) * 4 + RED_BYTES>;
+
+// Persistent: each block walks work items item = blockIdx.x + i * gridDim.x, an item being one
+// 128-row q block of one row n; the producer streams its cross K/V tiles, then its self tiles.
+template <int DP>
+__global__ void __launch_bounds__(THREADS_WG, 1)
+readout_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k1,
+              const __grid_constant__ CUtensorMap tm_v1, const __grid_constant__ CUtensorMap tm_k2,
+              const __grid_constant__ CUtensorMap tm_v2, float* __restrict__ out, int s_len,
+              int n_items, float scale_log2, int mse) {
+  using namespace hopper;
+  constexpr int NO = DP / 2;  // O accumulators a thread
+  extern __shared__ unsigned char smem_raw[];
+  Pipeline<Cfg<DP>> pipe(smem_raw);
+  float* o1s = reinterpret_cast<float*>(pipe.extra);  // [NWG][NO][128]
+  float* red = o1s + NWG * NO * 128;                  // [2][NWG][4][4]
+
+  // warp-uniform by construction, so the compiler sees the role branches as non-divergent
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x / 32, 0);
+  const int lane = threadIdx.x % 32;
+  const int q_blocks = (s_len + BM - 1) / BM;
+  const int q_tiles = s_len / 64;  // partial triples a row
+
+  if (threadIdx.x == 0) pipe.init();
+  __syncthreads();
+
+  if (warp >= CONSUMER_WARPS) {  // the producer warpgroup: one thread issues every copy
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (warp == CONSUMER_WARPS && lane == 0) {
+      tma_prefetch_map(&tm_q);
+      tma_prefetch_map(&tm_k1);
+      tma_prefetch_map(&tm_v1);
+      tma_prefetch_map(&tm_k2);
+      tma_prefetch_map(&tm_v2);
+      for (int item = blockIdx.x, it = 0; item < n_items; item += gridDim.x, ++it) {
+        const int bh = item / q_blocks, q0 = (item % q_blocks) * BM;
+        pipe.load_q(&tm_q, it, q0, bh);
+        pipe.load_kv(&tm_k1, &tm_v1, bh, s_len);  // cross
+        pipe.load_kv(&tm_k2, &tm_v2, bh, s_len);  // self
+      }
+    }
+  } else {
+    setmaxnreg_inc<CONSUMER_REGS>();
+    // a consumer warpgroup: 64 q rows; this thread holds rows 16 (warp % 4) + lane / 4 and + 8
+    const int c = warp / 4, w4 = warp % 4;
+    float acc[NO], l_run[2];
+    float* o1 = o1s + c * NO * 128 + w4 * 32 + lane;  // this thread's parked O1, stride 128
+    open_turns<NWG>(c);
+    for (int item = blockIdx.x, it = 0; item < n_items; item += gridDim.x, ++it) {
+      const int bh = item / q_blocks, q0 = (item % q_blocks) * BM;
+      const bool last_item = item + gridDim.x >= n_items;
+      const unsigned char* q_base = pipe.wait_q(it, c);
+      float part[3] = {0.0f, 0.0f, 0.0f};
+
+      for (int pass = 0; pass < 2; ++pass) {  // cross, then self; the self pass frees Q
+        attend_pass<DP>(pipe, acc, l_run, q_base, it, s_len, scale_log2, c,
+                        last_item && pass == 1, pass == 1);
+        // acc[4 n + e] is row g8 (e < 2) or g8 + 8 (e >= 2), column 8 n + 2 t + e % 2
+        const float inv[2] = {1.0f / quad_sum(l_run[0]), 1.0f / quad_sum(l_run[1])};
+        if (pass == 0) {
+#pragma unroll
+          for (int i = 0; i < NO; ++i) o1[i * 128] = acc[i] * inv[(i % 4) / 2];
+        } else if (mse) {
+#pragma unroll
+          for (int i = 0; i < NO; ++i) {
+            const float d = o1[i * 128] - acc[i] * inv[(i % 4) / 2];
+            part[0] = fmaf(d, d, part[0]);
+          }
+        } else {
+#pragma unroll
+          for (int i = 0; i < NO; ++i) {
+            const float x = o1[i * 128], y = acc[i] * inv[(i % 4) / 2];
+            part[0] = fmaf(x, y, part[0]);
+            part[1] = fmaf(x, x, part[1]);
+            part[2] = fmaf(y, y, part[2]);
+          }
+        }
+      }
+
+      // this consumer's 64-row tile: the warp's sums (shuffles), then its four warps in order
+#pragma unroll
+      for (int k = 0; k < 3; ++k)
+#pragma unroll
+        for (int off = 16; off > 0; off /= 2)
+          part[k] += __shfl_xor_sync(0xffffffffu, part[k], off);
+      float* r = red + ((it & 1) * NWG + c) * 16;
+      if (lane == 0)
+        for (int k = 0; k < 3; ++k) r[4 * w4 + k] = part[k];
+      named_sync(BAR_WG + c, 128);
+      const int tile = q0 / 64 + c;  // rows past S (a partial last q block) are not written
+      if (w4 == 0 && lane == 0 && tile < q_tiles) {
+        float* dst = out + (size_t(bh) * q_tiles + tile) * 3;
+        for (int k = 0; k < 3; ++k) dst[k] = (r[k] + r[4 + k]) + (r[8 + k] + r[12 + k]);
+      }
+    }
+  }
+}
+
+template <int DP>
+cudaError_t launch_bf16(const void* q, const void* k1, const void* v1, const void* k2,
+                        const void* v2, float* out, int n, int s, int d, float scale, int mse,
+                        cudaStream_t stream) {
+  using C = Cfg<DP>;
+  CUtensorMap tq, tk1, tv1, tk2, tv2;
+  cudaError_t err = hopper::make_map_bf16(&tq, q, n, s, d, BM, C::W);
+  if (err == cudaSuccess) err = hopper::make_map_bf16(&tk1, k1, n, s, d, C::BN, C::W);
+  if (err == cudaSuccess) err = hopper::make_map_bf16(&tv1, v1, n, s, d, C::BN, C::W);
+  if (err == cudaSuccess) err = hopper::make_map_bf16(&tk2, k2, n, s, d, C::BN, C::W);
+  if (err == cudaSuccess) err = hopper::make_map_bf16(&tv2, v2, n, s, d, C::BN, C::W);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(readout_wgmma<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(C::SMEM));
+  if (err != cudaSuccess) return err;
+  const int n_items = (s + BM - 1) / BM * n;
+  const int grid = n_items < hopper::sm_count() ? n_items : hopper::sm_count();
+  readout_wgmma<DP><<<grid, THREADS_WG, C::SMEM, stream>>>(tq, tk1, tv1, tk2, tv2, out, s,
+                                                           n_items, scale * LOG2E, mse);
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch_bf16(const void* q, const void* k1, const void* v1, const void* k2,
+                          const void* v2, float* out, int n, int s, int d, float scale, int mse,
+                          cudaStream_t st) {
+  switch ((d + 15) / 16) {
+    case 1: return launch_bf16<16>(q, k1, v1, k2, v2, out, n, s, d, scale, mse, st);
+    case 2: return launch_bf16<32>(q, k1, v1, k2, v2, out, n, s, d, scale, mse, st);
+    case 3: return launch_bf16<48>(q, k1, v1, k2, v2, out, n, s, d, scale, mse, st);
+    case 4: return launch_bf16<64>(q, k1, v1, k2, v2, out, n, s, d, scale, mse, st);
+    case 5: return launch_bf16<80>(q, k1, v1, k2, v2, out, n, s, d, scale, mse, st);
+    case 6: return launch_bf16<96>(q, k1, v1, k2, v2, out, n, s, d, scale, mse, st);
+    case 7: return launch_bf16<112>(q, k1, v1, k2, v2, out, n, s, d, scale, mse, st);
+    case 8: return launch_bf16<128>(q, k1, v1, k2, v2, out, n, s, d, scale, mse, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// float32: plain FMAs, both accumulators in shared memory
+// ---------------------------------------------------------------------------
 
 // Sum of x over the block (4 warps) in a fixed order; the result is valid in thread 0.
 __device__ inline float block_sum(float x, float* red, int slot) {
@@ -56,97 +231,6 @@ __device__ inline void write_partials(float* out, float a, float b, float c, flo
     dst[2] = c;
   }
 }
-
-// ---------------------------------------------------------------------------
-// bf16: mma.sync, both accumulators in registers
-// ---------------------------------------------------------------------------
-
-template <int DP>
-__host__ __device__ constexpr size_t readout_smem_bytes() {
-  return bf16_smem_bytes<DP>() + 3 * WARPS * sizeof(float);
-}
-
-template <int DP>
-__global__ void __launch_bounds__(THREADS)
-readout_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k1, const bf16* __restrict__ v1,
-             const bf16* __restrict__ k2, const bf16* __restrict__ v2, float* __restrict__ out,
-             int s_len, int d, float scale_log2, int mse) {
-  constexpr int TILE = BQ * (DP + 8);
-  constexpr int NT = DP / 8;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Ks = Qs + TILE;
-  bf16* Vs = Ks + 2 * TILE;
-  float* red = reinterpret_cast<float*>(smem_raw + bf16_smem_bytes<DP>());
-
-  const int t4 = threadIdx.x % 4;
-  const size_t head = size_t(blockIdx.y) * s_len * d;
-  zero_padding_bf16<DP>(Qs, d);
-  unsigned qf[DP / 16][4];
-  load_q_bf16<DP>(qf, Qs, q + head + size_t(blockIdx.x) * BQ * d, d);
-
-  float o1[NT][4], l1[2], o2[NT][4], l2[2];
-  attend_bf16<DP>(qf, k1 + head, v1 + head, s_len, d, scale_log2, Ks, Vs, o1, l1);
-  attend_bf16<DP>(qf, k2 + head, v2 + head, s_len, d, scale_log2, Ks, Vs, o2, l2);
-
-  float a = 0.0f, b = 0.0f, c = 0.0f;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const float inv1 = 1.0f / quad_sum(l1[i]), inv2 = 1.0f / quad_sum(l2[i]);
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        if (n * 8 + 2 * t4 + j >= d) continue;  // padding columns (zero in both)
-        const float x = o1[n][2 * i + j] * inv1, y = o2[n][2 * i + j] * inv2;
-        if (mse) {
-          a = fmaf(x - y, x - y, a);
-        } else {
-          a = fmaf(x, y, a);
-          b = fmaf(x, x, b);
-          c = fmaf(y, y, c);
-        }
-      }
-    }
-  }
-  write_partials(out, a, b, c, red);
-}
-
-template <int DP>
-cudaError_t launch_bf16(const void* q, const void* k1, const void* v1, const void* k2,
-                        const void* v2, float* out, int n, int s, int d, float scale, int mse,
-                        cudaStream_t stream) {
-  constexpr size_t bytes = readout_smem_bytes<DP>();
-  cudaError_t err = cudaFuncSetAttribute(readout_bf16<DP>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(bytes));
-  if (err != cudaSuccess) return err;
-  readout_bf16<DP><<<dim3(s / BQ, n), THREADS, bytes, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k1), static_cast<const bf16*>(v1),
-      static_cast<const bf16*>(k2), static_cast<const bf16*>(v2), out, s, d, scale * LOG2E,
-      mse);
-  return cudaGetLastError();
-}
-
-cudaError_t dispatch_bf16(const void* q, const void* k1, const void* v1, const void* k2,
-                          const void* v2, float* out, int n, int s, int d, float scale, int mse,
-                          cudaStream_t st) {
-  switch ((d + 15) / 16) {
-    case 1: return launch_bf16<16>(q, k1, v1, k2, v2, out, n, s, d, scale, mse, st);
-    case 2: return launch_bf16<32>(q, k1, v1, k2, v2, out, n, s, d, scale, mse, st);
-    case 3: return launch_bf16<48>(q, k1, v1, k2, v2, out, n, s, d, scale, mse, st);
-    case 4: return launch_bf16<64>(q, k1, v1, k2, v2, out, n, s, d, scale, mse, st);
-    case 5: return launch_bf16<80>(q, k1, v1, k2, v2, out, n, s, d, scale, mse, st);
-    case 6: return launch_bf16<96>(q, k1, v1, k2, v2, out, n, s, d, scale, mse, st);
-    case 7: return launch_bf16<112>(q, k1, v1, k2, v2, out, n, s, d, scale, mse, st);
-    case 8: return launch_bf16<128>(q, k1, v1, k2, v2, out, n, s, d, scale, mse, st);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// float32: plain FMAs, both accumulators in shared memory
-// ---------------------------------------------------------------------------
 
 __global__ void __launch_bounds__(THREADS)
 readout_f32(const float* __restrict__ q, const float* __restrict__ k1,

@@ -27,6 +27,14 @@ def fused_geglu_ff_plain(x, w1, b1, w2, b2) -> torch.Tensor:
     return F.linear(y.float(), w2.float(), b2.float()).to(x.dtype)
 
 
+def kernel_takes(n: int, c: int) -> bool:
+    """The shape contract of the CUDA kernels, both dtypes: C % 32 == 0 (the bf16 kernels read
+    64-column k panels, TMA zero-filling the last half panel when C % 64 == 32; y has 4C columns,
+    a multiple of their 64-column tiles) and 0 < ceil(N / 64) <= 65535 (the float32 grid); any N
+    in that range, the bf16 kernels zero-filling the rows past N of their 128-row tiles."""
+    return c > 0 and c % 32 == 0 and 0 < n and (n + 63) // 64 <= 65535
+
+
 def _lib() -> ctypes.CDLL:
     lib = build.library("geglu_ff")
     if lib.geglu_ff_fwd.argtypes is None:
@@ -37,9 +45,9 @@ def _lib() -> ctypes.CDLL:
 
 
 def fused_geglu_ff(x, w1, b1, w2, b2) -> torch.Tensor:
-    """x (N, C) -> (N, C). CUDA: contiguous tensors of one dtype (bfloat16 or float32),
-    C % 32 == 0. One call launches the two GEMM kernels and counts one launch in
-    ``fused_geglu_ff.launches``."""
+    """x (N, C) -> (N, C). CUDA: contiguous tensors of one dtype (bfloat16 or float32) and a
+    shape that :func:`kernel_takes`. One call launches the two GEMM kernels and counts one
+    launch in ``fused_geglu_ff.launches``."""
     if x.device.type == "cpu":
         return fused_geglu_ff_plain(x, w1, b1, w2, b2)
     if x.device.type != "cuda":
@@ -58,9 +66,9 @@ def fused_geglu_ff(x, w1, b1, w2, b2) -> torch.Tensor:
     if any(t.device != x.device or not t.is_contiguous() or t.data_ptr() % 16 for t in tensors):
         raise ValueError("fused_geglu_ff: tensors must be contiguous, 16-byte aligned and on "
                          "one device")
-    if c % 32 or (n + 63) // 64 > 65535:
+    if not kernel_takes(n, c):
         raise ValueError(f"fused_geglu_ff: shape {(n, c)} not supported by the kernel "
-                         "(C % 32 == 0, N <= 65535*64)")
+                         "(C % 32 == 0, 0 < N <= 65535*64)")
     y = torch.empty((n, 4 * c), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
     lib = _lib()
