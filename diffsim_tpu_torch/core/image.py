@@ -1,11 +1,17 @@
 """Host-side image loading and preprocessing (the port's own copy of the PIL path of
-``diffsim_tpu/core/image.py``).
+``diffsim_tpu/core/image.py``, with its threaded :class:`ImageLoader`).
 
 Parity-critical: images are resized with PIL lanczos and mapped to [-1, 1]. Arrays are NHWC,
 the layout of the scorers' public functions.
 """
 
 from __future__ import annotations
+
+import collections
+import concurrent.futures as _futures
+import os
+import threading
+from typing import Sequence
 
 import numpy as np
 from PIL import Image
@@ -44,3 +50,67 @@ def load_and_process(path, img_size: int = 512, fast_decode: bool = False) -> np
 
 def load_and_process_u8(path, img_size: int = 512, fast_decode: bool = False) -> np.ndarray:
     return process_image_u8(load_image(path, img_size if fast_decode else None), img_size)
+
+
+class ImageLoader:
+    """Threaded loader: decodes and resizes images on host threads while the card scores (PIL
+    releases the GIL in decode and resize), with an LRU of preprocessed arrays keyed by
+    ``(path, mtime_ns, size)``, so an image rewritten in place is decoded again.
+
+    ``preprocess(pil_image) -> (1, H, W, C)`` replaces the default lanczos / [-1, 1] pipeline
+    (the scorers' moment cache takes :func:`process_image_u8`). ``cache_mb`` is the LRU's
+    budget (0 disables it); cached arrays are shared, so treat them as read-only.
+    ``fast_decode`` asks libjpeg for a DCT-domain decode at >= img_size per side (not the
+    reference pipeline: pixels differ slightly)."""
+
+    def __init__(self, img_size: int = 512, num_workers: int | None = None, preprocess=None,
+                 cache_mb: int = 512, fast_decode: bool = False):
+        self.img_size = img_size
+        self.fast_decode = fast_decode
+        self._preprocess = preprocess or (lambda img: process_image(img, img_size))
+        if num_workers is None:
+            num_workers = min(32, (os.cpu_count() or 8))
+        self._pool = _futures.ThreadPoolExecutor(max_workers=num_workers)
+        self._cache: collections.OrderedDict[tuple, np.ndarray] = collections.OrderedDict()
+        self._cache_bytes = 0
+        self._cache_budget = int(cache_mb * 1e6)
+        self._cache_lock = threading.Lock()
+
+    def _key(self, path) -> tuple | None:
+        if not isinstance(path, (str, os.PathLike)) or self._cache_budget <= 0:
+            return None
+        try:
+            st = os.stat(path)
+        except OSError:
+            return None
+        return (os.fspath(path), st.st_mtime_ns, st.st_size)
+
+    def _load(self, path) -> np.ndarray:
+        key = self._key(path)
+        if key is not None:
+            with self._cache_lock:
+                hit = self._cache.get(key)
+                if hit is not None:
+                    self._cache.move_to_end(key)
+                    return hit
+        arr = self._preprocess(load_image(path, self.img_size if self.fast_decode else None))
+        if key is not None:
+            with self._cache_lock:
+                if key not in self._cache:
+                    self._cache[key] = arr
+                    self._cache_bytes += arr.nbytes
+                    while self._cache_bytes > self._cache_budget and self._cache:
+                        _, old = self._cache.popitem(last=False)
+                        self._cache_bytes -= old.nbytes
+        return arr
+
+    def submit(self, path) -> _futures.Future:
+        return self._pool.submit(self._load, path)
+
+    def load_batch(self, paths: Sequence) -> np.ndarray:
+        """Load a list of paths into one (N, H, W, C) array."""
+        futs = [self.submit(p) for p in paths]
+        return np.concatenate([f.result() for f in futs], axis=0)
+
+    def close(self):
+        self._pool.shutdown(wait=False)

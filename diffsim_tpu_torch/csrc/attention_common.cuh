@@ -76,6 +76,24 @@ __device__ inline unsigned pack_bf16(float lo, float hi) {
   return *reinterpret_cast<unsigned*>(&v);
 }
 
+// x rounded to bf16 (to nearest even) and back to f32. On the device with integer operations,
+// which run at full rate where a conversion instruction does not (x is never a NaN here).
+__host__ __device__ inline float round_bf16(float x) {
+#ifdef __CUDA_ARCH__
+  const uint32_t u = __float_as_uint(x);
+  return __uint_as_float((u + 0x7FFFu + ((u >> 16) & 1u)) & 0xFFFF0000u);
+#else
+  return __bfloat162float(__float2bfloat16_rn(x));
+#endif
+}
+
+// The bf16_probs mode's probability of logit s under the f32 row max m, rounded where the TPU
+// kernels round (ops/pallas/attention.py:51-55, attention_stream.py:62-69): the centred logit
+// s - m to bf16, its product with the bf16 scale to bf16, the exponential to bf16.
+__device__ __forceinline__ float prob_bf16(float s, float m, float scale_bf16) {
+  return round_bf16(exp2f(round_bf16(round_bf16(s - m) * scale_bf16) * LOG2E));
+}
+
 // ---------------------------------------------------------------------------
 // bf16 tile loop (4 warps, 16 q rows each)
 // ---------------------------------------------------------------------------
@@ -292,10 +310,12 @@ __device__ inline void load_tile_f32(float* dst, int ld, const float* __restrict
 
 // One online-softmax pass of the block's 64 q rows (already in Qs) over all s_len keys of one
 // head, into the accumulator Os with running max Ms and sum Ls (all in shared memory). The
-// caller applies 1 / Ls after a __syncthreads().
+// caller applies 1 / Ls after a __syncthreads(). `bf16_probs` (K1's fast mode) rounds the
+// probabilities as prob_bf16 does; the row sum adds the rounded values, the rescaling stays f32.
 __device__ inline void attend_f32(const LayoutF32& L, unsigned char* smem, int out,
                                   const float* __restrict__ k, const float* __restrict__ v,
-                                  int s_len, int d, float scale) {
+                                  int s_len, int d, float scale, bool bf16_probs = false,
+                                  float scale_bf16 = 0.0f) {
   const float* Qs = reinterpret_cast<const float*>(smem + L.q);
   float* Ks = reinterpret_cast<float*>(smem + L.k);
   float* Vs = reinterpret_cast<float*>(smem + L.v);
@@ -342,7 +362,8 @@ __device__ inline void attend_f32(const LayoutF32& L, unsigned char* smem, int o
       const float corr = expf((m_old - m_new) * scale);  // 0 on the first tile
       float sum = 0.0f;
       for (int c = 0; c < BKV / 2; ++c) {
-        const float p = expf((srow[c] - m_new) * scale);
+        const float p = bf16_probs ? prob_bf16(srow[c], m_new, scale_bf16)
+                                   : expf((srow[c] - m_new) * scale);
         srow[c] = p;
         sum += p;
       }

@@ -22,6 +22,9 @@
 // Numerics (the JAX kernels' contract): f32 logits and softmax statistics, the row max over the
 // UNSCALED logits with scale * log2(e) folded into exp2's operand, the f32 row sum taken before
 // the probabilities are cast to bf16 unnormalised, f32 accumulation; the caller applies 1 / l.
+// The bf16_probs mode (BF16P, K1's --bf16_softmax) rounds as the TPU kernel's fast mode does
+// (prob_bf16: the centred logit, its product with the bf16 scale and the exponential each to
+// bf16) and sums the rounded probabilities; the rescaling factor stays f32.
 
 #pragma once
 
@@ -143,10 +146,10 @@ __device__ __forceinline__ void open_turns(int c) {
 // and r + 8 (i = 1) of this thread, a row spread over one lane quad. Keys at or past `valid`
 // are masked (zero-filled by TMA past S). Leaves the probabilities in s, updates m and l, and
 // returns in corr the factor that rescales the accumulator (0 on the first tile).
-template <int NS>
+template <bool BF16P, int NS>
 __device__ __forceinline__ void softmax_tile(float (&s)[NS], float (&m_run)[2], float (&l_run)[2],
-                                             float (&corr)[2], float scale_log2, int valid,
-                                             int t) {
+                                             float (&corr)[2], float scale_log2, float scale_bf16,
+                                             int valid, int t) {
   using hopper::ex2;
   if (valid < 2 * NS) {
 #pragma unroll
@@ -179,7 +182,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[NS], float (&m_run)[2], 
     const float m_new = fmaxf(m_run[i], m);
     corr[i] = ex2((m_run[i] - m_new) * scale_log2);  // 0 on the first tile
     m_run[i] = m_new;
-    mb[i] = m_new * scale_log2;
+    mb[i] = BF16P ? m_new : m_new * scale_log2;
   }
 #pragma unroll
   for (int n = 0; n < NS / 4; ++n)
@@ -187,9 +190,10 @@ __device__ __forceinline__ void softmax_tile(float (&s)[NS], float (&m_run)[2], 
     for (int i = 0; i < 2; ++i)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const float pe = ex2(fmaf(s[4 * n + 2 * i + e], scale_log2, -mb[i]));
+        const float pe = BF16P ? prob_bf16(s[4 * n + 2 * i + e], mb[i], scale_bf16)
+                               : ex2(fmaf(s[4 * n + 2 * i + e], scale_log2, -mb[i]));
         s[4 * n + 2 * i + e] = pe;
-        sum[i][n % 4] += pe;  // the row sum is taken before the cast, as the TPU kernel does
+        sum[i][n % 4] += pe;  // taken before the cast to bf16, as the TPU kernel does
       }
 #pragma unroll
   for (int i = 0; i < 2; ++i)
@@ -212,11 +216,12 @@ __device__ __forceinline__ void pack_p(uint32_t (&p)[KP][4], const float (&s)[KP
 // reduce over the lane quad (quad_sum) before use. acc[4 n + e] is row i = e / 2, column
 // 8 n + 2 t + e % 2 (t = lane % 4). `last_turn`: the block's last pass, after which the last
 // consumer hands no turn on. `release_q`: the pass's last read of Q frees item it's buffer.
-template <int DP, class C>
+// BF16P: the bf16_probs mode, with the bf16-rounded scale `scale_bf16`.
+template <int DP, bool BF16P = false, class C>
 __device__ __forceinline__ void attend_pass(Pipeline<C>& pipe, float (&acc)[DP / 2],
                                             float (&l_run)[2], const unsigned char* q_base, int it,
                                             int s_len, float scale_log2, int c, bool last_turn,
-                                            bool release_q) {
+                                            bool release_q, float scale_bf16 = 0.0f) {
   using namespace hopper;
   constexpr int BN = C::BN, NWG = C::NWG;
   constexpr int NS = BN / 2;   // S accumulators a thread
@@ -262,7 +267,7 @@ __device__ __forceinline__ void attend_pass(Pipeline<C>& pipe, float (&acc)[DP /
   wgmma_wait<0>();
   fence_regs(s);
   done_with_q(n_tiles == 1);
-  softmax_tile(s, m_run, l_run, corr, scale_log2, s_len, t);
+  softmax_tile<BF16P>(s, m_run, l_run, corr, scale_log2, scale_bf16, s_len, t);
 #pragma unroll
   for (int i = 0; i < DP / 2; ++i) acc[i] = 0.0f;
   pack_p(p, s);
@@ -286,7 +291,7 @@ __device__ __forceinline__ void attend_pass(Pipeline<C>& pipe, float (&acc)[DP /
     wgmma_wait<1>();  // S_j has landed; P_{j-1} V_{j-1} may still run
     fence_regs(s);
     done_with_q(j == n_tiles - 1);
-    softmax_tile(s, m_run, l_run, corr, scale_log2, s_len - j * BN, t);
+    softmax_tile<BF16P>(s, m_run, l_run, corr, scale_log2, scale_bf16, s_len - j * BN, t);
     fence_regs(s);    // keeps the compiler from sinking the exps below the wait: they overlap
     wgmma_wait<0>();  // the P V in flight only if they are issued before it
     fence_regs(acc);

@@ -5,8 +5,14 @@
 // body `_kernel`, pallas_call in `_pallas_forward`): an online softmax over K/V blocks with f32
 // running max m, sum l and accumulator, the max over the UNSCALED logits with the scale folded
 // into exp's operand, the probabilities cast to V's dtype for the PV product (f32
-// accumulation), and acc / l after the last block. This kernel keeps that contract (the exact
-// mode; the TPU kernel's bf16_probs mode is not ported).
+// accumulation), and acc / l after the last block. This kernel keeps that contract, and its
+// bf16_probs mode (--bf16_softmax, attention_stream.py:62-73) is a second instantiation of both
+// paths (BF16P): each probability is rounded as attention_common.cuh's prob_bf16 does (the
+// centred logit, its product with the bf16-rounded scale and the exponential, each to bf16), and
+// each tile's row sum of the rounded probabilities is rounded to bf16 before it enters the f32
+// l; the rescaling factor, l and the accumulator stay f32. The TPU kernel rounds the row sum of
+// 256-key blocks, this one of its own 64-key (float32) or 32-key (bf16) tiles. In float32 the
+// probabilities then have no low TF32 part, so P V takes two TF32 products instead of three.
 //
 // The trouble spot is D = 512: a 64-row f32 accumulator is 128 KB and one f32 K tile of 64
 // keys another 128 KB, against the 227 KB a block may use. The output accumulator therefore
@@ -181,10 +187,11 @@ __device__ inline void issue_stage_q64(int g, int total, int n_stages, int nkc, 
   attn::cp_async_commit();
 }
 
+template <bool BF16P>
 __global__ void __launch_bounds__(THREADS, 1)
 stream_f32_q64(const float* __restrict__ q, const float* __restrict__ k,
                const float* __restrict__ v, float* __restrict__ o, int s_len, int d,
-               float scale) {
+               float scale, float scale_bf16) {
   constexpr int MT = Q64 / 16;  // m16 tiles of P V a warp: all 64 rows
   constexpr int NT = 8;         // n8 tiles of P V a warp: 64 output columns
   extern __shared__ __align__(128) unsigned char smem[];
@@ -292,11 +299,12 @@ stream_f32_q64(const float* __restrict__ q, const float* __restrict__ k,
         float sum = 0.0f;
 #pragma unroll
         for (int j = 0; j < 16; ++j) {
-          x[j] = expf((x[j] - m_new) * scale);
+          x[j] = BF16P ? attn::prob_bf16(x[j], m_new, scale_bf16) : expf((x[j] - m_new) * scale);
           sum += x[j];
         }
         sum += __shfl_xor_sync(0xffffffffu, sum, 1);
         sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+        if (BF16P) sum = attn::round_bf16(sum);
 #pragma unroll
         for (int i = 0; i < 4; ++i)
           *reinterpret_cast<float4*>(srow + 4 * i) =
@@ -337,8 +345,12 @@ stream_f32_q64(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
         for (int m = 0; m < MT; ++m) {
           float part[4];
-          mma_tf32_first(part, al[m], bh0, bh1);
-          mma_tf32(part, ah[m], bl0, bl1);
+          if (BF16P) {  // bf16 probabilities are exact in tf32: their low part is zero
+            mma_tf32_first(part, ah[m], bl0, bl1);
+          } else {
+            mma_tf32_first(part, al[m], bh0, bh1);
+            mma_tf32(part, ah[m], bl0, bl1);
+          }
           mma_tf32(part, ah[m], bh0, bh1);
 #pragma unroll
           for (int e = 0; e < 4; ++e) acc[m][n][e] += part[e];
@@ -366,16 +378,17 @@ stream_f32_q64(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+template <bool BF16P>
 cudaError_t launch_f32_q64(const void* q, const void* k, const void* v, void* o, int bh, int s,
                            int d, float scale, cudaStream_t stream) {
   const size_t bytes = LayoutQ64(d).total;
-  cudaError_t err = cudaFuncSetAttribute(stream_f32_q64,
+  cudaError_t err = cudaFuncSetAttribute(stream_f32_q64<BF16P>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
-  stream_f32_q64<<<dim3(s / Q64, bh), THREADS, bytes, stream>>>(
+  stream_f32_q64<BF16P><<<dim3(s / Q64, bh), THREADS, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), s, d, scale);
+      static_cast<float*>(o), s, d, scale, attn::round_bf16(scale));
   return cudaGetLastError();
 }
 
@@ -402,9 +415,10 @@ __device__ inline void load_rows_bf16(bf16* dst, const bf16* src, int rows, int 
   }
 }
 
+template <bool BF16P>
 __global__ void __launch_bounds__(THREADS)
 stream_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-            bf16* __restrict__ o, int s_len, int d, float scale_log2) {
+            bf16* __restrict__ o, int s_len, int d, float scale_log2, float scale_bf16) {
   constexpr int LD = DP + 8;
   constexpr int CW = DP / 8;   // output columns per warp
   constexpr int NTW = CW / 8;  // n8 tiles per warp
@@ -498,12 +512,14 @@ stream_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* 
       float sum = 0.0f;
 #pragma unroll
       for (int j = 0; j < KPT; ++j) {
-        const float p = exp2f((x[j] - m_new) * scale_log2);
+        const float p = BF16P ? attn::prob_bf16(x[j], m_new, scale_bf16)
+                              : exp2f((x[j] - m_new) * scale_log2);
         Ps[rs * LDPB + kp + j] = __float2bfloat16(p);
         sum += p;  // the row sum is taken before the cast, as the TPU kernel does
       }
 #pragma unroll
       for (int off = 1; off < TPR; off *= 2) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      if (BF16P) sum = attn::round_bf16(sum);
       if (tid % TPR == 0) {
         Ms[rs] = m_new;
         Ls[rs] = Ls[rs] * corr + sum;
@@ -566,16 +582,17 @@ stream_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* 
   }
 }
 
+template <bool BF16P>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, int bh, int s,
                         int d, float scale, cudaStream_t stream) {
   constexpr size_t bytes = bf16_smem_bytes();
-  cudaError_t err = cudaFuncSetAttribute(stream_bf16,
+  cudaError_t err = cudaFuncSetAttribute(stream_bf16<BF16P>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
-  stream_bf16<<<dim3(s / BQB, bh), THREADS, bytes, stream>>>(
+  stream_bf16<BF16P><<<dim3(s / BQB, bh), THREADS, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), s, d, scale * LOG2E);
+      static_cast<bf16*>(o), s, d, scale * LOG2E, attn::round_bf16(scale));
   return cudaGetLastError();
 }
 
@@ -583,18 +600,20 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, in
 
 extern "C" {
 
-// q, k, v, o: contiguous (bh, s, d); dtype 0 = float32, 1 = bfloat16; 0 < bh <= 65535.
-// float32 requires s % 64 == 0, d % 64 == 0, d <= 512; bfloat16 s % 32 == 0, d % 8 == 0,
-// d <= 512.
+// q, k, v, o: contiguous (bh, s, d); dtype 0 = float32, 1 = bfloat16; bf16_probs 0 or 1;
+// 0 < bh <= 65535. float32 requires s % 64 == 0, d % 64 == 0, d <= 512; bfloat16 s % 32 == 0,
+// d % 8 == 0, d <= 512.
 int streaming_attention_fwd(const void* q, const void* k, const void* v, void* o, int bh, int s,
-                            int d, float scale, int dtype, void* stream) {
+                            int d, float scale, int dtype, int bf16_probs, void* stream) {
   if (bh <= 0 || bh > 65535 || s <= 0 || d <= 0 || d > DP)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && s % Q64 == 0 && d % DC == 0)
-    return static_cast<int>(launch_f32_q64(q, k, v, o, bh, s, d, scale, st));
+    return static_cast<int>(bf16_probs ? launch_f32_q64<true>(q, k, v, o, bh, s, d, scale, st)
+                                       : launch_f32_q64<false>(q, k, v, o, bh, s, d, scale, st));
   if (dtype == 1 && s % BQB == 0 && d % 8 == 0)
-    return static_cast<int>(launch_bf16(q, k, v, o, bh, s, d, scale, st));
+    return static_cast<int>(bf16_probs ? launch_bf16<true>(q, k, v, o, bh, s, d, scale, st)
+                                       : launch_bf16<false>(q, k, v, o, bh, s, d, scale, st));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

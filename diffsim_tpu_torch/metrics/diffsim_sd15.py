@@ -10,6 +10,11 @@ are NHWC (P, H, W, 3) uint8 or float in [-1, 1], taps (B, heads, S, D), ``noise_
 
 Scoring runs on ``cuda`` unless ``device`` is given; without a CUDA device and without a
 ``device`` the constructor raises. Default dtype bf16, as in the JAX scorer.
+
+``score_triplet_paths`` scores triplets of image paths through the device moment cache
+(``runtime/device_cache.py``): each unique image is decoded and VAE-encoded once. It and
+``score_triplet_batch`` share one tail (moments -> scores), so an all-hit rescore repeats its
+scores bit for bit and cached moments score as fresh ones do.
 """
 
 from __future__ import annotations
@@ -23,15 +28,19 @@ from diffsim_tpu_torch.core.tokenizer import HashTokenizer
 from diffsim_tpu_torch.metrics.scorer_base import (
     build_module,
     fetchable,
-    fetchable_pair,
+    moment_cache,
     pair_score,
+    pool_moments,
     resolve_device,
     role_noise,
+    triplet_prompts,
+    triplet_scores,
     to_device_pixels,
 )
 from diffsim_tpu_torch.models.clip_text import CLIPText, CLIPTextConfig
 from diffsim_tpu_torch.models.unet import UNet, UNetConfig
-from diffsim_tpu_torch.models.vae import Encoder, VAEConfig, sample_latents
+from diffsim_tpu_torch.models.vae import Encoder, VAEConfig, encode_chunked, sample_latents
+from diffsim_tpu_torch.ops.attention import fast_softmax as fast_softmax_mode
 from diffsim_tpu_torch.ops.taps import QKV, TapSpec
 
 
@@ -69,7 +78,15 @@ class DiffSimSD15:
     """Batched SD-1.5 DiffSim. ``params`` is the JAX package's parameter tree
     {'unet', 'vae' (encoder), 'text'} as numpy arrays, bridged strictly; if None, the weights
     are random, drawn on the device from ``torch.Generator`` seeded with ``init_seed``
-    (throughput and tests: scores are meaningless without converted weights)."""
+    (throughput and tests: scores are meaningless without converted weights).
+
+    ``fast_softmax`` is the ``--bf16_softmax`` mode: attention probabilities in bf16
+    (``ops/attention.py``). The pair path runs its whole graph in it, the VAE encode included;
+    the triplet paths run only the tail after the encode, so that cached moments are the same in
+    both modes, as in the JAX scorer."""
+
+    hbm_scale = 1.0  # per-triplet device memory against SD-1.5's (runtime/hbm_guard.py)
+    moment_cache_mb: float | None = None  # None => $DIFFSIM_TPU_MOMENT_CACHE_MB or 512
 
     def __init__(
         self,
@@ -88,8 +105,6 @@ class DiffSimSD15:
         fast_softmax: bool = False,
         init_seed: int = 0,
     ):
-        if fast_softmax:
-            raise _not_ported("fast_softmax (the K1 bf16_probs mode)")
         self.device = resolve_device(device)
         self.unet_cfg = unet_cfg or UNetConfig.sd15()
         self.vae_cfg = vae_cfg or VAEConfig.sd()
@@ -100,6 +115,8 @@ class DiffSimSD15:
         # both enter the score; cfg_parity=False keeps only the cond half
         self.cfg_parity = cfg_parity and guidance_scale > 1.0
         self.vae_mode = vae_mode
+        self.fast_softmax = fast_softmax
+        self._moment_cache = None
         if tokenizer is None and params is not None:
             print("[tokenizer] weights were supplied but no CLIP tokenizer: falling back to "
                   "the HashTokenizer, so prompt embeddings are garbage and scores are "
@@ -147,9 +164,10 @@ class DiffSimSD15:
     # ------------------------------------------------------------------
 
     def _encode(self, roles) -> torch.Tensor:
-        """n NHWC role arrays of P images -> moments (P, n, 2C, h, w) pair-major."""
+        """n NHWC role arrays of P images -> moments (P, n, 2C, h, w) pair-major, encoded in the
+        VAE's slices."""
         pix = to_device_pixels(roles, self.device, self.dtype)
-        moments = self.vae(pix)
+        moments = encode_chunked(self.vae, pix)
         n, P = len(roles), roles[0].shape[0]
         return moments.reshape((n, P) + moments.shape[1:]).transpose(0, 1)
 
@@ -177,6 +195,20 @@ class DiffSimSD15:
         _, taps = self.unet(x_in, model_t, ctx, tap=tap)
         nb = n * per_img
         return [t.reshape((P, nb) + t.shape[1:]) for t in (taps["q"], taps["k"], taps["v"])], per_img
+
+    def _triplet_tail(self, moments, prompts, spec, tap: TapSpec, seed: int, similarity: str):
+        """Moments (T, 3, 2C, h, w) of triplets [a, b, c] -> (s_ab, s_ac): everything after the
+        VAE encode, shared by the pixel path and the cached path. A keeps its draws; B and C
+        each play "image B". Runs in the fast mode when the scorer has it."""
+        h, w = moments.shape[-2:]
+        eps_vae, eps_noise = role_noise(seed, h, w, self.vae_cfg.latent_channels, self.device)
+        idx = torch.tensor([0, 1, 1], device=self.device)  # roles A, B, B
+        with fast_softmax_mode(self.fast_softmax):
+            qkv, per_img = self._taps(moments, self._embeds(prompts),
+                                      None if self.vae_mode else eps_vae[idx], eps_noise[idx],
+                                      spec, tap)
+            a, b, c = (slice(j * per_img, (j + 1) * per_img) for j in range(3))
+            return pair_score(qkv, a, b, similarity), pair_score(qkv, a, c, similarity)
 
     # ------------------------------------------------------------------
     # public API
@@ -213,16 +245,17 @@ class DiffSimSD15:
         prompts = [prompt] * P if isinstance(prompt, str) else list(prompt)
         if len(prompts) != P:
             raise ValueError(f"{len(prompts)} prompts for {P} pairs")
-        moments = self._encode([pix_a, pix_b])
-        h, w = moments.shape[-2:]
-        eps_vae, eps_noise = role_noise(seed, h, w, self.vae_cfg.latent_channels, self.device,
-                                        noise_override)
-        if self.vae_mode and noise_override is None:
-            eps_vae = None
-        qkv, per_img = self._taps(moments, self._embeds(prompts), eps_vae, eps_noise,
-                                  schedulers.sd15_noise_spec(int(target_step)), tap)
-        scores = pair_score(qkv, slice(0, per_img), slice(per_img, 2 * per_img),
-                                  similarity)
+        with fast_softmax_mode(self.fast_softmax):  # the whole graph, VAE encode included
+            moments = self._encode([pix_a, pix_b])
+            h, w = moments.shape[-2:]
+            eps_vae, eps_noise = role_noise(seed, h, w, self.vae_cfg.latent_channels,
+                                            self.device, noise_override)
+            if self.vae_mode and noise_override is None:
+                eps_vae = None
+            qkv, per_img = self._taps(moments, self._embeds(prompts), eps_vae, eps_noise,
+                                      schedulers.sd15_noise_spec(int(target_step)), tap)
+            scores = pair_score(qkv, slice(0, per_img), slice(per_img, 2 * per_img),
+                                similarity)
         return fetchable(scores, blocking)
 
     @torch.inference_mode()
@@ -245,29 +278,53 @@ class DiffSimSD15:
     ):
         """(s_ab, s_ac) for T 2AFC triplets: equal to two score_batch calls, sharing A's VAE
         encode and UNet forwards (A keeps its draws; B and C each play "image B"). ``chunk``
-        scores ``chunk`` triplets at a time, bounding peak activation memory."""
+        scores ``chunk`` triplets at a time, bounding peak activation memory; without it the
+        device-memory guard picks the largest chunk that fits (``runtime/hbm_guard.py``)."""
         tap = sd15_tap(target_block, target_layer, False, fix_layer_collapse, text_attn)
-        T = pix_a.shape[0]
-        prompts = [prompt] * T if isinstance(prompt, str) else list(prompt)
-        if len(prompts) != T:
-            raise ValueError(f"{len(prompts)} prompts for {T} triplets")
-        spec = schedulers.sd15_noise_spec(int(target_step))
-        step = chunk or T
-        s_ab, s_ac = [], []
-        for i in range(0, T, step):
-            sl = slice(i, i + step)
-            moments = self._encode([pix_a[sl], pix_b[sl], pix_c[sl]])
-            h, w = moments.shape[-2:]
-            eps_vae, eps_noise = role_noise(seed, h, w, self.vae_cfg.latent_channels,
-                                            self.device)
-            idx = torch.tensor([0, 1, 1], device=self.device)  # roles A, B, B
-            qkv, per_img = self._taps(
-                moments, self._embeds(prompts[sl]),
-                None if self.vae_mode else eps_vae[idx], eps_noise[idx], spec, tap)
-            a, b, c = (slice(j * per_img, (j + 1) * per_img) for j in range(3))
-            s_ab.append(pair_score(qkv, a, b, similarity))
-            s_ac.append(pair_score(qkv, a, c, similarity))
-        return fetchable_pair(torch.cat(s_ab), torch.cat(s_ac), blocking)
+        prompts = triplet_prompts(prompt, len(pix_a), len(pix_b), len(pix_c))
+        return triplet_scores(self, lambda rows: self._encode([pix_a[rows], pix_b[rows],
+                                                               pix_c[rows]]), prompts,
+                              schedulers.sd15_noise_spec(int(target_step)), tap, seed,
+                              similarity, chunk, blocking)
+
+    def _ensure_moment_cache(self):
+        return moment_cache(self, self.dtype)
+
+    @torch.inference_mode()
+    def score_triplet_paths(
+        self,
+        paths_a,
+        paths_b,
+        paths_c,
+        pix_a: np.ndarray | None = None,
+        pix_b: np.ndarray | None = None,
+        pix_c: np.ndarray | None = None,
+        *,
+        loader=None,
+        row_map: dict | None = None,
+        prompt="",
+        target_block: str = "up_blocks",
+        target_layer=0,
+        target_step: int = 600,
+        similarity: str = "cosine",
+        seed: int = 2333,
+        fix_layer_collapse: bool = False,
+        blocking: bool = True,
+        chunk: int | None = None,
+        text_attn: bool = False,
+    ):
+        """(s_ab, s_ac) for T triplets of image paths. Each unique image is decoded and
+        VAE-encoded once into the device moment pool; the scores gather the pool's rows and run
+        the tail of :meth:`score_triplet_batch`. ``pix_a/b/c``: the decoded (T, H, W, 3) uint8
+        arrays where the caller has them; they feed cache misses. Otherwise misses are decoded
+        by ``loader`` (an ``ImageLoader`` with the uint8 preprocess) or from disk."""
+        tap = sd15_tap(target_block, target_layer, False, fix_layer_collapse, text_attn)
+        prompts = triplet_prompts(prompt, len(paths_a), len(paths_b), len(paths_c))
+        moments_of = pool_moments(self, (paths_a, paths_b, paths_c), (pix_a, pix_b, pix_c),
+                                  loader, row_map)
+        return triplet_scores(self, moments_of, prompts,
+                              schedulers.sd15_noise_spec(int(target_step)), tap, seed,
+                              similarity, chunk, blocking)
 
     def diffsim(self, image_a, image_b, img_size=None, prompt="", target_block="up_blocks",
                 target_layer=(0,), target_step=600, ip_adapter=False, seed=2333,
@@ -290,9 +347,6 @@ class DiffSimSD15:
 
     def tap_values(self, *args, **kwargs):
         raise _not_ported("tap_values")
-
-    def score_triplet_paths(self, *args, **kwargs):
-        raise _not_ported("score_triplet_paths (the device moment cache)")
 
     def enable_ip_adapter(self, *args, **kwargs):
         raise _not_ported("IP-Adapter")

@@ -21,6 +21,8 @@ each (2, h, w, 4). What differs from SD-1.5, all kept from the JAX scorer:
 
 Scoring runs on ``cuda`` unless ``device`` is given; without a CUDA device and without a
 ``device`` the constructor raises. Default dtype bf16, as in the JAX scorer.
+``score_triplet_paths`` scores through the device moment cache, as the SD-1.5 port does; its
+pool holds the VAE's output dtype (float32 with ``vae_fp32``, 0.5 MB an image at 1024 px).
 """
 
 from __future__ import annotations
@@ -34,10 +36,13 @@ from diffsim_tpu_torch.core.tokenizer import HashTokenizer
 from diffsim_tpu_torch.metrics.scorer_base import (
     build_module,
     fetchable,
-    fetchable_pair,
+    moment_cache,
     pair_score,
+    pool_moments,
     resolve_device,
     role_noise,
+    triplet_prompts,
+    triplet_scores,
     to_device_pixels,
 )
 from diffsim_tpu_torch.models.clip_text import CLIPText, CLIPTextConfig
@@ -79,6 +84,12 @@ class DiffSimXL:
     weights are random, drawn on the device from ``torch.Generator`` seeded with ``init_seed``
     (throughput and tests: scores are meaningless without converted weights)."""
 
+    # per-triplet device memory against SD-1.5's at one resolution (runtime/hbm_guard.py): the
+    # scoring tail's slope between 2 and 4 SDXL triplets at 1024 px, 0.724 GB, over 4 x SD-1.5's
+    # constant, 0.453, rounded up (chip_smoke.py, H100 80GB HBM3, 700 W)
+    hbm_scale = 0.5
+    moment_cache_mb: float | None = None  # None => $DIFFSIM_TPU_MOMENT_CACHE_MB or 512
+
     def __init__(
         self,
         params=None,
@@ -107,6 +118,7 @@ class DiffSimXL:
         self.cfg_parity = cfg_parity
         self.vae_mode = vae_mode
         self.enc_dtype = torch.float32 if vae_fp32 else dtype
+        self._moment_cache = None
         if tokenizer is None and params is not None:
             print("[tokenizer] weights were supplied but no CLIP tokenizer: falling back to "
                   "the HashTokenizer, so prompt embeddings are garbage and scores are "
@@ -215,6 +227,19 @@ class DiffSimXL:
         qkv = [t.reshape((P, nb) + t.shape[1:]) for t in (taps["q"], taps["k"], taps["v"])]
         return qkv, per_img
 
+    def _triplet_tail(self, moments, prompts, spec, tap: TapSpec, seed: int, similarity: str):
+        """Moments (T, 3, 2C, h, w) of triplets [a, b, c] -> (s_ab, s_ac): everything after the
+        VAE encode, shared by the pixel path and the cached path. A keeps its draws; B and C
+        each play "image B"."""
+        h, w = moments.shape[-2:]
+        eps_vae, eps_noise = role_noise(seed, h, w, self.vae_cfg.latent_channels, self.device)
+        idx = torch.tensor([0, 1, 1], device=self.device)  # roles A, B, B
+        qkv, per_img = self._taps(moments, *self._embeds(prompts),
+                                  None if self.vae_mode else eps_vae[idx], eps_noise[idx],
+                                  spec, tap)
+        a, b, c = (slice(j * per_img, (j + 1) * per_img) for j in range(3))
+        return pair_score(qkv, a, b, similarity), pair_score(qkv, a, c, similarity)
+
     # ------------------------------------------------------------------
     # public API
     # ------------------------------------------------------------------
@@ -273,29 +298,49 @@ class DiffSimXL:
     ):
         """(s_ab, s_ac) for T 2AFC triplets: equal to two score_batch calls, sharing A's VAE
         encode and UNet forwards (A keeps its draws; B and C each play "image B"). ``chunk``
-        scores ``chunk`` triplets at a time, bounding peak activation memory."""
+        scores ``chunk`` triplets at a time, bounding peak activation memory; without it the
+        device-memory guard picks the largest chunk that fits (``runtime/hbm_guard.py``)."""
         tap = sdxl_tap(target_block, target_layer)
-        T = pix_a.shape[0]
-        prompts = [prompt] * T if isinstance(prompt, str) else list(prompt)
-        if len(prompts) != T:
-            raise ValueError(f"{len(prompts)} prompts for {T} triplets")
-        spec = schedulers.sdxl_noise_spec(int(target_step))
-        step = chunk or T
-        s_ab, s_ac = [], []
-        for i in range(0, T, step):
-            sl = slice(i, i + step)
-            moments = self._encode([pix_a[sl], pix_b[sl], pix_c[sl]])
-            h, w = moments.shape[-2:]
-            eps_vae, eps_noise = role_noise(seed, h, w, self.vae_cfg.latent_channels,
-                                            self.device)
-            idx = torch.tensor([0, 1, 1], device=self.device)  # roles A, B, B
-            qkv, per_img = self._taps(moments, *self._embeds(prompts[sl]),
-                                      None if self.vae_mode else eps_vae[idx], eps_noise[idx],
-                                      spec, tap)
-            a, b, c = (slice(j * per_img, (j + 1) * per_img) for j in range(3))
-            s_ab.append(pair_score(qkv, a, b, similarity))
-            s_ac.append(pair_score(qkv, a, c, similarity))
-        return fetchable_pair(torch.cat(s_ab), torch.cat(s_ac), blocking)
+        prompts = triplet_prompts(prompt, len(pix_a), len(pix_b), len(pix_c))
+        return triplet_scores(self, lambda rows: self._encode([pix_a[rows], pix_b[rows],
+                                                               pix_c[rows]]), prompts,
+                              schedulers.sdxl_noise_spec(int(target_step)), tap, seed,
+                              similarity, chunk, blocking)
+
+    def _ensure_moment_cache(self):
+        return moment_cache(self, self.enc_dtype)
+
+    @torch.inference_mode()
+    def score_triplet_paths(
+        self,
+        paths_a,
+        paths_b,
+        paths_c,
+        pix_a: np.ndarray | None = None,
+        pix_b: np.ndarray | None = None,
+        pix_c: np.ndarray | None = None,
+        *,
+        loader=None,
+        row_map: dict | None = None,
+        prompt="",
+        target_block: str = "up_blocks",
+        target_layer=(0, 0, 0),
+        target_step: int = 900,
+        similarity: str = "cosine",
+        seed: int = 2333,
+        blocking: bool = True,
+        chunk: int | None = None,
+    ):
+        """(s_ab, s_ac) for T triplets of image paths through the device moment cache: each
+        unique image is decoded and VAE-encoded once (see ``DiffSimSD15.score_triplet_paths``;
+        at 1024 px the float32 encode is most of a fresh call, which a hit skips)."""
+        tap = sdxl_tap(target_block, target_layer)
+        prompts = triplet_prompts(prompt, len(paths_a), len(paths_b), len(paths_c))
+        moments_of = pool_moments(self, (paths_a, paths_b, paths_c), (pix_a, pix_b, pix_c),
+                                  loader, row_map)
+        return triplet_scores(self, moments_of, prompts,
+                              schedulers.sdxl_noise_spec(int(target_step)), tap, seed,
+                              similarity, chunk, blocking)
 
     def diffsim_score(self, image_a, image_b, img_size=None, prompt="",
                       target_block="up_blocks", target_layer=(0, 0, 0), target_step=900,
@@ -312,9 +357,6 @@ class DiffSimXL:
     # ------------------------------------------------------------------
     # entry points of the JAX scorer that later slices port
     # ------------------------------------------------------------------
-
-    def score_triplet_paths(self, *args, **kwargs):
-        raise _not_ported("score_triplet_paths (the device moment cache)")
 
     def enable_ip_adapter(self, *args, **kwargs):
         raise _not_ported("IP-Adapter")

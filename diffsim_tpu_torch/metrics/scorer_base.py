@@ -11,7 +11,13 @@ from torch import nn
 
 from diffsim_tpu_torch.convert import bridge
 from diffsim_tpu_torch.core import prng
+from diffsim_tpu_torch.core.image import load_and_process_u8
 from diffsim_tpu_torch.metrics import readout
+from diffsim_tpu_torch.runtime.device_cache import (
+    ensure_image_slots,
+    make_moment_cache,
+    resolve_cached_chunk,
+)
 
 
 def resolve_device(device) -> torch.device:
@@ -104,3 +110,49 @@ def pair_score(qkv, sl_a: slice, sl_b: slice, similarity: str) -> torch.Tensor:
     q, k, v = qkv
     return readout.cross_attention_score(q[:, sl_a], k[:, sl_a], v[:, sl_a],
                                          q[:, sl_b], k[:, sl_b], v[:, sl_b], similarity)
+
+
+def triplet_scores(scorer, moments_of: Callable, prompts, spec, tap, seed: int, similarity: str,
+                   chunk, blocking: bool):
+    """The chunk loop of both triplet paths of a scorer: ``moments_of(rows)`` gives the moments
+    (t, 3, 2C, h, w) of the triplets at slice ``rows`` (encoded fresh, or gathered from the
+    moment pool) and ``scorer._triplet_tail`` scores them. The chunk is ``chunk`` or the
+    device-memory guard's (``runtime/hbm_guard.py``)."""
+    T = len(prompts)
+    step = resolve_cached_chunk(T, chunk, scorer)
+    s_ab, s_ac = [], []
+    for i in range(0, T, step):
+        rows = slice(i, i + step)
+        ab, ac = scorer._triplet_tail(moments_of(rows), prompts[rows], spec, tap, seed,
+                                      similarity)
+        s_ab.append(ab)
+        s_ac.append(ac)
+    return fetchable_pair(torch.cat(s_ab), torch.cat(s_ac), blocking)
+
+
+def moment_cache(scorer, enc_dtype: torch.dtype):
+    """The scorer's path-keyed VAE-moment pool (``runtime/device_cache.py``), built at first
+    use in the encoder's dtype."""
+    if scorer._moment_cache is None:
+        scorer._moment_cache = make_moment_cache(scorer, enc_dtype)
+    return scorer._moment_cache
+
+
+def pool_moments(scorer, paths_roles, pix_roles, loader, row_map) -> Callable:
+    """The host half of ``score_triplet_paths``: the three role path lists -> their slots in the
+    scorer's moment pool, the misses decoded and encoded first; returns ``moments_of(rows)`` for
+    :func:`triplet_scores`."""
+    cache = scorer._ensure_moment_cache()
+    idx3 = ensure_image_slots(cache, paths_roles, pix_roles, loader,
+                              lambda k: load_and_process_u8(k, scorer.img_size), row_map=row_map)
+    slots = torch.from_numpy(idx3).long().to(scorer.device)
+    return lambda rows: cache.pool[slots[rows]]
+
+
+def triplet_prompts(prompt, n: int, *lengths) -> list:
+    """``prompt`` (one string or n strings) as a list of n, after checking that every role has
+    n entries."""
+    prompts = [prompt] * n if isinstance(prompt, str) else list(prompt)
+    if len(prompts) != n or any(m != n for m in lengths):
+        raise ValueError(f"{n} triplets with {len(prompts)} prompts and role lengths {lengths}")
+    return prompts

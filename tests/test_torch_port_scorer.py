@@ -201,12 +201,9 @@ def test_parts_outside_this_slice_raise(fix):
         scorer.score_batch(a, a, ip_adapter=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         scorer.score_batch(a, a, mask_a=np.ones((1, 32, 32)), mask_b=np.ones((1, 32, 32)))
-    for method in ("score_feats_batch", "tap_values", "score_triplet_paths",
-                   "enable_ip_adapter"):
+    for method in ("score_feats_batch", "tap_values", "enable_ip_adapter"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             getattr(scorer, method)()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _port(fix[1], fast_softmax=True)
 
 
 def test_partial_weight_trees_are_refused(fix):

@@ -294,9 +294,8 @@ def test_parts_outside_this_slice_raise(params):
     a = np.zeros((1, 32, 32, 3), np.uint8)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         scorer.score_batch(a, a, ip_adapter=True)
-    for method in ("score_triplet_paths", "enable_ip_adapter"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            getattr(scorer, method)()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        scorer.enable_ip_adapter()
 
 
 def test_partial_weight_trees_are_refused(params):
