@@ -8,8 +8,9 @@ Phases, each of which fails the run (non-zero exit, no result line) if anything 
 1. the card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
 2. the build: every ``diffsim_tpu_torch/csrc/*.cu`` compiled by nvcc for sm_90a, in parallel;
 3. K1 ``fused_self_attention`` at the SD-1.5 main-path shapes (B = 24: 4 triplets x 6 CFG
-   rows) and the SDXL ones (B = 12: 2 triplets), at S = 1280, in float32, and at every head
-   dim it takes, against its plain version; timed beside the plain version,
+   rows), the SDXL ones (B = 12: 2 triplets) and DiT-XL/2's (48, 16, 1024, 72) (8 triplets x 6
+   rows; head dim 72 runs as the kernel's 80-wide instantiation), at S = 1280, in float32, and
+   at every head dim it takes, against its plain version; timed beside the plain version,
    ``F.scaled_dot_product_attention`` (a yardstick only; the port never calls it), its
    previous design (v2, ``csrc/attention_v2.cu``, also held to the plain version) and the
    card's bound;
@@ -18,17 +19,20 @@ Phases, each of which fails the run (non-zero exit, no result line) if anything 
    elementwise GEGLU between them (no single PyTorch call computes GEGLU-FF, so K2 has no
    library time), and at ragged row counts and other widths in both dtypes;
 5. K3 ``cross_self_partials`` (the fused readout) at the SDXL tap, (80, 1024, 64) bf16, in
-   both similarities, at the SD-1.5 up-block-2/3 taps, at DiT's head dim 72 and in float32,
+   both similarities, at the SD-1.5 up-block-2/3 taps, at the DiT-XL/2 tap of its main path,
+   (256, 1024, 72), and in float32,
    scores against its plain version and its previous design (v2, ``csrc/fused_readout_v2.cu``);
-   the kernel timed apart from the wrapper's per-pair torch epilogue, beside v2 and, as
+   the kernel timed apart from the wrapper's per-pair torch epilogue (by CUPTI only), beside
+   v2 and, as
    information, two 4-D ``scaled_dot_product_attention`` calls on the flash backend plus the
    reduction;
 6. K4 ``streaming_self_attention`` at the 1024 px VAE mid attention (2, 1, 16384, 512) in
    float32 (the SDXL main path) and bf16, and at a ragged S = 8448, with SDPA as its library
    time and, in float32, its previous design (v2) beside it;
 7. end-to-end correctness, card vs CPU from one seeded numpy weight tree and one
-   ``noise_override``, in float32 with TF32 off: a tiny ``DiffSimSD15`` at 32 px (K1, K2) and a
-   tiny ``DiffSimXL`` at 256 px (all four kernels);
+   ``noise_override``, in float32 with TF32 off: a tiny ``DiffSimSD15`` at 32 px (K1, K2), a
+   tiny ``DiffSimXL`` at 256 px (all four kernels) and a tiny ``DiffSimDiT`` at 128 px whose tap
+   has DiT-XL/2's head dim 72 and 1024 tokens (K1, K3);
 8. the SD-1.5 main path at full width: ``DiffSimSD15(img_size=512)`` in bf16 with random
    weights drawn on the card, ``score_triplet_batch`` on 4 triplets with the canonical CUTE
    arguments, ``score_batch`` on 2 pairs and ``diffsim`` on two PNG paths (8 K1, 4 K2 per UNet
@@ -53,14 +57,31 @@ Phases, each of which fails the run (non-zero exit, no result line) if anything 
    and with ``--bf16_softmax`` (every K1 launch in the mode; scores within 0.05 of the exact
    run, not all equal); the SD-1.5 pair path in fast mode at 768 px, whose VAE mid attention
    (9216 tokens) runs K4 in the mode; and the device-memory guard's per-triplet constant held
-   above the slope of the peak memory of the triplet path, measured between two triplet counts.
+   above the slope of the peak memory of the triplet path, measured between two triplet counts;
+12. the DiT-XL/2 main path at full width: ``DiffSimDiT(img_size=512)`` in bf16 with random
+   weights drawn on the card, ``score_triplet_batch`` on 8 triplets with the
+   ``bench_backbones.py`` arguments (tap block 13, t = 600, cosine, seed 2334; 13 K1 at
+   (48, 16, 1024, 72) and 4 K3 per call, no K2 or K4), ``score_batch`` on 2 pairs,
+   ``diffsim_score`` on two PNG paths, a profile and the VAE encode's share of the call,
+   ``score_triplet_paths`` through the moment cache (all misses, then all hits bit for bit) and
+   the device-memory guard's slope for ``DiffSimDiT.hbm_scale``;
+13. the CLI with ``--metric dit`` (``cute --preset cute``, the same 36 JPEGs, through the moment
+   cache: one miss per image);
+14. the checkpoint converter on this machine, which has neither ``safetensors`` nor
+   ``ml_dtypes``: ``python -m diffsim_tpu_torch.cli.convert dit`` on a ``torch.save`` DiT
+   checkpoint of DiT-XL/2's widths cut to one block and a BF16 safetensors VAE written here byte
+   by byte, and on the same DiT as safetensors; the ``.npz`` loads through the ``--weights``
+   reader into a ``DiffSimDiT`` on the card, equal to the checkpoint's weights, and scores.
 
 The line before the last is one JSON object ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. A kernel's time (``ms``), its library call's and its v2's are
-device times that host work cannot enter: the CUPTI durations of the kernels each call launched,
-from ``torch.profiler``, over 20 back-to-back calls after 3 warm-ups (the first launch sets
-shared-memory limits), summed and divided by 20. They are timed in turns, twice, and each keeps
-its lower reading. ``call_ms`` is the whole wrapper call between two CUDA events (median of 20),
+device times over 20 back-to-back calls after 3 warm-ups (the first launch sets shared-memory
+limits), divided by 20: the CUPTI durations of the kernels each call launched, from
+``torch.profiler``, which host work cannot enter; or, where torch.profiler cannot be used
+(another profiler already runs in the process) or records no kernel, the time between two CUDA
+events around the 20 calls, which covers the whole call. Each timed row and each kernel's totals
+name the method under ``timing``. They are timed in turns, twice, and each keeps its lower
+reading. ``call_ms`` is the whole wrapper call between two CUDA events (median of 20),
 host work included, as information; plain versions are timed that way too (5 calls for the
 slowest). Each phase header prints the card's SM clock, power and throttle reasons: a card held
 at its power limit lowers its clock. A bound is the largest of three times at the H100 SXM's
@@ -93,10 +114,13 @@ from diffsim_tpu_torch.cli.main import run_benchmark
 from diffsim_tpu_torch.convert import bridge
 from diffsim_tpu_torch.core.tokenizer import HashTokenizer
 from diffsim_tpu_torch.data import benchmarks
+from diffsim_tpu_torch.metrics import registry
+from diffsim_tpu_torch.metrics.diffsim_dit import DiffSimDiT
 from diffsim_tpu_torch.metrics.diffsim_sd15 import DiffSimSD15
 from diffsim_tpu_torch.metrics.diffsim_xl import DiffSimXL
 from diffsim_tpu_torch.metrics.scorer_base import to_device_pixels
 from diffsim_tpu_torch.models.clip_text import CLIPText, CLIPTextConfig
+from diffsim_tpu_torch.models.dit import DiT, DiTConfig
 from diffsim_tpu_torch.models.unet import UNet, UNetConfig
 from diffsim_tpu_torch.models.vae import Encoder, VAEConfig, encode_chunked
 from diffsim_tpu_torch.ops import kernels
@@ -126,14 +150,18 @@ XL_ARGS = dict(prompt="The photo of a benchmark", target_block="up_blocks",
                target_layer=(0, 1, 1), target_step=900, similarity="cosine", seed=2334)
 BATCH = 24  # SD-1.5: 4 triplets x 3 images x 2 CFG halves
 XL_T, XL_BATCH = 2, 12  # SDXL: 2 triplets (bench_backbones.py) x 3 images x 2 CFG halves
-# (batch, heads, tokens, head dim): launches per SD-1.5 forward (canonical tap) and per SDXL
-# triplet call (tap (0, 1, 1))
-K1_SITES = {(BATCH, 8, 4096, 40): (2, 0), (BATCH, 8, 1024, 80): (2, 0),
-            (BATCH, 8, 256, 160): (4, 0), (XL_BATCH, 10, 4096, 64): (0, 4),
-            (XL_BATCH, 20, 1024, 64): (0, 41)}
+# DiT-XL/2 at 512 px (bench_backbones.py): 8 triplets x 3 images x [cond, null class], tap block 13
+DIT_ARGS = dict(target_layer=13, target_step=600, similarity="cosine", seed=2334)
+DIT_T, DIT_BATCH = 8, 48
+# (batch, heads, tokens, head dim): launches per SD-1.5 forward (canonical tap), per SDXL
+# triplet call (tap (0, 1, 1)) and per DiT-XL/2 triplet call (13 blocks before the tap)
+K1_SITES = {(BATCH, 8, 4096, 40): (2, 0, 0), (BATCH, 8, 1024, 80): (2, 0, 0),
+            (BATCH, 8, 256, 160): (4, 0, 0), (XL_BATCH, 10, 4096, 64): (0, 4, 0),
+            (XL_BATCH, 20, 1024, 64): (0, 41, 0), (DIT_BATCH, 16, 1024, 72): (0, 0, 13)}
 K2_SITES = {(BATCH * 4096, 320): (2, 0), (BATCH * 1024, 640): (2, 0),
             (XL_BATCH * 4096, 640): (0, 4)}  # (rows, channels)
 K3_MAIN = (XL_T * 2 * 20, 1024, 64)  # (P * B * heads, tokens, head dim) at the SDXL tap
+K3_DIT = (DIT_T * 2 * 16, 1024, 72)  # the same at the DiT-XL/2 tap, 512 px
 K4_MAIN = (2, 1, 16384, 512)  # one VAE chunk of two 1024 px images
 K4_768 = (2, 1, 9216, 512)  # the VAE mid attention of one SD-1.5 pair at 768 px
 # K4's key tiles, whose row sums its bf16_probs mode rounds (csrc/streaming_attention.cu)
@@ -155,6 +183,11 @@ XL_ONE_PAIR_CALL = {**XL_FORWARD, "cross_self_partials": 2, "streaming_self_atte
 TINY_SD15_CALL = {**NONE, "fused_self_attention": 3, "fused_geglu_ff": 3}  # K1: 2 UNet, 1 VAE
 TINY_XL_CALL = {"fused_self_attention": 7, "fused_geglu_ff": 7, "cross_self_partials": 2,
                 "streaming_self_attention": 1}
+DIT_TRIPLET_CALL = {**NONE, "fused_self_attention": 13, "cross_self_partials": 4}
+DIT_PAIRS_CALL = {**NONE, "fused_self_attention": 13, "cross_self_partials": 2}
+# the tiny DiT at 128 px, tap block 1: K1 in block 0 and in the tiny VAE's mid attention
+TINY_DIT_CALL = {**NONE, "fused_self_attention": 2, "cross_self_partials": 2}
+TINY_DIT = dict(input_size=64, patch_size=2, hidden=144, depth=2, heads=2, num_classes=10)
 
 
 def phase(name: str) -> None:
@@ -184,27 +217,97 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
-def device_ms(fn, reps: int = 20, warmup: int = 3) -> tuple[float, dict[str, float]]:
-    """Device time of one call of ``fn`` in ms, which host work cannot enter: the CUPTI
-    durations of the kernels it launched (``torch.profiler``) over ``reps`` back-to-back calls,
-    summed and divided by ``reps``; and the same per kernel name."""
+# How device times are taken, fixed by :func:`probe_timing` before the first one: "cupti", the
+# kernel durations torch.profiler records; or "cuda_events", two CUDA events around back-to-back
+# calls, where torch.profiler cannot be used (another profiler already runs in this process, or
+# it cannot start) or records no kernel. Once it records nothing, it is not started again.
+TIMING = {"method": "cupti"}
+
+
+def _other_profiler() -> bool:
+    """Whether a torch.profiler or autograd profiler session already records in this process."""
+    return torch.autograd._profiler_enabled() or torch.autograd.profiler._is_profiler_enabled
+
+
+def _kernel_records(fn, reps: int) -> tuple[list[tuple[str, int, float]], float]:
+    """(name, launches, ms) of each kernel ``fn`` launched over ``reps`` back-to-back calls, from
+    torch.profiler's CUPTI records, and the calls' wall time in ms under the profiler; no records
+    if it recorded none or could not start."""
     from torch.profiler import ProfilerActivity, profile
 
+    if _other_profiler():  # a second session would stop the other one's trace with its own
+        print("  torch.profiler not started: another profiler runs in this process", flush=True)
+        return [], 0.0
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    try:
+        prof.start()
+    except RuntimeError as err:  # another session holds the process's profiler
+        print(f"  torch.profiler could not start: {err}", flush=True)
+        return [], 0.0
+    try:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        prof.stop()
+    # kernel entries only: an aten op's own entry repeats the device time of its kernels
+    return [(e.key, e.count, e.self_device_time_total / 1e3) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0], wall_ms
+
+
+def _profiled_kernels(fn, reps: int) -> dict[str, float]:
+    """ms per call of each kernel ``fn`` launched over ``reps`` back-to-back calls (CUPTI)."""
+    by_name: dict[str, float] = {}
+    for name, _, ms in _kernel_records(fn, reps)[0]:
+        by_name[name] = by_name.get(name, 0.0) + ms / reps
+    return by_name
+
+
+def probe_timing() -> str:
+    """Choose how device times are taken in this run (``TIMING``) and say why."""
+    if _other_profiler():
+        TIMING["method"] = "cuda_events"
+        why = "a profiler already runs in this process"
+    else:
+        a = torch.ones(1024, 1024, device="cuda")
+        for _ in range(2):
+            if _profiled_kernels(lambda: a @ a, 3):
+                TIMING["method"], why = "cupti", "torch.profiler records the card's kernels"
+                break
+        else:
+            TIMING["method"] = "cuda_events"
+            why = "torch.profiler recorded no kernel of a probe matmul, twice"
+    print(f"  device times by {TIMING['method']}: {why}", flush=True)
+    return TIMING["method"]
+
+
+def device_ms(fn, reps: int = 20, warmup: int = 3) -> tuple[float, dict[str, float]]:
+    """Device time of one call of ``fn`` in ms over ``reps`` back-to-back calls, and the same
+    per kernel name. By CUPTI (``TIMING``), host work cannot enter: the durations of the kernels
+    it launched, summed and divided by ``reps``. By CUDA events (the per-kernel split is then
+    empty), the time between an event before the first call and one after the last, divided by
+    ``reps``: the queue of launches keeps the card busy unless the host takes longer per call."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    by_name: dict[str, float] = {}
-    for _ in range(2):  # a profiling session that records no kernel at all is taken again once
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        for e in prof.key_averages():  # kernel entries only (an aten op's repeats its kernels')
-            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0:
-                by_name[e.key] = by_name.get(e.key, 0.0) + e.self_device_time_total / 1e3 / reps
-        if by_name:
-            return sum(by_name.values()), by_name
-    raise SystemExit("the profiler recorded no device time: kernel times not measured")
+    if TIMING["method"] == "cupti":
+        for _ in range(2):  # a session that records no kernel at all is taken again once
+            by_name = _profiled_kernels(fn, reps)
+            if by_name:
+                return sum(by_name.values()), by_name
+        TIMING["method"] = "cuda_events"
+        print("  torch.profiler recorded no kernel twice: device times by cuda_events from here "
+              "on", flush=True)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps, {}
 
 
 def bound(flops: float, nbytes: float, dtype=torch.bfloat16, exps: float = 0.0,
@@ -395,11 +498,12 @@ def _timed(row, kernel, plain, flops, nbytes, *, library=None, v2=None, info=Non
     device as ``call_device_ms``."""
     timed = {"ms": kernel, "library_ms": library, "v2_ms": v2, **(info or {})}
     timed = {key: fn for key, fn in timed.items() if fn is not None}
-    best, kernels_of = {}, {}
+    best, kernels_of, methods = {}, {}, set()
     for _ in range(2):
         for key, fn in timed.items():
             ms, by_name = device_ms(fn)
-            if key == "ms" and kernel_name is not None:
+            methods.add("cupti" if by_name else "cuda_events")
+            if key == "ms" and kernel_name is not None and by_name:
                 ms = sum(t for name, t in by_name.items() if kernel_name in name)
                 if ms == 0.0:
                     raise SystemExit(f"no kernel named like {kernel_name!r} in {sorted(by_name)}")
@@ -407,6 +511,8 @@ def _timed(row, kernel, plain, flops, nbytes, *, library=None, v2=None, info=Non
                 best[key], kernels_of[key] = ms, by_name
     row.update(best)
     row.setdefault("library_ms", None)
+    # by CUDA events, ``ms`` is the whole ``kernel`` call, its other launches included
+    row["timing"] = "+".join(sorted(methods))
     call = kernel if call is None else call
     row["call_ms"] = time_ms(call)
     if kernel_name is not None:
@@ -516,7 +622,8 @@ def k1_phase(gen) -> dict:
                "max_abs_err": err}
         if (b, h, s, d) in K1_SITES:
             main_err = max(main_err, err)
-            row["launches_sd15_forward"], row["launches_sdxl_call"] = K1_SITES[(b, h, s, d)]
+            (row["launches_sd15_forward"], row["launches_sdxl_call"],
+             row["launches_dit_call"]) = K1_SITES[(b, h, s, d)]
             v2 = lambda: v2_kernel("fused_attention_v2_fwd", q, k, v)  # noqa: E731
             check_close(f"K1 v2 {(b, h, s, d)}", v2(), ref, *tol, quiet=True)
             _timed(row, lambda: fused_self_attention(q, k, v),
@@ -598,9 +705,10 @@ def k3_phase(gen) -> dict:
     v2_score = functools.partial(readout._direction_score,
                                  readout_partials("fused_readout_v2_fwd"))
     # (P, B, H, S, D): the SDXL tap of the main path (N = 80), the SD-1.5 up-block-2/3 taps of
-    # a 2-pair score_batch, DiT-XL/2's head dim 72, and the SDXL tap in float32
+    # a 2-pair score_batch, the DiT-XL/2 tap of its main path (head dim 72, N = 256), and the
+    # SDXL tap in float32
     shapes = [((XL_T, 2, 20, 1024, 64), torch.bfloat16), ((2, 2, 8, 1024, 80), torch.bfloat16),
-              ((2, 2, 8, 4096, 40), torch.bfloat16), ((2, 2, 16, 1024, 72), torch.bfloat16),
+              ((2, 2, 8, 4096, 40), torch.bfloat16), ((DIT_T, 2, 16, 1024, 72), torch.bfloat16),
               ((XL_T, 2, 20, 1024, 64), torch.float32)]
     rows, main_err = [], 0.0
     for shape, dtype in shapes:
@@ -614,6 +722,7 @@ def k3_phase(gen) -> dict:
         p, b, h, s, d = shape
         n = p * b * h
         main = (n, s, d) == K3_MAIN and dtype == torch.bfloat16
+        dit_main = (n, s, d) == K3_DIT and dtype == torch.bfloat16
         for similarity in ("cosine", "mse"):
             out = fused_direction_score(*taps, similarity)
             torch.cuda.synchronize()
@@ -625,11 +734,13 @@ def k3_phase(gen) -> dict:
             if main:
                 main_err = max(main_err, err)
                 row["launches_sdxl_call"] = 4 if similarity == "cosine" else 0
+            if dit_main:
+                row["launches_dit_call"] = 4 if similarity == "cosine" else 0
             bf16 = dtype == torch.bfloat16
             if bf16:
                 check_score(f"K3 v2 {shape} {similarity}", v2_score(*taps, similarity), ref,
                             similarity, tol, tol)
-            if similarity == "cosine" and (main or not bf16 or d == 80):
+            if similarity == "cosine" and (main or dit_main or not bf16 or d == 80):
                 flat = [x.reshape(n, s, d) for x in (taps[0], taps[3], taps[4], taps[1], taps[2])]
                 info = {"sdpa_pair_ms": lambda: _sdpa_readout(taps, similarity)}
                 _timed(row, lambda: cross_self_partials(*flat),
@@ -639,7 +750,8 @@ def k3_phase(gen) -> dict:
                        else None, info=info, kernel_name="readout_",
                        call=lambda: fused_direction_score(*taps, similarity), dtype=dtype,
                        plain_reps=5, exps=2 * n * s * s)
-                row["epilogue_ms"] = row["call_device_ms"] - row["ms"]
+                if row["timing"] == "cupti":  # by CUDA events, the call's host work enters
+                    row["epilogue_ms"] = row["call_device_ms"] - row["ms"]
             rows.append(row)
         del taps
         torch.cuda.empty_cache()
@@ -883,8 +995,55 @@ def sdxl_phase(card_line: str) -> dict:
           f"({100 * vae_ms / call_ms:.1f} %), text cache, UNet to the tap and readout the rest",
           flush=True)
     phase("SDXL through the device moment cache: score_triplet_paths on the same two triplets")
-    sdxl_cached(scorer, pix, *out["scores"])
+    # six images in one miss slab: three 2-image VAE slices
+    out["cached_gap"] = cached_path("SDXL", scorer, pix, *out["scores"], XL_ARGS,
+                                    XL_TRIPLET_CALL, {**XL_FORWARD, "cross_self_partials": 4})
     out["guard"] = guard_slope("SDXL 1024 px", scorer, XL_ARGS, (2, 4), 1024, card_line)
+    return out
+
+
+def tiny_dit_phase() -> None:
+    phase("end to end, tiny DiT at 128 px in float32, tap block 1 of head dim 72 at 1024 tokens "
+          "(DiT-XL/2's at 512 px): card vs CPU (|dscore| <= 1e-4 and <= atol + 1e-4 of the "
+          "distance; DiT attention -> K1 at hd 72, tap -> K3 at hd 72, the tiny VAE's mid "
+          "attention 4096 tokens at D 64 -> K1)")
+    rng = np.random.default_rng(2336)
+    cfgs = dict(dit_cfg=DiTConfig(**TINY_DIT), vae_cfg=VAEConfig.tiny())
+    params = {"dit": _random_tree(lambda: DiT(cfgs["dit_cfg"]), "dit", rng),
+              "vae": _random_tree(lambda: Encoder(cfgs["vae_cfg"]), "vae", rng)}
+    pix_a, pix_b = (rng.integers(0, 256, (2, 128, 128, 3), dtype=np.uint8) for _ in range(2))
+    noise = tuple(rng.standard_normal((2, 64, 64, 4)).astype(np.float32) for _ in range(2))
+    with tf32_off():
+        _card_vs_cpu("tiny DiT", lambda device: DiffSimDiT(
+            params, img_size=128, dtype=torch.float32, device=device, **cfgs),
+            pix_a, pix_b, noise, {**DIT_ARGS, "target_layer": 1}, TINY_DIT_CALL)
+
+
+def dit_phase(card_line: str) -> dict:
+    phase("main path: DiT-XL/2 at full width, 512 px, bf16, tap block 13, t = 600, 8 triplets "
+          "(bench_backbones.py)")
+    t0 = time.perf_counter()
+    scorer = DiffSimDiT(img_size=512)  # cuda, bf16, random weights from a seeded generator
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for m in (scorer.dit, scorer.vae) for p in m.parameters())
+    print(f"  init {time.perf_counter() - t0:.2f} s, {n_params / 1e6:.1f} M parameters")
+    rng = np.random.default_rng(5)
+    pix = [rng.integers(0, 256, (DIT_T, 512, 512, 3), dtype=np.uint8) for _ in range(3)]
+    out = _drive("DiT-XL/2", scorer, pix, DIT_ARGS, card_line,
+                 {"triplet": DIT_TRIPLET_CALL, "pairs": DIT_PAIRS_CALL,
+                  "one_pair": DIT_PAIRS_CALL}, "diffsim_score")
+    profile_call(lambda: scorer.score_triplet_batch(*pix, **DIT_ARGS), "DiT-XL/2 triplet call")
+    x = to_device_pixels(pix, scorer.device, scorer.dtype)
+    with torch.inference_mode():
+        vae_ms = time_ms(lambda: encode_chunked(scorer.vae, x), reps=3, warmup=1)
+    call_ms = time_ms(lambda: scorer.score_triplet_batch(*pix, **DIT_ARGS), reps=3, warmup=1)
+    print(f"  layers of one DiT-XL/2 triplet call: VAE encode {vae_ms:.1f} ms of {call_ms:.1f} ms "
+          f"({100 * vae_ms / call_ms:.1f} %), DiT to the tap and readout the rest", flush=True)
+    del x
+    phase("DiT-XL/2 through the device moment cache: score_triplet_paths on the same 8 triplets")
+    out["cached_gap"] = cached_path("DiT-XL/2", scorer, pix, *out["scores"], DIT_ARGS,
+                                    DIT_TRIPLET_CALL, DIT_TRIPLET_CALL)
+    out["guard"] = guard_slope("DiT-XL/2 512 px", scorer, DIT_ARGS, (8, 16), 512, card_line)
     return out
 
 
@@ -1079,12 +1238,11 @@ def _scores_gap(a: dict, b: dict) -> float:
     return max(abs(x - y) for i in a for x, y in zip(a[i], b[i]))
 
 
-def cli_phase(card_line: str) -> dict:
+def cli_phase(card_line: str, tree: str) -> dict:
     phase("the 2AFC CLI at full SD-1.5 width: cute --preset cute, 60 comparisons over 36 "
           "random JPEGs, through the device moment cache; --no_device_cache; an all-hit "
           "rescore; --bf16_softmax")
     with tempfile.TemporaryDirectory() as tmp:
-        tree = _cute_tree(tmp)
         plan = benchmarks.cute(tree, 2334)
         images = {p for c in plan for p in (c.a, c.b, c.c)}
         if len(plan) != 60:
@@ -1151,6 +1309,222 @@ def cli_phase(card_line: str) -> dict:
             "cached_vs_fresh": gap, "fast_vs_exact": fast_gap}
 
 
+def dit_cli_phase(tree: str) -> dict:
+    phase("the 2AFC CLI with the DiT scorer at full DiT-XL/2 width, 512 px: cute --preset cute "
+          "--metric dit, the same 60 comparisons over the 36 JPEGs, through the device moment "
+          "cache")
+    plan = benchmarks.cute(tree, 2334)
+    images = {p for c in plan for p in (c.a, c.b, c.c)}
+    with tempfile.TemporaryDirectory() as tmp:
+        report, adapter, scores, counts, _, wall = _cli_run(
+            "--metric dit", tree, os.path.join(tmp, "dit.jsonl"), "--metric", "dit")
+    scorer = adapter.scorer
+    stats = dict(scorer._moment_cache.stats)
+    step = resolve_cached_chunk(CLI_BATCH, None, scorer)
+    calls = sum(-(-len(plan[i:i + CLI_BATCH]) // step) for i in range(0, len(plan), CLI_BATCH))
+    # the preset's tap is block 0: each forward stops at block 0's qkv, before any attention
+    want = {**NONE, "cross_self_partials": 4 * calls}
+    hit_rate = stats["hits"] / (stats["hits"] + stats["misses"])
+    print(f"  moment cache {stats}: hit rate {hit_rate:.4f} over {3 * len(plan)} image "
+          f"references to {len(images)} images; {calls} scoring calls", flush=True)
+    if report.total != len(plan) or sorted(scores) != list(range(len(plan))):
+        raise SystemExit(f"the DiT CLI run scored {report.total} of {len(plan)} comparisons")
+    if stats["misses"] != len(images) or hit_rate < 0.8:
+        raise SystemExit("the DiT CLI run did not take one miss per image")
+    if counts != want:
+        raise SystemExit(f"the DiT CLI run launched {counts}, expected {want}")
+    _check_scores("the DiT CLI's scores", np.array(list(scores.values())))
+    del adapter, scorer
+    torch.cuda.empty_cache()
+    return {"counts": counts, "calls": calls, "hit_rate": hit_rate, "stats": stats,
+            "pairs_per_s": 2 * len(plan) / wall}
+
+
+def write_safetensors(path: str, tensors: dict) -> None:
+    """A ``.safetensors`` file of float32 or bf16 CPU tensors, written byte by byte: an 8-byte
+    little-endian header length, the JSON header (padded with spaces to 8 bytes), then the raw
+    little-endian data, the layout ``convert/torch_import.load_safetensors`` reads."""
+    header, chunks, offset = {}, [], 0
+    for name, t in tensors.items():
+        t = t.contiguous().cpu()
+        if t.dtype == torch.bfloat16:
+            kind, raw = "BF16", t.view(torch.int16).numpy().astype("<i2").tobytes()
+        else:
+            kind, raw = "F32", t.float().numpy().astype("<f4").tobytes()
+        header[name] = {"dtype": kind, "shape": list(t.shape),
+                        "data_offsets": [offset, offset + len(raw)]}
+        chunks.append(raw)
+        offset += len(raw)
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(len(head).to_bytes(8, "little"))
+        f.write(head)
+        for raw in chunks:
+            f.write(raw)
+
+
+def _draw(shapes: dict, gen) -> dict:
+    """Seeded bf16 tensors N(0, 0.05) of ``shapes``; norm scales 1 + N(0, 0.05)."""
+    out = {}
+    for name, shape in shapes.items():
+        t = torch.randn(shape, generator=gen) * 0.05
+        if "norm" in name and name.endswith("weight"):
+            t += 1.0
+        out[name] = t.to(torch.bfloat16)
+    return out
+
+
+def published_dit_sd(cfg, gen) -> dict:
+    """A state dict of ``cfg`` in the published DiT checkpoint's naming and layouts (the
+    patch embedding a strided Conv2d kernel, OIHW)."""
+    h, p = cfg.hidden, cfg.patch_size
+    shapes = {"x_embedder.proj.weight": (h, cfg.in_channels, p, p), "x_embedder.proj.bias": (h,),
+              "pos_embed": (1, cfg.tokens_per_side ** 2, h),
+              "t_embedder.mlp.0.weight": (h, 256), "t_embedder.mlp.0.bias": (h,),
+              "t_embedder.mlp.2.weight": (h, h), "t_embedder.mlp.2.bias": (h,),
+              "y_embedder.embedding_table.weight": (cfg.num_classes + 1, h),
+              "final_layer.adaLN_modulation.1.weight": (2 * h, h),
+              "final_layer.adaLN_modulation.1.bias": (2 * h,),
+              "final_layer.linear.weight": (p * p * cfg.out_channels, h),
+              "final_layer.linear.bias": (p * p * cfg.out_channels,)}
+    mlp = int(h * cfg.mlp_ratio)
+    for i in range(cfg.depth):
+        for name, (dout, din) in (("attn.qkv", (3 * h, h)), ("attn.proj", (h, h)),
+                                  ("mlp.fc1", (mlp, h)), ("mlp.fc2", (h, mlp)),
+                                  ("adaLN_modulation.1", (6 * h, h))):
+            shapes[f"blocks.{i}.{name}.weight"] = (dout, din)
+            shapes[f"blocks.{i}.{name}.bias"] = (dout,)
+    return _draw(shapes, gen)
+
+
+def published_vae_sd(cfg, gen) -> dict:
+    """A state dict of the AutoencoderKL ``cfg`` (encoder and decoder) in diffusers naming."""
+    shapes = {}
+
+    def conv(name, cin, cout, k=3):
+        shapes[f"{name}.weight"], shapes[f"{name}.bias"] = (cout, cin, k, k), (cout,)
+
+    def norm(name, c):
+        shapes[f"{name}.weight"], shapes[f"{name}.bias"] = (c,), (c,)
+
+    def resnet(base, cin, cout):
+        norm(f"{base}.norm1", cin)
+        conv(f"{base}.conv1", cin, cout)
+        norm(f"{base}.norm2", cout)
+        conv(f"{base}.conv2", cout, cout)
+        if cin != cout:
+            conv(f"{base}.conv_shortcut", cin, cout, k=1)
+
+    def mid(base, c):
+        resnet(f"{base}.resnets.0", c, c)
+        norm(f"{base}.attentions.0.group_norm", c)
+        for name in ("to_q", "to_k", "to_v", "to_out.0"):
+            shapes[f"{base}.attentions.0.{name}.weight"] = (c, c)
+            shapes[f"{base}.attentions.0.{name}.bias"] = (c,)
+        resnet(f"{base}.resnets.1", c, c)
+
+    chans, n = cfg.block_out_channels, cfg.layers_per_block
+    conv("encoder.conv_in", cfg.in_channels, chans[0])
+    cin = chans[0]
+    for i, cout in enumerate(chans):
+        for j in range(n):
+            resnet(f"encoder.down_blocks.{i}.resnets.{j}", cin if j == 0 else cout, cout)
+        if i < len(chans) - 1:
+            conv(f"encoder.down_blocks.{i}.downsamplers.0.conv", cout, cout)
+        cin = cout
+    mid("encoder.mid_block", chans[-1])
+    norm("encoder.conv_norm_out", chans[-1])
+    conv("encoder.conv_out", chans[-1], 2 * cfg.latent_channels)
+    conv("quant_conv", 2 * cfg.latent_channels, 2 * cfg.latent_channels, k=1)
+    conv("post_quant_conv", cfg.latent_channels, cfg.latent_channels, k=1)
+    rev = list(reversed(chans))
+    conv("decoder.conv_in", cfg.latent_channels, rev[0])
+    mid("decoder.mid_block", rev[0])
+    cin = rev[0]
+    for i, cout in enumerate(rev):
+        for j in range(n + 1):
+            resnet(f"decoder.up_blocks.{i}.resnets.{j}", cin if j == 0 else cout, cout)
+        if i < len(rev) - 1:
+            conv(f"decoder.up_blocks.{i}.upsamplers.0.conv", cout, cout)
+        cin = cout
+    norm("decoder.conv_norm_out", rev[-1])
+    conv("decoder.conv_out", rev[-1], cfg.in_channels)
+    return _draw(shapes, gen)
+
+
+# the converter must run without these: each is made to raise on import in its process
+NOT_NEEDED = ("jax", "safetensors", "ml_dtypes")
+CONVERT_CLI = ("import runpy, sys\n"
+               f"for name in {NOT_NEEDED!r}:\n"
+               "    sys.modules[name] = None\n"
+               "runpy.run_module('diffsim_tpu_torch.cli.convert', run_name='__main__', "
+               "alter_sys=True)\n")
+
+
+def convert_phase() -> dict:
+    phase("the checkpoint converter on this machine: the convert CLI (python -m "
+          "diffsim_tpu_torch.cli.convert dit, with jax, safetensors and ml_dtypes made to raise "
+          "on import) on a train-format torch.save checkpoint ({'ema': ...}) of DiT-XL/2's "
+          "widths cut to one block (256 px) with an SD-layout VAE of width 32 in a BF16 "
+          "safetensors file written here, and on the same DiT as a safetensors file; the .npz "
+          "through the --weights reader into a DiffSimDiT of that shape on the card")
+    import importlib.util
+
+    installed = [m for m in NOT_NEEDED if importlib.util.find_spec(m) is not None]
+    print(f"  of {NOT_NEEDED}, installed here: {installed}; blocked in the converter's process",
+          flush=True)
+    gen = torch.Generator().manual_seed(2337)
+    cfg = DiTConfig(input_size=32, depth=1)  # DiT-XL/2's widths at 256 px, one block
+    vcfg = VAEConfig(block_out_channels=(32, 32, 32, 32))  # the SD VAE's four levels, width 32
+    dit_sd, vae_sd = published_dit_sd(cfg, gen), published_vae_sd(vcfg, gen)
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt, ckpt_st, vae_st = (os.path.join(tmp, f) for f in
+                                 ("dit.pt", "dit.safetensors", "vae.safetensors"))
+        torch.save({"ema": dit_sd, "opt": {}}, ckpt)
+        write_safetensors(ckpt_st, dit_sd)
+        write_safetensors(vae_st, vae_sd)
+        outs = {}
+        for what, path, extra in (("pt", ckpt, ["--vae", vae_st]), ("safetensors", ckpt_st, [])):
+            outs[what] = os.path.join(tmp, f"{what}.npz")
+            cmd = [sys.executable, "-c", CONVERT_CLI, "dit", "--ckpt", path,
+                   "--image_size", "256", "--out", outs[what], *extra]
+            t0 = time.perf_counter()
+            res = subprocess.run(cmd, cwd=root, capture_output=True, text=True, timeout=600)
+            print(f"  convert dit --ckpt {os.path.basename(path)} {' '.join(extra[:1])}: rc "
+                  f"{res.returncode} in {time.perf_counter() - t0:.1f} s: {res.stdout.strip()}",
+                  flush=True)
+            if res.returncode:
+                print(res.stderr[-4000:], flush=True)
+                raise SystemExit("the convert CLI failed on this machine")
+        with np.load(outs["pt"]) as a, np.load(outs["safetensors"]) as b:
+            keys = sorted(k for k in a.files if k.startswith("dit/"))
+            roots = sorted({k.split("/")[0] for k in a.files})
+            if (roots != ["dit", "vae", "vae_decoder"] or keys != sorted(b.files)
+                    or any(a[k].dtype != np.dtype("V2") or a[k].tobytes() != b[k].tobytes()
+                           for k in keys)):
+                raise SystemExit("the two checkpoints' .npz files differ, or are not bf16")
+        tree = registry._load_params(outs["pt"])  # the --weights reader
+        scorer = DiffSimDiT(tree, dit_cfg=cfg, vae_cfg=vcfg, img_size=256)
+        h, p = cfg.hidden, cfg.patch_size
+        patch = dit_sd["x_embedder.proj.weight"].permute(0, 2, 3, 1).reshape(h, p * p * 4)
+        pairs = ((scorer.dit.blocks[0].attn.qkv.weight, dit_sd["blocks.0.attn.qkv.weight"]),
+                 (scorer.dit.patch_embed.weight, patch),
+                 (scorer.dit.y_embedder, dit_sd["y_embedder.embedding_table.weight"]),
+                 (scorer.vae.conv_in.weight, vae_sd["encoder.conv_in.weight"]))
+        if not all(torch.equal(ours.cpu(), ref) for ours, ref in pairs):
+            raise SystemExit("the converted weights on the card differ from the checkpoint's")
+        rng = np.random.default_rng(6)
+        pix = [rng.integers(0, 256, (2, 256, 256, 3), dtype=np.uint8) for _ in range(2)]
+        scores = scorer.score_batch(*pix, target_layer=0, target_step=600)
+    _check_scores("the converted DiT's scores", scores)
+    print(f"  the converted DiT (1 block, {len(keys)} DiT leaves) on the card: scores {scores}; "
+          "its weights equal the checkpoint's, the patch embedding in (ph, pw, C) order",
+          flush=True)
+    return {"installed_but_blocked": installed, "scores": scores.tolist()}
+
+
 def sd15_fast_768_phase() -> dict:
     phase("SD-1.5 pair path in fast mode at 768 px: the VAE mid attention (9216 tokens, D 512, "
           "bf16) runs K4 in the bf16_probs mode")
@@ -1173,47 +1547,42 @@ def sd15_fast_768_phase() -> dict:
     return {"counts": counts, "fast_counts": fast}
 
 
-def sdxl_cached(scorer, pix, s_ab, s_ac) -> None:
-    """``score_triplet_paths`` on the SDXL phase's two triplets written to disk as PNGs: within
-    1e-2 of ``score_triplet_batch`` (the miss slab and the fresh batch encode different numbers
-    of images at once), and an all-hit rescore bit for bit."""
+def cached_path(name, scorer, pix, s_ab, s_ac, args, miss_calls, hit_calls) -> float:
+    """``score_triplet_paths`` on a main-path phase's triplets written to disk as PNGs, with
+    exact launch counts: within 1e-2 of ``score_triplet_batch`` (the miss slab and the fresh
+    batch may encode different numbers of images at once, and cuDNN picks its algorithms per
+    shape), and an all-hit rescore bit for bit. Returns the cached-vs-fresh gap."""
     from PIL import Image
 
+    t = len(pix[0])
     with tempfile.TemporaryDirectory() as tmp:
         roles = []
         for r, arr in zip("abc", pix):
             roles.append([os.path.join(tmp, f"{r}{i}.png") for i in range(len(arr))])
             for path, img in zip(roles[-1], arr):
                 Image.fromarray(img).save(path)
-        # six images in one miss slab: three 2-image VAE slices
-        (c_ab, c_ac), _ = _checked_call("score_triplet_paths (2 triplets, all misses)",
-                                        lambda: scorer.score_triplet_paths(*roles, **XL_ARGS),
-                                        XL_TRIPLET_CALL)
-        (h_ab, h_ac), _ = _checked_call("score_triplet_paths (2 triplets, all hits)",
-                                        lambda: scorer.score_triplet_paths(*roles, **XL_ARGS),
-                                        {**XL_FORWARD, "cross_self_partials": 4})
+        (c_ab, c_ac), _ = _checked_call(f"score_triplet_paths ({t} triplets, all misses)",
+                                        lambda: scorer.score_triplet_paths(*roles, **args),
+                                        miss_calls)
+        (h_ab, h_ac), _ = _checked_call(f"score_triplet_paths ({t} triplets, all hits)",
+                                        lambda: scorer.score_triplet_paths(*roles, **args),
+                                        hit_calls)
     gap = max(np.abs(c_ab - s_ab).max(), np.abs(c_ac - s_ac).max())
     print(f"  cached {c_ab} {c_ac} vs fresh: max |d| = {gap:.3e} (limit 1e-2); cache "
           f"{scorer._moment_cache.stats}", flush=True)
     if gap > 1e-2 or not (np.array_equal(h_ab, c_ab) and np.array_equal(h_ac, c_ac)):
-        raise SystemExit("SDXL score_triplet_paths disagrees with the fresh path or itself")
+        raise SystemExit(f"{name} score_triplet_paths disagrees with the fresh path or itself")
+    return float(gap)
 
 
 def profile_call(fn, what: str, top: int = 14) -> None:
     """Device time by kernel over one call, from torch.profiler (information for PERF.md):
     the device's busy time is the sum of kernel self times (one stream, no overlap)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    # kernel entries only: an aten op's own entry repeats the device time of its kernels
-    kern = sorted(((e.key, e.count, e.self_device_time_total / 1e3)
-                   for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA), key=lambda r: -r[2])
-    kern = [r for r in kern if r[2] > 0]
+    if TIMING["method"] != "cupti":
+        print(f"  profile of one {what}: not measured (device times by {TIMING['method']})")
+        return
+    kern, wall_ms = _kernel_records(fn, 1)
+    kern.sort(key=lambda r: -r[2])
     busy = sum(r[2] for r in kern)
     if not kern:
         print("  profile: the profiler recorded no device time (not measured)")
@@ -1242,7 +1611,7 @@ def _totals(rows, key) -> dict | None:
     out = {"ms": ms, "plain_ms": total("plain_ms"), "bound_ms": bound_ms,
            "bound_by": "operations" if ops_ms >= bound_ms / 2 else "bytes",
            "library_ms": total("library_ms"), "roofline_share": bound_ms / ms,
-           "peak": rows[0]["peak"]}
+           "peak": rows[0]["peak"], "timing": "+".join(sorted({r["timing"] for r in rows}))}
     for field in ("v2_ms", "cublas_path_ms", "epilogue_ms", "call_ms", "exact_ms", "sdpa_exact_ms"):
         if total(field) is not None:
             out[field] = total(field)
@@ -1257,21 +1626,26 @@ K3_DESIGN = ("K1's wgmma+TMA pipeline, cross then self pass per 128-row q block,
              "2 ping-ponged consumer warpgroups (bf16)")
 K4_DESIGN = "3xTF32 mma.sync (float32)"
 XL_PER = f"one SDXL score_triplet_batch call ({XL_T} triplets, 1024 px), the sum over its launches"
+DIT_PER = (f"one DiT-XL/2 score_triplet_batch call ({DIT_T} triplets, 512 px, tap block 13), the "
+           "sum over its launches")
 
 
 def _path(result, launches, key, per) -> dict:
     return {"launches": launches, **_totals(result["rows"], key), "per": per}
 
 
-def kernel_entry(name, source, replaces, design, result, path, sdxl=None) -> dict:
+def kernel_entry(name, source, replaces, design, result, path, sdxl=None, dit=None) -> dict:
     """One kernel's entry of the kernels line. ``path`` = (launches, row key, per) gives the
     top-level numbers, summed over one call of the path the kernel was ported on: one SD-1.5
     UNet forward for K1 and K2 (as the first slice reported them), one SDXL triplet call for
-    K3 and K4. ``sdxl`` gives K1's and K2's numbers over one SDXL triplet call, under "sdxl"."""
+    K3 and K4. ``sdxl`` gives K1's and K2's numbers over one SDXL triplet call, under "sdxl";
+    ``dit`` K1's and K3's over one DiT-XL/2 triplet call, under "dit"."""
     entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
              "design": design, "max_abs_err": result["max_abs_err"], **_path(result, *path)}
     if sdxl is not None:
         entry["sdxl"] = _path(result, *sdxl)
+    if dit is not None:
+        entry["dit"] = _path(result, *dit)
     entry["shapes"] = result["rows"]
     return entry
 
@@ -1290,6 +1664,7 @@ def main() -> int:
         for line in log.splitlines():
             if "Used" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+    probe_timing()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     k1 = k1_phase(gen)
@@ -1300,19 +1675,31 @@ def main() -> int:
     k4_fast = k4_fast_phase(gen)
     tiny_phase()
     tiny_xl_phase()
+    tiny_dit_phase()
     sd15_out = sd15_phase(card_line)
     sd15 = sd15_out["counts"]
     torch.cuda.empty_cache()
-    cli = cli_phase(card_line)
-    fast768 = sd15_fast_768_phase()
-    xl_out = sdxl_phase(card_line)
-    xl = xl_out["counts"]
+    with tempfile.TemporaryDirectory() as tmp:
+        tree = _cute_tree(tmp)
+        cli = cli_phase(card_line, tree)
+        fast768 = sd15_fast_768_phase()
+        xl_out = sdxl_phase(card_line)
+        xl = xl_out["counts"]
+        torch.cuda.empty_cache()
+        dit_out = dit_phase(card_line)
+        dit_counts = dit_out["counts"]
+        torch.cuda.empty_cache()
+        dit_cli = dit_cli_phase(tree)
+    converted = convert_phase()
 
     def on_sd15(kernel):
         return sd15[kernel], "launches_sd15_forward", SD15_PER
 
     def on_xl(kernel):
         return xl[kernel], "launches_sdxl_call", XL_PER
+
+    def on_dit(kernel):
+        return dit_counts[kernel], "launches_dit_call", DIT_PER
 
     fast_cli = cli["fast_counts"]["fused_self_attention"]
     if fast_cli != 8 * cli["forwards"]:
@@ -1333,13 +1720,14 @@ def main() -> int:
     line = {"kernels": [
         kernel_entry("fused_self_attention", "diffsim_tpu_torch/csrc/fused_attention.cu",
                      "diffsim_tpu/ops/pallas/attention.py:101", K1_DESIGN, k1,
-                     on_sd15("fused_self_attention"), on_xl("fused_self_attention")),
+                     on_sd15("fused_self_attention"), on_xl("fused_self_attention"),
+                     on_dit("fused_self_attention")),
         kernel_entry("fused_geglu_ff", "diffsim_tpu_torch/csrc/geglu_ff.cu",
                      "diffsim_tpu/ops/pallas/ff.py:75", K2_DESIGN, k2,
                      on_sd15("fused_geglu_ff"), on_xl("fused_geglu_ff")),
         kernel_entry("cross_self_partials", "diffsim_tpu_torch/csrc/fused_readout.cu",
                      "diffsim_tpu/ops/pallas/readout.py:71", K3_DESIGN, k3,
-                     on_xl("cross_self_partials")),
+                     on_xl("cross_self_partials"), dit=on_dit("cross_self_partials")),
         kernel_entry("streaming_self_attention", "diffsim_tpu_torch/csrc/streaming_attention.cu",
                      "diffsim_tpu/ops/pallas/attention_stream.py:94", K4_DESIGN, k4,
                      on_xl("streaming_self_attention")),
@@ -1352,28 +1740,41 @@ def main() -> int:
     k2_sd, k2_xl = line["kernels"][1], line["kernels"][1]["sdxl"]
     k3_xl = line["kernels"][2]
     k4_row = next(r for r in k4["rows"] if r.get("launches_sdxl_call"))
-    print(f"  device-only kernel times on {card_line}:\n"
+    epilogue = (f"{k3_xl['epilogue_ms']:.3f} on the device" if "epilogue_ms" in k3_xl
+                else "not measured apart")
+    print(f"  kernel times on {card_line}, device times by {TIMING['method']}:\n"
           f"  K1 per SDXL triplet call {k1_xl['ms']:.3f} ms (v2 {k1_xl['v2_ms']:.3f}, SDPA "
           f"{k1_xl['library_ms']:.3f}); K2 per SD-1.5 forward {k2_sd['ms']:.3f} ms (v2 "
           f"{k2_sd['v2_ms']:.3f}, cuBLAS path {k2_sd['cublas_path_ms']:.3f}), per SDXL call "
           f"{k2_xl['ms']:.3f} (v2 {k2_xl['v2_ms']:.3f}, cuBLAS path "
           f"{k2_xl['cublas_path_ms']:.3f}); K3 per SDXL call {k3_xl['ms']:.3f} ms (v2 "
-          f"{k3_xl['v2_ms']:.3f}; the wrapper's torch epilogue {k3_xl['epilogue_ms']:.3f} on the "
-          f"device, the whole calls {k3_xl['call_ms']:.3f} by CUDA events); K4 float32 per "
-          f"launch {k4_row['ms']:.3f} ms (v2 {k4_row['v2_ms']:.3f}, SDPA "
-          f"{k4_row['library_ms']:.3f})", flush=True)
+          f"{k3_xl['v2_ms']:.3f}; the wrapper's torch epilogue {epilogue}, the whole calls "
+          f"{k3_xl['call_ms']:.3f} by CUDA events); K4 float32 per launch {k4_row['ms']:.3f} "
+          f"ms (v2 {k4_row['v2_ms']:.3f}, SDPA {k4_row['library_ms']:.3f})", flush=True)
     print(f"  bf16_probs mode: K1 per SD-1.5 forward {fast_k1['ms']:.3f} ms (exact "
           f"{fast_k1['exact_ms']:.3f}); K4 at {K4_768} bf16 {fast_k4['ms']:.3f} ms (exact "
           f"{fast_k4['exact_ms']:.3f}). CLI: hit rate {cli['hit_rate']:.4f}, pairs/s "
           f"{cli['pairs_per_s']}, cached vs fresh {cli['cached_vs_fresh']:.3e}, fast vs exact "
           f"{cli['fast_vs_exact']:.3e}", flush=True)
-    for guard in (sd15_out["guard"], xl_out["guard"]):
+    k1_dit, k3_dit = line["kernels"][0]["dit"], line["kernels"][2]["dit"]
+    print(f"  DiT-XL/2 on {card_line}: K1 per triplet call {k1_dit['ms']:.3f} ms in "
+          f"{k1_dit['launches']} launches (SDPA {k1_dit['library_ms']:.3f}, bound "
+          f"{k1_dit['bound_ms']:.3f}, {100 * k1_dit['roofline_share']:.1f} %); K3 per call "
+          f"{k3_dit['ms']:.3f} ms in {k3_dit['launches']} launches (bound "
+          f"{k3_dit['bound_ms']:.3f}, {100 * k3_dit['roofline_share']:.1f} %); repeat call {dit_out['repeat_ms']:.1f} ms, "
+          f"peak {dit_out['peak_gib']:.2f} GiB, cached vs fresh {dit_out['cached_gap']:.3e}; "
+          f"CLI --metric dit hit rate {dit_cli['hit_rate']:.4f}, "
+          f"{dit_cli['pairs_per_s']:.2f} pairs/s", flush=True)
+    for guard in (sd15_out["guard"], xl_out["guard"], dit_out["guard"]):
         if (guard["per_triplet"] < guard["slope"] or guard["encode_bytes"] < guard["encode_peak"]
                 or any(guard["estimates"][t] < guard["peaks"][t] for t in guard["peaks"])):
             raise SystemExit(f"{guard['name']}: the device-memory guard's constants are below "
                              f"what the card measured: {guard}")
-    line["hbm_guard"] = [sd15_out["guard"], xl_out["guard"]]
+    line["hbm_guard"] = [sd15_out["guard"], xl_out["guard"], dit_out["guard"]]
     line["cli"] = {k: v for k, v in cli.items() if k not in ("counts", "fast_counts")}
+    line["dit"] = {"repeat_ms": dit_out["repeat_ms"], "peak_gib": dit_out["peak_gib"],
+                   "cached_vs_fresh": dit_out["cached_gap"], "cli": dit_cli,
+                   "converter": converted}
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

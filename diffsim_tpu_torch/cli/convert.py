@@ -1,0 +1,100 @@
+"""Offline checkpoint conversion for the port, with numpy and torch alone (no JAX, no
+``safetensors`` package, no ``ml_dtypes``). Counterpart of ``diffsim_tpu/cli/convert.py``, with
+its flags and defaults; the ``.npz`` it writes has the JAX converter's keys and loads through
+either package's ``--weights``.
+
+    python -m diffsim_tpu_torch.cli.convert sd15 --unet u.safetensors --vae v.safetensors \\
+        --text t.safetensors --out sd15.npz [--dtype bfloat16]
+    python -m diffsim_tpu_torch.cli.convert sdxl --unet ... --vae ... --text ... --text2 ... \\
+        --out ...
+    python -m diffsim_tpu_torch.cli.convert dit  --ckpt DiT-XL-2-512x512.pt --vae v.safetensors \\
+        --image_size 512 --out dit.npz   (a train-format checkpoint's EMA weights, as the
+                                          published find_model takes them)
+
+``.safetensors`` files are read by ``convert/torch_import.load_safetensors``; anything else by
+``torch.load``, unwrapping ``{"ema": ...}`` and ``{"model": ...}``. The other families of the
+JAX CLI (clip, dinov2, dinov1, vgg19, lpips, u2net, sam) raise ``NotImplementedError``: their
+models come with ROADMAP Queue 1 item 6.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+import numpy as np
+
+from diffsim_tpu_torch.convert import diffusion_import as DI
+from diffsim_tpu_torch.convert import torch_import as TI
+from diffsim_tpu_torch.convert.store import _flatten, save_params
+
+FAMILIES = ("sd15", "sdxl", "dit")
+NOT_PORTED = ("clip", "dinov2", "dinov1", "vgg19", "lpips", "u2net", "sam")
+
+
+def _load(path: str) -> dict:
+    if path.endswith(".safetensors"):
+        return TI.load_safetensors(path)
+    import torch
+
+    obj = torch.load(path, map_location="cpu", weights_only=False)
+    if isinstance(obj, dict) and "ema" in obj:  # DiT train-format checkpoint
+        obj = obj["ema"]
+    elif isinstance(obj, dict) and "model" in obj and not any(
+        hasattr(v, "shape") for v in obj.values()
+    ):
+        obj = obj["model"]
+    return TI.state_dict_numpy(obj)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description="convert torch checkpoints to diffsim-tpu .npz")
+    ap.add_argument("family", choices=[*FAMILIES, *NOT_PORTED])
+    ap.add_argument("--unet")
+    ap.add_argument("--vae")
+    ap.add_argument("--text")
+    ap.add_argument("--text2")
+    ap.add_argument("--model")
+    ap.add_argument("--ckpt")
+    ap.add_argument("--vgg")
+    ap.add_argument("--image_size", type=int, default=512)
+    ap.add_argument("--size", default="small", choices=["small", "base"])
+    ap.add_argument("--dtype", default="bfloat16")
+    ap.add_argument("--out", required=True)
+    args = ap.parse_args(argv)
+    if args.family in NOT_PORTED:
+        raise NotImplementedError(f"convert {args.family}: the baseline metrics' converters are "
+                                  "not ported to PyTorch yet (ROADMAP.md, Queue 1 item 6)")
+    dtype = args.dtype if args.dtype == "bfloat16" else np.dtype(args.dtype)
+
+    from diffsim_tpu_torch.models import clip_text, dit, unet, vae
+
+    if args.family in ("sd15", "sdxl"):
+        ucfg = unet.UNetConfig.sd15() if args.family == "sd15" else unet.UNetConfig.sdxl()
+        vcfg = vae.VAEConfig.sd() if args.family == "sd15" else vae.VAEConfig.sdxl()
+        enc, dec = DI.convert_vae(_load(args.vae), vcfg)
+        tree = {
+            "unet": DI.convert_sd_unet(_load(args.unet), ucfg),
+            "vae": enc,
+            "vae_decoder": dec,
+            "text": TI.convert_clip_text(_load(args.text), clip_text.CLIPTextConfig.sd15()),
+        }
+        if args.family == "sdxl":
+            tree["text2"] = TI.convert_clip_text(
+                _load(args.text2), clip_text.CLIPTextConfig.sdxl_big_g()
+            )
+    else:
+        dcfg = dit.DiTConfig.xl2(input_size=args.image_size // 8)
+        tree = {"dit": DI.convert_dit(_load(args.ckpt), dcfg)}
+        if args.vae:
+            enc, dec = DI.convert_vae(_load(args.vae), vae.VAEConfig.sd())
+            tree["vae"] = enc
+            tree["vae_decoder"] = dec
+
+    tree = DI.cast_tree(tree, dtype)
+    save_params(args.out, tree)
+    n = sum(x.size for x in _flatten(tree).values())
+    print(f"wrote {args.out}: {n / 1e6:.1f}M params as {args.dtype}")
+
+
+if __name__ == "__main__":
+    main()

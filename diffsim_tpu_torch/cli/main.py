@@ -42,7 +42,7 @@ def run_benchmark(benchmark: str, argv=None, *, device=None):
     args = arg_parse(argv)
     if args.num_devices not in (None, 1):
         raise NotImplementedError("--num_devices > 1: multi-GPU scoring is not ported to "
-                                  "PyTorch yet (ROADMAP.md, Queue 1 item 10)")
+                                  "PyTorch yet (ROADMAP.md, Queue 1 item 7)")
     planner, rule = BENCHMARKS[benchmark]
     comparisons = planner(args)
     if args.shard:

@@ -9,7 +9,13 @@ parameters after the same tree paths ('/' -> '.'), with torch's leaf names:
   included, since the K2 kernel takes the nn.Linear layout;
 * ``b`` -> ``bias``; norm ``scale`` / ``bias`` -> ``weight`` / ``bias``;
 * the text towers' ``token_embedding`` / ``position_embedding`` tables as they are (``text``
-  and SDXL's ``text2``, whose ``text_projection`` is a dense ``w`` without a bias).
+  and SDXL's ``text2``, whose ``text_projection`` is a dense ``w`` without a bias);
+* DiT's ``pos_embed`` and ``y_embedder`` tables as they are (``dit``). Its ``patch_embed`` is a
+  dense (p*p*C, hidden) over (ph, pw, C)-ordered patches in both packages, so the dense rule
+  maps it to the port's ``nn.Linear`` (``models/dit.py``).
+
+Leaves are read as float32 (``store.as_float32``: bf16 leaves of a ``.npz`` included) and placed
+in the module's dtype.
 
 The bridge is strict: a leaf it cannot place raises in :func:`from_jax_tree`, and
 :func:`load` raises on any parameter the module expects but the tree lacks, or on a shape
@@ -22,17 +28,19 @@ import numpy as np
 import torch
 from torch import nn
 
-from diffsim_tpu_torch.convert.store import _flatten, unflatten
+from diffsim_tpu_torch.convert.store import _flatten, as_float32, unflatten
 
-KINDS = ("unet", "vae", "text", "text2")
-_TEXT_KINDS = ("text", "text2")
-_TEXT_TABLES = ("token_embedding", "position_embedding")
+KINDS = ("unet", "vae", "text", "text2", "dit")
+# the leaves each kind keeps as they are: embedding and position tables
+_TABLES = {"text": ("token_embedding", "position_embedding"),
+           "text2": ("token_embedding", "position_embedding"),
+           "dit": ("pos_embed", "y_embedder")}
 
 
 def _convert(path: str, leaf: np.ndarray, kind: str) -> tuple[str, np.ndarray]:
     *prefix, name = path.split("/")
     arr = np.asarray(leaf)
-    if kind in _TEXT_KINDS and path in _TEXT_TABLES:
+    if path in _TABLES.get(kind, ()):
         return path, arr
     if name == "w" and arr.ndim == 4:
         return ".".join(prefix + ["weight"]), arr.transpose(3, 2, 0, 1)
@@ -46,8 +54,8 @@ def _convert(path: str, leaf: np.ndarray, kind: str) -> tuple[str, np.ndarray]:
 
 
 def from_jax_tree(tree, kind: str) -> dict[str, np.ndarray]:
-    """The JAX parameter tree of a ``kind`` model ('unet', 'vae', 'text' or 'text2') as the
-    port's flat state: {parameter name: numpy array in the port's layout}. Every leaf is
+    """The JAX parameter tree of a ``kind`` model ('unet', 'vae', 'text', 'text2' or 'dit') as
+    the port's flat state: {parameter name: numpy array in the port's layout}. Every leaf is
     consumed."""
     if kind not in KINDS:
         raise ValueError(f"bridge: unknown kind {kind!r} (one of {KINDS})")
@@ -64,7 +72,7 @@ def load(module: nn.Module, tree, kind: str, device, dtype) -> nn.Module:
     """Fill ``module`` (typically built on the meta device) from a JAX tree, strictly: every
     leaf of the tree is consumed and every parameter of the module is provided, with the
     module's shapes. Tensors are placed on ``device`` in ``dtype``."""
-    state = {k: torch.tensor(np.asarray(v, np.float32), dtype=dtype, device=device)
+    state = {k: torch.tensor(as_float32(v), dtype=dtype, device=device)
              for k, v in from_jax_tree(tree, kind).items()}
     module.load_state_dict(state, strict=True, assign=True)
     return module
@@ -80,7 +88,7 @@ def to_jax_tree(state, kind: str):
               else np.asarray(v) for k, v in state.items()}
     flat = {}
     for name, arr in arrays.items():
-        if kind in _TEXT_KINDS and name in _TEXT_TABLES:
+        if name in _TABLES.get(kind, ()):
             flat[name] = arr
             continue
         prefix, leaf = name.rsplit(".", 1)

@@ -1,9 +1,9 @@
 """Metric registry of the port: the ``--metric`` CLI surface mapped to scorer adapters
 (counterpart of ``diffsim_tpu/metrics/registry.py``).
 
-This slice ports the ``diffsim`` (SD-1.5) and ``diffsim_xl`` (SDXL) branches. Every other
-metric, and the options that need an unported module (``--ip_adapter``, ``--use_mask``), raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+The port has the ``diffsim`` (SD-1.5), ``diffsim_xl`` (SDXL) and ``dit`` (DiT-XL/2) branches.
+Every other metric, and the options that need an unported module (``--ip_adapter``,
+``--use_mask``), raise ``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -17,12 +17,12 @@ import torch
 
 # metric -> the ROADMAP item (Queue 1) that ports it
 NOT_PORTED = {
-    "dit": "item 7 (the DiT scorer)",
     "diffeats": "item 4 (score_feats_batch, the OUTPUT taps)",
     **dict.fromkeys(("clip_i", "clip_cross", "clipfeats", "dino", "dinov1", "dino_cross",
                      "dinofeats", "cute", "lpips", "gram", "ensemble"),
-                    "item 9 (the baseline metrics)"),
+                    "item 6 (the baseline metrics)"),
 }
+PORTED = ("diffsim", "diffsim_xl", "dit")
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -61,11 +61,15 @@ def _make_prewarm(scorer):
 
 
 def _load_params(path):
+    """The ``--weights`` tree. The converters also write the VAE decoder (``vae_decoder``),
+    which no scorer runs (the port has no decoder yet): it is dropped here."""
     if not path:
         return None
     from diffsim_tpu_torch.convert.store import load_params
 
-    return load_params(path)
+    tree = load_params(path)
+    tree.pop("vae_decoder", None)
+    return tree
 
 
 def _load_tokenizer(path, pad_token: str = "<|endoftext|>"):
@@ -88,12 +92,18 @@ def _require_tokenizer(args):
             "merges.txt), or --allow_hash_tokenizer to override for throughput runs.")
 
 
-def _tiny_configs(name: str) -> dict:
-    """The toy configs of ``--model_scale tiny`` (CPU tests), in float32."""
+def _tiny_configs(name: str, image_size: int = 32) -> dict:
+    """The toy configs of ``--model_scale tiny`` (CPU tests), in float32; the tiny DiT's latent
+    grid follows ``image_size`` (the tiny VAE downsamples by 2)."""
     from diffsim_tpu_torch.models.clip_text import CLIPTextConfig
     from diffsim_tpu_torch.models.unet import UNetConfig
     from diffsim_tpu_torch.models.vae import VAEConfig
 
+    if name == "dit":
+        from diffsim_tpu_torch.models.dit import DiTConfig
+
+        return dict(dit_cfg=DiTConfig.tiny(input_size=image_size // 2, num_classes=1000),
+                    vae_cfg=VAEConfig.tiny(), dtype=torch.float32)
     kw = dict(vae_cfg=VAEConfig.tiny(), text_cfg=CLIPTextConfig.tiny(), dtype=torch.float32)
     if name == "diffsim":
         return dict(unet_cfg=UNetConfig.tiny(), **kw)
@@ -109,22 +119,30 @@ def build_metric(args, device=None) -> MetricAdapter:
     name = args.metric
     if name in NOT_PORTED:
         raise _not_ported(f"--metric {name}", NOT_PORTED[name])
-    if name not in ("diffsim", "diffsim_xl"):
+    if name not in PORTED:
         raise ValueError(f"unknown metric: {name}")
     if getattr(args, "ip_adapter", False):
-        raise _not_ported("--ip_adapter", "item 8 (IP-Adapter)")
+        raise _not_ported("--ip_adapter", "item 5 (IP-Adapter)")
     if getattr(args, "use_mask", False):
         raise _not_ported("--use_mask", "item 4 (mask-weighted queries)")
     similarity = args.similarity
     lower = similarity == "mse"
-    _require_tokenizer(args)
-    kw = _tiny_configs(name) if getattr(args, "model_scale", "full") == "tiny" else {}
-    tokenizer = _load_tokenizer(getattr(args, "tokenizer_dir", None))
+    tokenizer = None
+    if name != "dit":  # DiT is class-conditioned: no prompt to tokenize
+        _require_tokenizer(args)
+        tokenizer = _load_tokenizer(getattr(args, "tokenizer_dir", None))
+    kw = (_tiny_configs(name, args.image_size)
+          if getattr(args, "model_scale", "full") == "tiny" else {})
     params = _load_params(getattr(args, "weights", None))
     target = dict(target_block=args.target_block, target_layer=args.target_layer,
                   target_step=args.target_step, similarity=similarity, seed=args.seed)
 
-    if name == "diffsim":
+    if name == "dit":
+        from diffsim_tpu_torch.metrics.diffsim_dit import DiffSimDiT
+
+        # the scorer ignores the prompts and target_block, as the JAX scorer does
+        scorer = DiffSimDiT(params, img_size=args.image_size, device=device, **kw)
+    elif name == "diffsim":
         from diffsim_tpu_torch.metrics.diffsim_sd15 import DiffSimSD15
 
         scorer = DiffSimSD15(params, img_size=args.image_size, device=device,

@@ -9,10 +9,12 @@ import torch
 
 from diffsim_tpu.convert import store as jax_store
 from diffsim_tpu.models import clip_text as jclip
+from diffsim_tpu.models import dit as jdit
 from diffsim_tpu.models import unet as junet
 from diffsim_tpu.models import vae as jvae
 from diffsim_tpu_torch.convert import bridge, store
 from diffsim_tpu_torch.models.clip_text import CLIPText, CLIPTextConfig
+from diffsim_tpu_torch.models.dit import DiT, DiTConfig
 from diffsim_tpu_torch.models.unet import UNet, UNetConfig
 from diffsim_tpu_torch.models.vae import Encoder, VAEConfig
 
@@ -32,6 +34,8 @@ def _jax_tree(case):
         return jax.device_get(jvae.encoder_init(key, jvae.VAEConfig.tiny(), jnp.float32))
     if case == "text2":
         return jax.device_get(jclip.init(key, jclip.CLIPTextConfig(**TEXT2), jnp.float32))
+    if case == "dit":
+        return jax.device_get(jdit.init(key, jdit.DiTConfig.tiny(), jnp.float32))
     return jax.device_get(jclip.init(key, jclip.CLIPTextConfig.tiny(), jnp.float32))
 
 
@@ -41,6 +45,7 @@ _FACTORIES = {
     "vae": lambda: Encoder(VAEConfig.tiny()),
     "text": lambda: CLIPText(CLIPTextConfig.tiny()),
     "text2": lambda: CLIPText(CLIPTextConfig(**TEXT2)),
+    "dit": lambda: DiT(DiTConfig.tiny()),
 }
 _KINDS = {"unet_xl": "unet"}  # the bridge kind of each case, where it differs from the name
 
@@ -51,10 +56,11 @@ def _built(case, tree):
     return bridge.load(module, tree, _KINDS.get(case, case), "cpu", torch.float32)
 
 
-@pytest.mark.parametrize("kind", ["unet", "vae", "text", "text2", "unet_xl"])
+@pytest.mark.parametrize("kind", ["unet", "vae", "text", "text2", "unet_xl", "dit"])
 def test_bridge_round_trips_tiny_init_trees_strictly(kind):
-    """SD-1.5's three trees and SDXL's two new shapes (the bigG-style tower, the UNet with
-    linear projections and the text_time addition embedding)."""
+    """SD-1.5's three trees, SDXL's two new shapes (the bigG-style tower, the UNet with
+    linear projections and the text_time addition embedding) and DiT's (its pos_embed and
+    y_embedder tables, the dense patch embedding)."""
     tree = _jax_tree(kind)
     flat = jax_store._flatten(tree)
     module = _built(kind, tree)
@@ -67,7 +73,7 @@ def test_bridge_round_trips_tiny_init_trees_strictly(kind):
         np.testing.assert_array_equal(back[key], arr)
 
 
-@pytest.mark.parametrize("kind", ["unet", "vae", "text", "text2"])
+@pytest.mark.parametrize("kind", ["unet", "vae", "text", "text2", "dit"])
 def test_bridge_rejects_an_unknown_leaf(kind):
     tree = _jax_tree(kind)
     tree["surplus"] = {"gamma": np.zeros((3,), np.float32)}

@@ -21,7 +21,9 @@ def _port_modules():
 
 def test_port_and_chip_smoke_import_no_jax():
     modules = _port_modules() + ["chip_smoke"]
-    assert "diffsim_tpu_torch.metrics.diffsim_sd15" in modules
+    for name in ("metrics.diffsim_sd15", "metrics.diffsim_dit", "models.dit", "cli.convert",
+                 "convert.diffusion_import", "convert.torch_import"):
+        assert f"diffsim_tpu_torch.{name}" in modules
     code = (
         "import importlib, sys\n"
         f"for name in {modules!r}:\n"
@@ -37,12 +39,13 @@ def test_port_and_chip_smoke_import_no_jax():
     assert out.stdout.startswith("ok")
 
 
-@pytest.mark.parametrize("scorer", ["DiffSimSD15", "DiffSimXL"])
+@pytest.mark.parametrize("scorer", ["DiffSimSD15", "DiffSimXL", "DiffSimDiT"])
 def test_scorer_without_a_device_raises_when_cuda_is_absent(monkeypatch, scorer):
+    from diffsim_tpu_torch.metrics.diffsim_dit import DiffSimDiT
     from diffsim_tpu_torch.metrics.diffsim_sd15 import DiffSimSD15
     from diffsim_tpu_torch.metrics.diffsim_xl import DiffSimXL
 
-    cls = {"DiffSimSD15": DiffSimSD15, "DiffSimXL": DiffSimXL}[scorer]
+    cls = {"DiffSimSD15": DiffSimSD15, "DiffSimXL": DiffSimXL, "DiffSimDiT": DiffSimDiT}[scorer]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cls()
