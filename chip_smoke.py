@@ -71,7 +71,21 @@ Phases, each of which fails the run (non-zero exit, no result line) if anything 
    ``ml_dtypes``: ``python -m diffsim_tpu_torch.cli.convert dit`` on a ``torch.save`` DiT
    checkpoint of DiT-XL/2's widths cut to one block and a BF16 safetensors VAE written here byte
    by byte, and on the same DiT as safetensors; the ``.npz`` loads through the ``--weights``
-   reader into a ``DiffSimDiT`` on the card, equal to the checkpoint's weights, and scores.
+   reader into a ``DiffSimDiT`` on the card, equal to the checkpoint's weights, and scores;
+15. this slice's paths, card vs CPU at tiny width from one seeded numpy tree and one
+   ``noise_override``, in float32 with TF32 off: SD-1.5 with a tiny IP-Adapter-plus (K1, K2),
+   masked queries at 32 px and at 64 px (whose 1024-token tap takes K3), ``score_feats_batch``
+   (``diffeats``), and SDXL with a tiny IP-Adapter-plus at 256 px (K1, K2, K4);
+16. at full width on the main-path scorers: SD-1.5 at 512 px with CLIP ViT-H/14 and the
+   ``sd15_plus`` Resampler, ``score_batch(ip_adapter=True)`` on 2 pairs with the ``ipref``
+   preset's arguments (9 K1, 4 K2: the tap block's attn1 runs before its attn2 stops), a repeat
+   bit for bit, its time and peak memory; masked ``score_batch`` at the canonical tap and at up
+   block 2 (K3), ``score_feats_batch`` and ``tap_values`` on a PNG; SDXL at 1024 px with ViT-H/14
+   and the ``sdxl_plus`` Resampler, ``score_batch(ip_adapter=True)`` on 2 pairs with the
+   ``bench_backbones.py`` arguments (46 K1, 4 K2, 2 K4, no K3: 16 image keys are not square);
+17. the CLI over the 36 JPEGs with ``--ip_adapter``, ``--use_mask --mask_path`` (a mask tree
+   written here), ``--use_mask`` (the border-statistics heuristic) and ``--metric diffeats``,
+   each on the pair path with its exact launches.
 
 The line before the last is one JSON object ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. A kernel's time (``ms``), its library call's and its v2's are
@@ -96,6 +110,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import dataclasses
 import functools
 import json
 import os
@@ -104,6 +119,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -118,9 +134,12 @@ from diffsim_tpu_torch.metrics import registry
 from diffsim_tpu_torch.metrics.diffsim_dit import DiffSimDiT
 from diffsim_tpu_torch.metrics.diffsim_sd15 import DiffSimSD15
 from diffsim_tpu_torch.metrics.diffsim_xl import DiffSimXL
+from diffsim_tpu_torch.metrics.ffa import MattingInversionWarning
 from diffsim_tpu_torch.metrics.scorer_base import to_device_pixels
 from diffsim_tpu_torch.models.clip_text import CLIPText, CLIPTextConfig
+from diffsim_tpu_torch.models.clip_vision import CLIPVision, CLIPVisionConfig
 from diffsim_tpu_torch.models.dit import DiT, DiTConfig
+from diffsim_tpu_torch.models.ip_adapter import Resampler, ResamplerConfig, attn2_modules
 from diffsim_tpu_torch.models.unet import UNet, UNetConfig
 from diffsim_tpu_torch.models.vae import Encoder, VAEConfig, encode_chunked
 from diffsim_tpu_torch.ops import kernels
@@ -131,6 +150,7 @@ from diffsim_tpu_torch.ops.kernels.attention_stream import (
     streaming_self_attention,
     streaming_self_attention_plain,
 )
+from diffsim_tpu_torch.ops.blocks import IPProjection
 from diffsim_tpu_torch.ops.kernels.ff import fused_geglu_ff, fused_geglu_ff_plain
 from diffsim_tpu_torch.ops.kernels.readout import (
     cross_self_partials,
@@ -188,6 +208,18 @@ DIT_PAIRS_CALL = {**NONE, "fused_self_attention": 13, "cross_self_partials": 2}
 # the tiny DiT at 128 px, tap block 1: K1 in block 0 and in the tiny VAE's mid attention
 TINY_DIT_CALL = {**NONE, "fused_self_attention": 2, "cross_self_partials": 2}
 TINY_DIT = dict(input_size=64, patch_size=2, hidden=144, depth=2, heads=2, num_classes=10)
+# this slice's paths: the ipref preset, and each call's launches (an attn2 or OUTPUT tap runs
+# its block's attn1 first: one K1 more than the canonical attn1 QKV tap)
+IPREF = dict(prompt="The photo of a cat", target_block="up_blocks", target_layer=(5,),
+             target_step=750, similarity="cosine", seed=2334)
+SD15_IP_CALL = {**NONE, "fused_self_attention": 9, "fused_geglu_ff": 4}
+XL_IP_PAIRS_CALL = {**NONE, "fused_self_attention": 46, "fused_geglu_ff": 4,
+                    "streaming_self_attention": 2}
+TINY_SD15_IP_CALL = {**NONE, "fused_self_attention": 4, "fused_geglu_ff": 3}
+# the tiny SD-1.5 at 64 px: K1 in down block 0, the mid block, up block 1 and the VAE's mid
+TINY_SD15_K3_CALL = {**NONE, "fused_self_attention": 4, "fused_geglu_ff": 3,
+                     "cross_self_partials": 2}
+TINY_XL_IP_CALL = {**TINY_XL_CALL, "fused_self_attention": 8, "cross_self_partials": 0}
 
 
 def phase(name: str) -> None:
@@ -828,14 +860,15 @@ def tf32_off():
 CARD_CPU_ATOL = {"cosine": 1e-6, "mse": 1e-7}
 
 
-def _card_vs_cpu(name, make_scorer, pix_a, pix_b, noise, args, expected) -> None:
+def _card_vs_cpu(name, make_scorer, pix_a, pix_b, noise, args, expected,
+                 method: str = "score_batch") -> None:
     for similarity in ("cosine", "mse"):
         scores = {}
         for device in ("cuda", "cpu"):
             scorer = make_scorer(device)
             kernels.reset_launch_counts()
-            scores[device] = scorer.score_batch(pix_a, pix_b, **{**args, "similarity": similarity},
-                                                noise_override=noise)
+            scores[device] = getattr(scorer, method)(
+                pix_a, pix_b, **{**args, "similarity": similarity}, noise_override=noise)
             counts = kernels.launch_counts()
             if device == "cuda":
                 print(f"  launches on the card ({similarity}): {counts}")
@@ -885,10 +918,88 @@ def tiny_xl_phase() -> None:
               "text2": _random_tree(lambda: CLIPText(text2), "text2", rng)}
     pix_a, pix_b = (rng.integers(0, 256, (1, 256, 256, 3), dtype=np.uint8) for _ in range(2))
     noise = tuple(rng.standard_normal((2, 128, 128, 4)).astype(np.float32) for _ in range(2))
+    ip = _random_ip(cfgs["unet_cfg"], rng)
+
+    def make_scorer(device, with_ip=False):
+        scorer = DiffSimXL(params, img_size=256, dtype=torch.float32, device=device,
+                           tokenizer=HashTokenizer(1000), **cfgs)
+        if with_ip:
+            scorer.enable_ip_adapter(**ip)
+        return scorer
+
     with tf32_off():
-        _card_vs_cpu("tiny SDXL", lambda device: DiffSimXL(
-            params, img_size=256, dtype=torch.float32, device=device,
-            tokenizer=HashTokenizer(1000), **cfgs), pix_a, pix_b, noise, XL_ARGS, TINY_XL_CALL)
+        _card_vs_cpu("tiny SDXL", make_scorer, pix_a, pix_b, noise, XL_ARGS, TINY_XL_CALL)
+        print("  with a tiny IP-Adapter-plus (the IP tap at attn2 of up (0, 1, 1); 256 -> 32 px "
+              "for the tiny encoder):")
+        _card_vs_cpu("tiny SDXL IP-Adapter", lambda device: make_scorer(device, True), pix_a,
+                     pix_b, noise, {**XL_ARGS, "ip_adapter": True}, TINY_XL_IP_CALL)
+
+
+def _random_ip(unet_cfg, rng) -> dict:
+    """``enable_ip_adapter``'s arguments for a seeded tiny IP-Adapter-plus: the converted layout
+    (a tiny Resampler of the UNet's cross dim, one adapter per attn2) and a tiny CLIP vision
+    tree, drawn as :func:`_random_tree` draws."""
+    rcfg = dataclasses.replace(ResamplerConfig.tiny(), output_dim=unet_cfg.cross_attention_dim)
+    with torch.device("meta"):
+        sites = [(a.to_k.in_features, a.to_q.out_features) for a in attn2_modules(UNet(unet_cfg))]
+    converted = {
+        "image_proj": _random_tree(lambda: Resampler(rcfg), "ip_proj", rng),
+        "ip_weights": [[_random_tree(lambda: IPProjection(c, d), "unet", rng)] for c, d in sites],
+        "plus": True}
+    return dict(converted=converted, resampler_cfg=rcfg, encoder_cfg=CLIPVisionConfig.tiny(),
+                encoder_params=_random_tree(lambda: CLIPVision(CLIPVisionConfig.tiny()),
+                                            "clip_vision", rng))
+
+
+def _box_masks(rng, n: int, size: int) -> list[np.ndarray]:
+    """Foreground masks of two roles, (n, size, size) each: one box per image."""
+    masks = np.zeros((2, n, size, size), np.float32)
+    for m in masks.reshape(-1, size, size):
+        y, x = rng.integers(0, size // 2, 2)
+        m[y:y + size // 3, x:x + size // 3] = 1.0
+    return list(masks)
+
+
+def tiny_surface_phase() -> None:
+    phase("end to end, this slice's SD-1.5 paths at tiny width in float32: card vs CPU "
+          "(|dscore| <= 1e-4 and <= atol + 1e-4 of the distance): a tiny IP-Adapter-plus at 32 "
+          "px (K1, K2), masked queries at 32 px and at 64 px (1024-token tap -> K3), "
+          "score_feats_batch (diffeats)")
+    rng = np.random.default_rng(2337)
+    cfgs = dict(unet_cfg=UNetConfig.tiny(), vae_cfg=VAEConfig.tiny(),
+                text_cfg=CLIPTextConfig.tiny())
+    params = {"unet": _random_tree(lambda: UNet(cfgs["unet_cfg"]), "unet", rng),
+              "vae": _random_tree(lambda: Encoder(cfgs["vae_cfg"]), "vae", rng),
+              "text": _random_tree(lambda: CLIPText(cfgs["text_cfg"]), "text", rng)}
+    ip = _random_ip(cfgs["unet_cfg"], rng)
+
+    def make(size, with_ip=False):
+        def make_scorer(device):
+            scorer = DiffSimSD15(params, img_size=size, dtype=torch.float32, device=device,
+                                 tokenizer=HashTokenizer(cfgs["text_cfg"].vocab_size), **cfgs)
+            if with_ip:
+                scorer.enable_ip_adapter(**ip)
+            return scorer
+        return make_scorer
+
+    data = {}
+    for size in (32, 64):
+        pix = [rng.integers(0, 256, (2, size, size, 3), dtype=np.uint8) for _ in range(2)]
+        noise = tuple(rng.standard_normal((2, size // 2, size // 2, 4)).astype(np.float32)
+                      for _ in range(2))
+        ma, mb = _box_masks(rng, 2, size)
+        data[size] = (*pix, noise, {"mask_a": ma, "mask_b": mb})
+    with tf32_off():
+        a, b, noise, masks = data[32]
+        _card_vs_cpu("tiny SD-1.5 IP-Adapter", make(32, True), a, b, noise,
+                     {**IPREF, "ip_adapter": True}, TINY_SD15_IP_CALL)
+        _card_vs_cpu("tiny SD-1.5 masked", make(32), a, b, noise, {**CUTE, **masks},
+                     TINY_SD15_CALL)
+        _card_vs_cpu("tiny SD-1.5 diffeats", make(32), a, b, noise, CUTE, TINY_SD15_IP_CALL,
+                     method="score_feats_batch")
+        a, b, noise, masks = data[64]
+        _card_vs_cpu("tiny SD-1.5 masked at 64 px", make(64), a, b, noise, {**CUTE, **masks},
+                     TINY_SD15_K3_CALL)
 
 
 def _checked_call(name: str, fn, expected: dict):
@@ -969,7 +1080,86 @@ def sd15_phase(card_line: str) -> dict:
     _check_scores("score_batch at up block 2", scores)
     print(f"  scores {scores}", flush=True)
     out["guard"] = guard_slope("SD-1.5 512 px", scorer, CUTE, (8, 16), 512, card_line)
+    out["surface"] = sd15_surface(scorer, pix)
+    phase("SD-1.5 IP-Adapter-plus at full width, 512 px: CLIP ViT-H/14 and the sd15_plus "
+          "Resampler, random weights on the card; the ipref preset's arguments (target_layer 5 "
+          "collapses to up block 1, attn2), t = 750")
+    out["ip"] = ip_drive("SD-1.5", scorer, pix[0][:2], pix[1][:2], IPREF, SD15_IP_CALL,
+                         card_line)
     return out
+
+
+def sd15_surface(scorer, pix) -> dict:
+    """Masked queries at the canonical tap and at up block 2 (K3), ``score_feats_batch`` and
+    ``tap_values`` at full SD-1.5 width, each with its exact launches."""
+    phase("SD-1.5 surface at full width, 512 px: masked score_batch (canonical tap; up block 2 "
+          "-> K3), score_feats_batch (diffeats), tap_values on a PNG")
+    from PIL import Image
+
+    a, b = pix[0][:2], pix[1][:2]
+    ma, mb = _box_masks(np.random.default_rng(8), 2, 512)
+    counts = {}
+    masked, counts["sd15_masked"] = _checked_call(
+        "score_batch with masks (2 pairs)",
+        lambda: scorer.score_batch(a, b, mask_a=ma, mask_b=mb, **CUTE), SD15_CALL)
+    unmasked = scorer.score_batch(a, b, **CUTE)
+    k3, counts["sd15_masked_k3"] = _checked_call(
+        "score_batch with masks (2 pairs, up block 2: K3)",
+        lambda: scorer.score_batch(a, b, mask_a=ma, mask_b=mb, fix_layer_collapse=True,
+                                   **{**CUTE, "target_layer": [1]}), SD15_K3_CALL)
+    feats, counts["sd15_feats"] = _checked_call(
+        "score_feats_batch (2 pairs)", lambda: scorer.score_feats_batch(a, b, **CUTE),
+        SD15_IP_CALL)
+    _check_scores("the surface", masked, k3, feats)
+    if np.allclose(masked, unmasked):
+        raise SystemExit("the masks did not change the scores")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "a.png")
+        Image.fromarray(a[0]).save(path)
+        qkv, counts["sd15_tap_values"] = _checked_call(
+            "tap_values(a.png)", lambda: scorer.tap_values(path, **{
+                k: v for k, v in CUTE.items() if k != "similarity"}), SD15_CALL)
+    shapes = [tuple(t.shape) for t in qkv]
+    print(f"  masked {masked} (unmasked {unmasked}); up block 2 masked {k3}; diffeats {feats}; "
+          f"tap_values shapes {shapes}", flush=True)
+    if shapes != [(2, 8, 256, 160)] * 3 or not all(torch.isfinite(t).all() for t in qkv):
+        raise SystemExit(f"tap_values gave {shapes} or non-finite values")
+    return counts
+
+
+def ip_drive(name, scorer, pix_a, pix_b, args, expected, card_line) -> dict:
+    """Attach a random IP-Adapter-plus (CLIP ViT-H/14 and the backbone's published Resampler,
+    drawn on the card) to a full-width scorer and run ``score_batch(ip_adapter=True)`` on two
+    pairs: exact launches, finite cosines, a repeat bit for bit; its time (CUDA events, host
+    work in) and peak memory as information."""
+    t0 = time.perf_counter()
+    scorer.enable_ip_adapter()
+    torch.cuda.synchronize()
+    n_enc = sum(p.numel() for p in scorer.ip_encoder.parameters()) / 1e6
+    n_proj = sum(p.numel() for p in scorer.ip_proj.parameters()) / 1e6
+    n_kv = sum(p.numel() for a in attn2_modules(scorer.unet) for p in a.ip.parameters()) / 1e6
+    print(f"  enable_ip_adapter {time.perf_counter() - t0:.2f} s: encoder {n_enc:.1f} M, "
+          f"Resampler {n_proj:.1f} M, {len(attn2_modules(scorer.unet))} attn2 K/V pairs "
+          f"{n_kv:.1f} M parameters; the device-memory guard counts "
+          f"{hbm_guard.scorer_static_bytes(scorer) / 1e9:.2f} GB static", flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    scores, counts = _checked_call(f"{name} score_batch(ip_adapter=True) (2 pairs)",
+                                   lambda: scorer.score_batch(pix_a, pix_b, ip_adapter=True,
+                                                              **args), expected)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    _check_scores(f"{name} IP-Adapter", scores)
+    again = scorer.score_batch(pix_a, pix_b, ip_adapter=True, **args)
+    if not np.array_equal(again, scores):
+        raise SystemExit(f"{name} score_batch(ip_adapter=True): a repeat call gave other scores")
+    call_ms = time_ms(lambda: scorer.score_batch(pix_a, pix_b, ip_adapter=True, **args), reps=5,
+                      warmup=1)
+    plain_ms = time_ms(lambda: scorer.score_batch(pix_a, pix_b, **args), reps=5, warmup=1)
+    print(f"  {name} IP scores {scores}, repeat bit for bit; call {call_ms:.1f} ms, the same "
+          f"pairs without the adapter (attn1 tap) {plain_ms:.1f} ms (medians of 5, CUDA events, "
+          f"host work in); peak device memory {peak:.2f} GiB on {card_line} (information only)",
+          flush=True)
+    return {"counts": counts, "call_ms": call_ms, "no_ip_call_ms": plain_ms, "peak_gib": peak}
 
 
 def sdxl_phase(card_line: str) -> dict:
@@ -999,6 +1189,10 @@ def sdxl_phase(card_line: str) -> dict:
     out["cached_gap"] = cached_path("SDXL", scorer, pix, *out["scores"], XL_ARGS,
                                     XL_TRIPLET_CALL, {**XL_FORWARD, "cross_self_partials": 4})
     out["guard"] = guard_slope("SDXL 1024 px", scorer, XL_ARGS, (2, 4), 1024, card_line)
+    del x
+    phase("SDXL IP-Adapter-plus at full width, 1024 px: CLIP ViT-H/14 and the sdxl_plus "
+          "Resampler, random weights on the card; tap up (0, 1, 1) attn2, t = 900")
+    out["ip"] = ip_drive("SDXL", scorer, pix[0], pix[1], XL_ARGS, XL_IP_PAIRS_CALL, card_line)
     return out
 
 
@@ -1340,6 +1534,46 @@ def dit_cli_phase(tree: str) -> dict:
             "pairs_per_s": 2 * len(plan) / wall}
 
 
+def surface_cli_phase(tree: str) -> dict:
+    """The CLI's new paths at full SD-1.5 width over the 36 JPEGs, each on the pair path
+    (one scoring call per batch of comparisons) with its exact launches."""
+    phase("the 2AFC CLI at full SD-1.5 width on the pair path: cute --preset cute with "
+          "--ip_adapter, --use_mask --mask_path, --use_mask (heuristic masks), --metric diffeats")
+    from PIL import Image
+
+    plan = benchmarks.cute(tree, 2334)
+    calls = -(-len(plan) // CLI_BATCH)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        mask_root = os.path.join(tmp, "masks")
+        rng = np.random.default_rng(9)
+        for path in sorted({p for c in plan for p in (c.a, c.b, c.c)}):
+            # each JPEG's mask is a PNG of its stem: mask_path_for's fallback
+            dst = os.path.splitext(os.path.join(mask_root, os.path.relpath(path, tree)))[0]
+            os.makedirs(os.path.dirname(dst), exist_ok=True)
+            Image.fromarray((_box_masks(rng, 1, 480)[0][0] * 255).astype(np.uint8)).save(
+                dst + ".png")
+        runs = {"cli_ip_adapter": (["--ip_adapter"], SD15_IP_CALL),
+                "cli_mask_path": (["--use_mask", "--mask_path", mask_root], SD15_CALL),
+                "cli_heuristic_masks": (["--use_mask"], SD15_CALL),
+                "cli_diffeats": (["--metric", "diffeats"], SD15_IP_CALL)}
+        for what, (extra, per_call) in runs.items():
+            with warnings.catch_warnings():  # the heuristic's per-image inversion notices
+                warnings.simplefilter("ignore", MattingInversionWarning)
+                report, adapter, scores, counts, _, wall = _cli_run(
+                    what, tree, os.path.join(tmp, f"{what}.jsonl"), *extra)
+            want = {k: v * calls for k, v in {**NONE, **per_call}.items()}
+            if report.total != len(plan) or sorted(scores) != list(range(len(plan))):
+                raise SystemExit(f"{what}: scored {report.total} of {len(plan)} comparisons")
+            if counts != want:
+                raise SystemExit(f"{what}: launched {counts}, expected {want} ({calls} calls)")
+            _check_scores(what, np.array(list(scores.values())))
+            out[what] = {"counts": counts, "pairs_per_s": 2 * len(plan) / wall}
+            del adapter
+            torch.cuda.empty_cache()
+    return out
+
+
 def write_safetensors(path: str, tensors: dict) -> None:
     """A ``.safetensors`` file of float32 or bf16 CPU tensors, written byte by byte: an 8-byte
     little-endian header length, the JSON header (padded with spaces to 8 bytes), then the raw
@@ -1676,12 +1910,14 @@ def main() -> int:
     tiny_phase()
     tiny_xl_phase()
     tiny_dit_phase()
+    tiny_surface_phase()
     sd15_out = sd15_phase(card_line)
     sd15 = sd15_out["counts"]
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         tree = _cute_tree(tmp)
         cli = cli_phase(card_line, tree)
+        surface_cli = surface_cli_phase(tree)
         fast768 = sd15_fast_768_phase()
         xl_out = sdxl_phase(card_line)
         xl = xl_out["counts"]
@@ -1736,6 +1972,12 @@ def main() -> int:
     ]}
     for entry in line["kernels"][:2]:  # K1 and K2 on this slice's main path, the CLI run
         entry["launches_cli"] = cli["counts"][entry["name"]]
+    # the IP-Adapter, mask, diffeats and tap_values paths: each call's launches
+    paths = {"sd15_ip_pairs_call": sd15_out["ip"]["counts"], **sd15_out["surface"],
+             "sdxl_ip_pairs_call": xl_out["ip"]["counts"],
+             **{what: run["counts"] for what, run in surface_cli.items()}}
+    for entry in line["kernels"][:4]:
+        entry["launches_paths"] = {path: counts[entry["name"]] for path, counts in paths.items()}
     k1_xl = line["kernels"][0]["sdxl"]
     k2_sd, k2_xl = line["kernels"][1], line["kernels"][1]["sdxl"]
     k3_xl = line["kernels"][2]
@@ -1772,6 +2014,10 @@ def main() -> int:
                              f"what the card measured: {guard}")
     line["hbm_guard"] = [sd15_out["guard"], xl_out["guard"], dit_out["guard"]]
     line["cli"] = {k: v for k, v in cli.items() if k not in ("counts", "fast_counts")}
+    line["ip_adapter"] = {
+        name: {k: out["ip"][k] for k in ("call_ms", "no_ip_call_ms", "peak_gib")}
+        for name, out in (("sd15_512", sd15_out), ("sdxl_1024", xl_out))}
+    line["cli_paths"] = {what: run["pairs_per_s"] for what, run in surface_cli.items()}
     line["dit"] = {"repeat_ms": dit_out["repeat_ms"], "peak_gib": dit_out["peak_gib"],
                    "cached_vs_fresh": dit_out["cached_gap"], "cli": dit_cli,
                    "converter": converted}

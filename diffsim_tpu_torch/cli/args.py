@@ -68,13 +68,19 @@ def arg_parse(argv=None):
                         choices=["diffsim", "diffsim_xl", "clip_i", "clip_cross", "dino",
                                  "dinov1", "dino_cross", "cute", "lpips", "gram", "diffeats",
                                  "clipfeats", "dinofeats", "ensemble", "dit"],
-                        help="diffsim (SD-1.5) and diffsim_xl (SDXL) are ported; the others "
-                             "raise, naming their ROADMAP item")
+                        help="diffsim (SD-1.5), diffeats, diffsim_xl (SDXL) and dit are "
+                             "ported; the others raise, naming their ROADMAP item")
     parser.add_argument("--similarity", type=str, choices=["cosine", "mse"], default="mse")
     parser.add_argument("--prompt", type=str, default="High quality image")
-    parser.add_argument("--ip_adapter", action="store_true", help="Not ported yet (raises)")
-    parser.add_argument("--use_mask", action="store_true", help="Not ported yet (raises)")
-    parser.add_argument("--mask_path", type=str, default=None, help="Not ported yet")
+    parser.add_argument("--ip_adapter", action="store_true",
+                        help="Tap attn2's IP-Adapter keys and values (diffsim, diffsim_xl); the "
+                             "adapter tokens come from the scored images")
+    parser.add_argument("--use_mask", action="store_true",
+                        help="Weight the tapped queries by foreground masks (diffsim): from "
+                             "--mask_path when given, else the border-statistics heuristic")
+    parser.add_argument("--mask_path", type=str, default=None,
+                        help="Root of a tree mirroring --image_path with one grayscale mask "
+                             "per image (same relative path, or its stem with .png)")
     parser.add_argument("--use_text_attn", action="store_true",
                         help="Tap the text cross-attention (attn2) Q/K/V instead of the "
                              "self-attention, with the same readout")
@@ -84,8 +90,12 @@ def arg_parse(argv=None):
                         help="Comparisons per scoring call; a call that would not fit the "
                              "card's memory is split into chunks that do")
     parser.add_argument("--weights", type=str, default=None, help="Converted checkpoint (.npz)")
-    for flag in ("--ip_weights", "--matting_weights", "--sam_weights"):
-        parser.add_argument(flag, type=str, default=None, help="Not ported yet")
+    parser.add_argument("--ip_weights", type=str, default=None,
+                        help="Converted IP-Adapter .npz (convert_ip_adapter's tree); the image "
+                             "encoder stays random, as in the JAX CLI")
+    for flag in ("--matting_weights", "--sam_weights"):
+        parser.add_argument(flag, type=str, default=None,
+                            help="Not ported yet: --use_mask without --mask_path raises with it")
     parser.add_argument("--tokenizer_dir", type=str, default=None,
                         help="Dir with vocab.json + merges.txt")
     parser.add_argument("--allow_hash_tokenizer", action="store_true",

@@ -58,6 +58,7 @@ def run_benchmark(benchmark: str, argv=None, *, device=None):
     print(f"Experiment on {args.target_block}, layer {args.target_layer}, "
           f"timestep {args.target_step}:")
     adapter = build_metric(args, device)
+    mask_fn = _mask_fn(args, adapter)
     loader = ImageLoader(args.image_size, preprocess=adapter.preprocess,
                          fast_decode=args.fast_decode)
     timer = StageTimer() if args.profile else None
@@ -68,7 +69,8 @@ def run_benchmark(benchmark: str, argv=None, *, device=None):
                 comparisons, adapter.score_pairs, score_triplets=adapter.score_triplets,
                 score_triplet_paths=adapter.score_triplet_paths, prewarm=adapter.prewarm,
                 rule=rule, lower_better=adapter.lower_better, img_size=args.image_size,
-                batch=args.batch_size, out_path=args.results, loader=loader, timer=timer)
+                batch=args.batch_size, out_path=args.results, loader=loader, timer=timer,
+                mask_fn=mask_fn)
     finally:
         loader.close()
     cache = getattr(adapter.scorer, "_moment_cache", None)
@@ -77,6 +79,31 @@ def run_benchmark(benchmark: str, argv=None, *, device=None):
     if timer is not None:
         timer.report()
     return report, adapter
+
+
+def _mask_fn(args, adapter):
+    """``--use_mask``: the masks from the ``--mask_path`` tree, or made at score time by the
+    border-statistics heuristic; None without the flag or for a metric without masks."""
+    if not args.use_mask:
+        return None
+    if not adapter.wants_masks:
+        print(f"[warn] --use_mask has no effect for --metric {args.metric}")
+        return None
+    size = args.image_size
+    if args.mask_path:
+        from diffsim_tpu_torch.core.image import load_mask, mask_path_for
+
+        return lambda path: load_mask(mask_path_for(path, args.image_path, args.mask_path), size)
+    for flag in ("sam_weights", "matting_weights"):
+        if getattr(args, flag):
+            raise NotImplementedError(f"--use_mask with --{flag}: SAM and U^2-Net masks are not "
+                                      "ported to PyTorch yet (ROADMAP.md, Queue 1 item 6)")
+    from diffsim_tpu_torch.core.image import mask_from_matting
+    from diffsim_tpu_torch.metrics.ffa import heuristic_matting
+
+    print("[use_mask] generating masks with the border-statistics heuristic (pass --mask_path "
+          "for model-quality masks)")
+    return lambda path: mask_from_matting(heuristic_matting, path, size)
 
 
 def main():

@@ -12,7 +12,14 @@ parameters after the same tree paths ('/' -> '.'), with torch's leaf names:
   and SDXL's ``text2``, whose ``text_projection`` is a dense ``w`` without a bias);
 * DiT's ``pos_embed`` and ``y_embedder`` tables as they are (``dit``). Its ``patch_embed`` is a
   dense (p*p*C, hidden) over (ph, pw, C)-ordered patches in both packages, so the dense rule
-  maps it to the port's ``nn.Linear`` (``models/dit.py``).
+  maps it to the port's ``nn.Linear`` (``models/dit.py``), as it maps the CLIP vision tower's
+  ``patch_embedding`` (``clip_vision``, whose ``class_embedding`` and ``position_embedding``
+  are tables);
+* the IP-Adapter: its projection head (``ip_proj``: the Resampler with its ``latents`` table,
+  or the plain ImageProjection) and, in the ``unet`` kind, each attn2's per-adapter
+  ``ip/<i>/to_k_ip`` / ``to_v_ip``. The plain head's ``num_tokens`` leaf is configuration, not a
+  parameter: the bridge checks it against the projection's shape, leaves it out of the state and
+  writes it back in :func:`to_jax_tree`.
 
 Leaves are read as float32 (``store.as_float32``: bf16 leaves of a ``.npz`` included) and placed
 in the module's dtype.
@@ -30,11 +37,18 @@ from torch import nn
 
 from diffsim_tpu_torch.convert.store import _flatten, as_float32, unflatten
 
-KINDS = ("unet", "vae", "text", "text2", "dit")
+KINDS = ("unet", "vae", "text", "text2", "dit", "clip_vision", "ip_proj")
 # the leaves each kind keeps as they are: embedding and position tables
 _TABLES = {"text": ("token_embedding", "position_embedding"),
            "text2": ("token_embedding", "position_embedding"),
-           "dit": ("pos_embed", "y_embedder")}
+           "dit": ("pos_embed", "y_embedder"),
+           "clip_vision": ("class_embedding", "position_embedding"),
+           "ip_proj": ("latents",)}
+
+
+def _num_tokens(proj_rows: int, norm_dim: int) -> int:
+    """The plain ImageProjection's token count, from its projection's and norm's widths."""
+    return proj_rows // norm_dim
 
 
 def _convert(path: str, leaf: np.ndarray, kind: str) -> tuple[str, np.ndarray]:
@@ -54,13 +68,18 @@ def _convert(path: str, leaf: np.ndarray, kind: str) -> tuple[str, np.ndarray]:
 
 
 def from_jax_tree(tree, kind: str) -> dict[str, np.ndarray]:
-    """The JAX parameter tree of a ``kind`` model ('unet', 'vae', 'text', 'text2' or 'dit') as
-    the port's flat state: {parameter name: numpy array in the port's layout}. Every leaf is
-    consumed."""
+    """The JAX parameter tree of a ``kind`` model (one of :data:`KINDS`) as the port's flat
+    state: {parameter name: numpy array in the port's layout}. Every leaf is consumed."""
     if kind not in KINDS:
         raise ValueError(f"bridge: unknown kind {kind!r} (one of {KINDS})")
+    flat = _flatten(tree)
+    if kind == "ip_proj" and "num_tokens" in flat:
+        n = int(flat.pop("num_tokens"))
+        if n != _num_tokens(flat["proj/w"].shape[1], flat["norm/scale"].shape[0]):
+            raise ValueError(f"bridge (ip_proj): num_tokens {n} does not match the projection "
+                             f"{flat['proj/w'].shape} and norm {flat['norm/scale'].shape}")
     state = {}
-    for path, leaf in _flatten(tree).items():
+    for path, leaf in flat.items():
         key, arr = _convert(path, leaf, kind)
         if key in state:
             raise KeyError(f"bridge ({kind}): two leaves map to {key!r}")
@@ -101,4 +120,7 @@ def to_jax_tree(state, kind: str):
         else:
             raise KeyError(f"bridge ({kind}): no rule for parameter {name!r}")
         flat["/".join(prefix.split(".") + [key])] = np.ascontiguousarray(arr)
+    if kind == "ip_proj" and "proj/w" in flat:
+        flat["num_tokens"] = np.asarray(_num_tokens(flat["proj/w"].shape[1],
+                                                    flat["norm/scale"].shape[0]))
     return unflatten(flat)

@@ -7,8 +7,10 @@ families need (``convert/diffusion_import.py``, ``cli/convert.py``). Layout rule
 
 :func:`load_safetensors` reads the safetensors format itself (an 8-byte little-endian header
 length, a JSON header, then raw little-endian data), so conversion needs neither the
-``safetensors`` package nor ``ml_dtypes``. The converters of the baseline metrics' models (CLIP
-vision, DINO, VGG, LPIPS, IP-Adapter, U^2-Net, SAM) come with ROADMAP Queue 1 items 5 and 6.
+``safetensors`` package nor ``ml_dtypes``. :func:`convert_clip_vision` and
+:func:`convert_ip_adapter` convert the IP-Adapter's image encoder and adapter checkpoints; the
+converters of the baseline metrics' models (DINO, VGG, LPIPS, U^2-Net, SAM) come with ROADMAP
+Queue 1 item 6.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import json
 import numpy as np
 
 from diffsim_tpu_torch.convert.store import bf16_to_float32
+from diffsim_tpu_torch.models.ip_adapter import attn2_site_order
 
 # safetensors dtype -> numpy dtype (little-endian); BF16 is read as its float32 upcast
 _SAFETENSORS_DTYPES = {"F64": "<f8", "F32": "<f4", "F16": "<f2", "I64": "<i8", "I32": "<i4",
@@ -90,8 +93,21 @@ def _patch_conv_to_dense(w_oihw: np.ndarray) -> np.ndarray:
 def convert_clip_text(sd: dict, cfg) -> dict:
     """HF CLIPTextModel (or the text tower of CLIPModel) -> the ``text`` / ``text2`` tree."""
     pre = "text_model." if any(k.startswith("text_model.") for k in sd) else ""
+    p = {
+        "token_embedding": sd[f"{pre}embeddings.token_embedding.weight"],
+        "position_embedding": sd[f"{pre}embeddings.position_embedding.weight"],
+        "layers": _encoder_layers(sd, pre, cfg.layers),
+        "final_norm": _norm(sd, f"{pre}final_layer_norm"),
+    }
+    if "text_projection.weight" in sd:
+        p["text_projection"] = {"w": sd["text_projection.weight"].T}
+    return p
+
+
+def _encoder_layers(sd: dict, pre: str, n: int) -> list:
+    """The ``n`` HF CLIP encoder layers under ``pre`` in the JAX layout."""
     layers = []
-    for i in range(cfg.layers):
+    for i in range(n):
         base = f"{pre}encoder.layers.{i}"
         layers.append(
             {
@@ -107,12 +123,83 @@ def convert_clip_text(sd: dict, cfg) -> dict:
                 "fc2": _lin(sd, f"{base}.mlp.fc2"),
             }
         )
+    return layers
+
+
+def convert_clip_vision(sd: dict, cfg) -> dict:
+    """HF CLIPVisionModel(WithProjection) (or the vision tower of CLIPModel) -> the
+    ``clip_vision`` tree. Without a ``visual_projection`` the projection is the identity's
+    first ``projection_dim`` columns, as in the JAX converter."""
+    pre = "vision_model." if any(k.startswith("vision_model.") for k in sd) else ""
     p = {
-        "token_embedding": sd[f"{pre}embeddings.token_embedding.weight"],
+        "class_embedding": sd[f"{pre}embeddings.class_embedding"].reshape(-1),
+        "patch_embedding": {
+            "w": _patch_conv_to_dense(sd[f"{pre}embeddings.patch_embedding.weight"])},
         "position_embedding": sd[f"{pre}embeddings.position_embedding.weight"],
-        "layers": layers,
-        "final_norm": _norm(sd, f"{pre}final_layer_norm"),
+        "pre_norm": _norm(sd, f"{pre}pre_layrnorm"),  # sic: HF's attribute name
+        "layers": _encoder_layers(sd, pre, cfg.layers),
+        "post_norm": _norm(sd, f"{pre}post_layernorm"),
     }
-    if "text_projection.weight" in sd:
-        p["text_projection"] = {"w": sd["text_projection.weight"].T}
+    if "visual_projection.weight" in sd:
+        p["visual_projection"] = {"w": sd["visual_projection.weight"].T}
+    else:
+        p["visual_projection"] = {"w": np.eye(cfg.hidden, cfg.projection_dim, dtype=np.float32)}
     return p
+
+
+def convert_ip_adapter(sd: dict, unet_cfg) -> dict:
+    """A published ip-adapter(-plus) checkpoint -> {'image_proj': tree, 'ip_weights':
+    [site][adapter] {'to_k_ip', 'to_v_ip'}, 'plus': bool}. Takes the flat safetensors layout
+    ('image_proj.latents', 'ip_adapter.1.to_k_ip.weight') or a pre-split {'image_proj': {...},
+    'ip_adapter': {...}} dict. The numbered ip_adapter keys follow the published attn-processor
+    traversal, whose cross-attention processors are the odd indices 1, 3, 5, ..."""
+    if "image_proj" in sd and isinstance(sd["image_proj"], dict):
+        proj_sd = {k: np.asarray(v) for k, v in sd["image_proj"].items()}
+        ip_sd = {k: np.asarray(v) for k, v in sd["ip_adapter"].items()}
+    else:
+        proj_sd = {k[len("image_proj."):]: v for k, v in sd.items()
+                   if k.startswith("image_proj.")}
+        ip_sd = {k[len("ip_adapter."):]: v for k, v in sd.items() if k.startswith("ip_adapter.")}
+
+    plus = "latents" in proj_sd
+    if plus:
+        depth = 0
+        while f"layers.{depth}.0.to_q.weight" in proj_sd:
+            depth += 1
+        image_proj = {
+            "latents": proj_sd["latents"].reshape(proj_sd["latents"].shape[-2:]),
+            "proj_in": _lin(proj_sd, "proj_in"),
+            "proj_out": _lin(proj_sd, "proj_out"),
+            "norm_out": _norm(proj_sd, "norm_out"),
+            "layers": [
+                {
+                    "norm1": _norm(proj_sd, f"layers.{i}.0.norm1"),
+                    "norm2": _norm(proj_sd, f"layers.{i}.0.norm2"),
+                    "to_q": _lin(proj_sd, f"layers.{i}.0.to_q"),
+                    "to_kv": _lin(proj_sd, f"layers.{i}.0.to_kv"),
+                    "to_out": _lin(proj_sd, f"layers.{i}.0.to_out"),
+                    "ff_norm": _norm(proj_sd, f"layers.{i}.1.0"),
+                    "ff1": _lin(proj_sd, f"layers.{i}.1.1"),
+                    "ff2": _lin(proj_sd, f"layers.{i}.1.3"),
+                }
+                for i in range(depth)
+            ],
+        }
+    else:
+        image_proj = {
+            "proj": _lin(proj_sd, "proj"),
+            "norm": _norm(proj_sd, "norm"),
+            "num_tokens": np.asarray(proj_sd["proj.weight"].shape[0] // _infer_cross_dim(ip_sd)),
+        }
+
+    ip_weights = []
+    for s_i in range(len(attn2_site_order(unet_cfg))):
+        key = 2 * s_i + 1
+        ip_weights.append([{"to_k_ip": {"w": ip_sd[f"{key}.to_k_ip.weight"].T},
+                            "to_v_ip": {"w": ip_sd[f"{key}.to_v_ip.weight"].T}}])
+    return {"image_proj": image_proj, "ip_weights": ip_weights, "plus": plus}
+
+
+def _infer_cross_dim(ip_sd: dict) -> int:
+    first = next(k for k in ip_sd if k.endswith("to_k_ip.weight"))
+    return ip_sd[first].shape[1]

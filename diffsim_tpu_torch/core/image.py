@@ -1,5 +1,6 @@
 """Host-side image loading and preprocessing (the port's own copy of the PIL path of
-``diffsim_tpu/core/image.py``, with its threaded :class:`ImageLoader`).
+``diffsim_tpu/core/image.py``, with its threaded :class:`ImageLoader`, the CLIP normalisation
+constants and the foreground masks of ``--use_mask``).
 
 Parity-critical: images are resized with PIL lanczos and mapped to [-1, 1]. Arrays are NHWC,
 the layout of the scorers' public functions.
@@ -15,6 +16,10 @@ from typing import Sequence
 
 import numpy as np
 from PIL import Image
+
+
+CLIP_MEAN = np.array([0.48145466, 0.4578275, 0.40821073], np.float32)
+CLIP_STD = np.array([0.26862954, 0.26130258, 0.27577711], np.float32)
 
 
 def load_image(path_or_image, draft_size: int | None = None) -> Image.Image:
@@ -114,3 +119,35 @@ class ImageLoader:
 
     def close(self):
         self._pool.shutdown(wait=False)
+
+
+def load_mask(path, img_size: int) -> np.ndarray:
+    """Grayscale foreground mask -> (1, img_size, img_size) float32 in [0, 1]. Nearest-neighbour
+    resize: masks are hard label maps, and interpolation would bleed the boundary before the
+    dilation of ``metrics/readout.mask_to_latent``."""
+    img = load_image(path).convert("L")
+    img = img.resize((img_size, img_size), resample=Image.NEAREST)
+    return (np.asarray(img, np.float32) / 255.0)[None]
+
+
+def mask_from_matting(matting, path, img_size: int) -> np.ndarray:
+    """A foreground mask made at score time: the alpha channel of ``matting(PIL RGB) -> PIL
+    RGBA`` (``metrics/ffa.heuristic_matting``), resized nearest and binarised to
+    (1, img_size, img_size) float32 in {0, 1}."""
+    rgba = np.asarray(matting(load_image(path)), np.uint8)
+    alpha = Image.fromarray(rgba[..., 3], "L").resize((img_size, img_size), Image.NEAREST)
+    return (np.asarray(alpha, np.float32) > 127.5).astype(np.float32)[None]
+
+
+def mask_path_for(image_path: str, image_root: str, mask_root: str) -> str:
+    """The mask of an image: the same relative path under ``mask_root``, else the same stem
+    with a .png extension."""
+    rel = os.path.relpath(image_path, image_root)
+    cand = os.path.join(mask_root, rel)
+    if os.path.exists(cand):
+        return cand
+    alt = os.path.splitext(cand)[0] + ".png"
+    if os.path.exists(alt):
+        return alt
+    raise FileNotFoundError(f"no mask for {image_path!r} under {mask_root!r} (tried {cand!r}, "
+                            f"{alt!r})")

@@ -33,6 +33,7 @@ from diffsim_tpu_torch.metrics.scorer_base import (
     fetchable,
     moment_cache,
     pair_score,
+    per_item,
     pool_moments,
     resolve_device,
     role_noise,
@@ -120,7 +121,8 @@ class DiffSimDiT:
 
     def _taps(self, moments, eps_vae, eps_noise, spec, tap: TapSpec):
         """Moments (P, n, 2C, h, w), per-image noise (n, C, h, w) (eps_vae None => posterior
-        mean) -> q, k, v each (P, 2n, heads, S, D): every image twice, [cond, null class]."""
+        mean) -> the taps {q, k, v}, each (P, 2n, heads, S, D): every image twice, [cond, null
+        class]."""
         P, n = moments.shape[:2]
         sf = self.vae_cfg.scaling_factor
         if eps_vae is None:
@@ -132,7 +134,7 @@ class DiffSimDiT:
         y = torch.tensor([1, self.dit_cfg.num_classes], device=self.device).repeat(P * n)
         model_t = torch.tensor(spec.model_t, dtype=torch.float32, device=self.device)
         _, taps = self.dit(x_in, model_t, y, tap=tap)
-        return [t.reshape((P, 2 * n) + t.shape[1:]) for t in (taps["q"], taps["k"], taps["v"])]
+        return per_item(taps, P)
 
     def _triplet_tail(self, moments, prompts, spec, tap: TapSpec, seed: int, similarity: str):
         """Moments (T, 3, 2C, h, w) of triplets [a, b, c] -> (s_ab, s_ac): everything after the
@@ -141,10 +143,10 @@ class DiffSimDiT:
         h, w = moments.shape[-2:]
         eps_vae, eps_noise = role_noise(seed, h, w, self.vae_cfg.latent_channels, self.device)
         idx = torch.tensor([0, 1, 1], device=self.device)  # roles A, B, B
-        qkv = self._taps(moments, None if self.vae_mode else eps_vae[idx], eps_noise[idx],
-                         spec, tap)
+        taps = self._taps(moments, None if self.vae_mode else eps_vae[idx], eps_noise[idx],
+                          spec, tap)
         a, b, c = slice(0, 2), slice(2, 4), slice(4, 6)
-        return pair_score(qkv, a, b, similarity), pair_score(qkv, a, c, similarity)
+        return pair_score(taps, a, b, similarity), pair_score(taps, a, c, similarity)
 
     # ------------------------------------------------------------------
     # public API
@@ -176,8 +178,8 @@ class DiffSimDiT:
                                         noise_override)
         if self.vae_mode and noise_override is None:
             eps_vae = None
-        qkv = self._taps(moments, eps_vae, eps_noise, spec, tap)
-        return fetchable(pair_score(qkv, slice(0, 2), slice(2, 4), similarity), blocking)
+        taps = self._taps(moments, eps_vae, eps_noise, spec, tap)
+        return fetchable(pair_score(taps, slice(0, 2), slice(2, 4), similarity), blocking)
 
     @torch.inference_mode()
     def score_triplet_batch(

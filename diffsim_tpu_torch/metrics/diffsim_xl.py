@@ -17,7 +17,10 @@ each (2, h, w, 4). What differs from SD-1.5, all kept from the JAX scorer:
   TF32 (``torch.backends.cudnn.allow_tf32``), matrix products in full float32. At 1024 px its
   mid attention runs K4 (``ops/kernels/attention_stream.py``);
 * 3-index taps [block, attention, transformer] (:func:`sdxl_tap`); every SDXL tap has at least
-  1024 tokens at head dim 64, so the readout runs K3 (``ops/kernels/readout.py``).
+  1024 tokens at head dim 64, so the readout runs K3 (``ops/kernels/readout.py``);
+* ``score_batch(ip_adapter=True)`` taps attn2's IP-Adapter keys and values
+  (ip-adapter-plus_sdxl_vit-h by default), the adapter tokens made from the scored images at
+  the scoring resolution. Its 16 image keys are not square, so the readout takes the math path.
 
 Scoring runs on ``cuda`` unless ``device`` is given; without a CUDA device and without a
 ``device`` the constructor raises. Default dtype bf16, as in the JAX scorer.
@@ -34,10 +37,12 @@ from diffsim_tpu_torch.core import schedulers
 from diffsim_tpu_torch.core.image import load_and_process
 from diffsim_tpu_torch.core.tokenizer import HashTokenizer
 from diffsim_tpu_torch.metrics.scorer_base import (
+    IPAdapterMixin,
     build_module,
     fetchable,
     moment_cache,
     pair_score,
+    per_item,
     pool_moments,
     resolve_device,
     role_noise,
@@ -46,39 +51,36 @@ from diffsim_tpu_torch.metrics.scorer_base import (
     to_device_pixels,
 )
 from diffsim_tpu_torch.models.clip_text import CLIPText, CLIPTextConfig
+from diffsim_tpu_torch.models.ip_adapter import ResamplerConfig
 from diffsim_tpu_torch.models.unet import UNet, UNetConfig
 from diffsim_tpu_torch.models.vae import Encoder, VAEConfig, encode_chunked, sample_latents
-from diffsim_tpu_torch.ops.taps import QKV, TapSpec
+from diffsim_tpu_torch.ops.taps import IP_QKV, QKV, TapSpec
 
 KINDS = ("unet", "vae", "text", "text2")
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to the PyTorch scorer yet "
-                               "(ROADMAP.md, Queue 1)")
 
 
 def sdxl_tap(target_block: str, target_layer, ip_adapter: bool = False) -> TapSpec:
     """[block, attention, transformer] -> an absolute TapSpec (``diffsim_tpu`` ``sdxl_tap``):
     down_blocks[1:][b] is absolute down block b + 1, up_blocks[:-1][b] absolute up block b, and
-    mid takes [attention, transformer] only."""
-    if ip_adapter:
-        raise _not_ported("IP-Adapter")
+    mid takes [attention, transformer] only. ``ip_adapter`` taps attn2's IP-Adapter keys and
+    values (IP_QKV)."""
     tl = list(target_layer) if isinstance(target_layer, (list, tuple)) else [target_layer]
+    attn = "attn2" if ip_adapter else "attn1"
+    capture = IP_QKV if ip_adapter else QKV
     if target_block == "mid_blocks":
         a, t = (tl + [0, 0])[:2]
-        return TapSpec("mid", (0, int(a), int(t)), "attn1", QKV)
+        return TapSpec("mid", (0, int(a), int(t)), attn, capture)
     if len(tl) != 3:
         raise ValueError("SDXL down/up taps take 3 indices: block, attention, transformer")
     b, a, t = (int(x) for x in tl)
     if target_block == "down_blocks":
-        return TapSpec("down", (b + 1, a, t), "attn1", QKV)
+        return TapSpec("down", (b + 1, a, t), attn, capture)
     if target_block == "up_blocks":
-        return TapSpec("up", (b, a, t), "attn1", QKV)
+        return TapSpec("up", (b, a, t), attn, capture)
     raise ValueError(f"unknown target_block: {target_block}")
 
 
-class DiffSimXL:
+class DiffSimXL(IPAdapterMixin):
     """Batched SDXL DiffSim. ``params`` is the JAX package's parameter tree
     {'unet', 'vae' (encoder), 'text', 'text2'} as numpy arrays, bridged strictly; if None, the
     weights are random, drawn on the device from ``torch.Generator`` seeded with ``init_seed``
@@ -144,6 +146,9 @@ class DiffSimXL:
                                   self.device, dtype, gen)
         self._prompt_cache: dict[str, tuple[torch.Tensor, torch.Tensor]] = {}
 
+    def _default_resampler_cfg(self) -> ResamplerConfig:
+        return ResamplerConfig.sdxl_plus()
+
     # ------------------------------------------------------------------
     # conditioning
     # ------------------------------------------------------------------
@@ -191,13 +196,17 @@ class DiffSimXL:
     def _encode(self, roles) -> torch.Tensor:
         """n NHWC role arrays of P images -> moments (P, n, 2C, h, w) pair-major, encoded in
         the VAE's dtype in slices of the default chunk."""
-        moments = encode_chunked(self.vae, to_device_pixels(roles, self.device, self.enc_dtype))
-        n, P = len(roles), roles[0].shape[0]
-        return moments.reshape((n, P) + moments.shape[1:]).transpose(0, 1)
+        return self._moments(to_device_pixels(roles, self.device, self.enc_dtype), len(roles))
 
-    def _taps(self, moments, embeds, pooled, eps_vae, eps_noise, spec, tap: TapSpec):
+    def _moments(self, pix: torch.Tensor, n: int) -> torch.Tensor:
+        """Role-major device pixels (n * P, 3, H, W) -> moments (P, n, 2C, h, w)."""
+        moments = encode_chunked(self.vae, pix)
+        return moments.reshape((n, pix.shape[0] // n) + moments.shape[1:]).transpose(0, 1)
+
+    def _taps(self, moments, embeds, pooled, eps_vae, eps_noise, spec, tap: TapSpec, ip=None):
         """Moments (P, n, 2C, h, w), per-image noise (n, C, h, w) (eps_vae None => posterior
-        mean) -> q, k, v each (P, n * per_img, heads, S, D), and per_img."""
+        mean) -> the tap's tensors, each (P, n * per_img, ...), and per_img. ``ip``: the UNet's
+        IP-Adapter arguments (``IPAdapterMixin._ip_args``)."""
         P, n = moments.shape[:2]
         sf = self.vae_cfg.scaling_factor
         if eps_vae is None:
@@ -222,10 +231,8 @@ class DiffSimXL:
         added = {"text_embeds": pool.to(self.dtype),
                  "time_ids": time_ids[None].expand(x_in.shape[0], -1)}
         model_t = torch.tensor(spec.model_t, dtype=torch.float32, device=self.device)
-        _, taps = self.unet(x_in, model_t, ctx, tap=tap, added_cond=added)
-        nb = n * per_img
-        qkv = [t.reshape((P, nb) + t.shape[1:]) for t in (taps["q"], taps["k"], taps["v"])]
-        return qkv, per_img
+        _, taps = self.unet(x_in, model_t, ctx, tap=tap, added_cond=added, **(ip or {}))
+        return per_item(taps, P), per_img
 
     def _triplet_tail(self, moments, prompts, spec, tap: TapSpec, seed: int, similarity: str):
         """Moments (T, 3, 2C, h, w) of triplets [a, b, c] -> (s_ab, s_ac): everything after the
@@ -234,11 +241,11 @@ class DiffSimXL:
         h, w = moments.shape[-2:]
         eps_vae, eps_noise = role_noise(seed, h, w, self.vae_cfg.latent_channels, self.device)
         idx = torch.tensor([0, 1, 1], device=self.device)  # roles A, B, B
-        qkv, per_img = self._taps(moments, *self._embeds(prompts),
-                                  None if self.vae_mode else eps_vae[idx], eps_noise[idx],
-                                  spec, tap)
+        taps, per_img = self._taps(moments, *self._embeds(prompts),
+                                   None if self.vae_mode else eps_vae[idx], eps_noise[idx],
+                                   spec, tap)
         a, b, c = (slice(j * per_img, (j + 1) * per_img) for j in range(3))
-        return pair_score(qkv, a, b, similarity), pair_score(qkv, a, c, similarity)
+        return pair_score(taps, a, b, similarity), pair_score(taps, a, c, similarity)
 
     # ------------------------------------------------------------------
     # public API
@@ -263,21 +270,27 @@ class DiffSimXL:
         """Score P pairs; pix_a/pix_b (P, H, W, 3). ``prompt`` is one string or P strings.
         ``blocking=False`` returns a zero-arg callable that fetches the (P,) scores.
         ``noise_override``: (eps_vae, eps_noise), each (2, h, w, latent_c), replacing the
-        seed-derived draws (the cross-framework parity mode)."""
+        seed-derived draws (the cross-framework parity mode). ``ip_adapter`` taps attn2's
+        IP-Adapter keys and values (attaching random weights if no adapter is)."""
         tap = sdxl_tap(target_block, target_layer, ip_adapter)
         P = pix_a.shape[0]
         prompts = [prompt] * P if isinstance(prompt, str) else list(prompt)
         if len(prompts) != P:
             raise ValueError(f"{len(prompts)} prompts for {P} pairs")
-        moments = self._encode([pix_a, pix_b])
+        pix = to_device_pixels([pix_a, pix_b], self.device, self.enc_dtype)
+        moments = self._moments(pix, 2)
         h, w = moments.shape[-2:]
         eps_vae, eps_noise = role_noise(seed, h, w, self.vae_cfg.latent_channels, self.device,
                                         noise_override)
         if self.vae_mode and noise_override is None:
             eps_vae = None
-        qkv, per_img = self._taps(moments, *self._embeds(prompts), eps_vae, eps_noise,
-                                  schedulers.sdxl_noise_spec(int(target_step)), tap)
-        scores = pair_score(qkv, slice(0, per_img), slice(per_img, 2 * per_img), similarity)
+        ip = None
+        if ip_adapter:
+            self._auto_enable_ip()
+            ip = self._ip_args(pix, P)
+        taps, per_img = self._taps(moments, *self._embeds(prompts), eps_vae, eps_noise,
+                                   schedulers.sdxl_noise_spec(int(target_step)), tap, ip)
+        scores = pair_score(taps, slice(0, per_img), slice(per_img, 2 * per_img), similarity)
         return fetchable(scores, blocking)
 
     @torch.inference_mode()
@@ -353,10 +366,3 @@ class DiffSimXL:
             pa, pb, prompt=prompt, target_block=target_block, target_layer=target_layer,
             target_step=target_step, similarity=similarity, seed=seed, ip_adapter=ip_adapter,
         )[0])
-
-    # ------------------------------------------------------------------
-    # entry points of the JAX scorer that later slices port
-    # ------------------------------------------------------------------
-
-    def enable_ip_adapter(self, *args, **kwargs):
-        raise _not_ported("IP-Adapter")

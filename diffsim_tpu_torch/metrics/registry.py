@@ -1,9 +1,10 @@
 """Metric registry of the port: the ``--metric`` CLI surface mapped to scorer adapters
 (counterpart of ``diffsim_tpu/metrics/registry.py``).
 
-The port has the ``diffsim`` (SD-1.5), ``diffsim_xl`` (SDXL) and ``dit`` (DiT-XL/2) branches.
-Every other metric, and the options that need an unported module (``--ip_adapter``,
-``--use_mask``), raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+The port has the ``diffsim`` (SD-1.5, with ``--ip_adapter`` and ``--use_mask``), ``diffeats``
+(SD-1.5's attn1 output features), ``diffsim_xl`` (SDXL, with ``--ip_adapter``) and ``dit``
+(DiT-XL/2) branches. Every other metric raises ``NotImplementedError`` naming the ROADMAP item
+that ports it.
 """
 
 from __future__ import annotations
@@ -16,13 +17,10 @@ import numpy as np
 import torch
 
 # metric -> the ROADMAP item (Queue 1) that ports it
-NOT_PORTED = {
-    "diffeats": "item 4 (score_feats_batch, the OUTPUT taps)",
-    **dict.fromkeys(("clip_i", "clip_cross", "clipfeats", "dino", "dinov1", "dino_cross",
-                     "dinofeats", "cute", "lpips", "gram", "ensemble"),
-                    "item 6 (the baseline metrics)"),
-}
-PORTED = ("diffsim", "diffsim_xl", "dit")
+NOT_PORTED = dict.fromkeys(("clip_i", "clip_cross", "clipfeats", "dino", "dinov1", "dino_cross",
+                            "dinofeats", "cute", "lpips", "gram", "ensemble"),
+                           "item 6 (the baseline metrics)")
+PORTED = ("diffsim", "diffeats", "diffsim_xl", "dit")
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -35,6 +33,9 @@ class MetricAdapter:
     """``score_pairs(pix_a (N, H, W, C), pix_b, prompts, blocking=True) -> (N,) scores``; with
     ``blocking=False`` it returns a zero-argument fetch, so the runner overlaps the next batch's
     host work with this batch's device work.
+
+    With ``wants_masks`` (``--use_mask`` on the SD-1.5 diffsim metric) ``score_pairs`` also takes
+    ``mask_a`` / ``mask_b``, (N, H, W) foreground masks.
 
     ``score_triplets(pix_a, pix_b, pix_c, prompts, blocking=...) -> (s_ab, s_ac)`` is the
     fused 2AFC path (image A's work shared by both pairs). ``score_triplet_paths(paths_a,
@@ -49,6 +50,7 @@ class MetricAdapter:
     score_triplet_paths: Callable | None = None
     prewarm: Callable | None = None
     scorer: object = None  # the scorer behind the adapter (its moment cache's stats)
+    wants_masks: bool = False  # --use_mask: score_pairs takes mask_a= / mask_b=
 
 
 def _make_prewarm(scorer):
@@ -92,6 +94,27 @@ def _require_tokenizer(args):
             "merges.txt), or --allow_hash_tokenizer to override for throughput runs.")
 
 
+def _attach_ip(scorer, args, tiny: bool) -> None:
+    """Attach the IP-Adapter as the CLI flags ask, at the reference's scale 0.5: the converted
+    ``--ip_weights`` tree, else random weights. As in the JAX CLI, the image encoder is random
+    either way (the converted tree holds no encoder). Tiny mode takes the tiny encoder and a
+    tiny Resampler of the scorer's cross dim."""
+    kw = {}
+    if tiny:
+        from diffsim_tpu_torch.models.clip_vision import CLIPVisionConfig
+        from diffsim_tpu_torch.models.ip_adapter import ResamplerConfig
+
+        kw = dict(encoder_cfg=CLIPVisionConfig.tiny(),
+                  resampler_cfg=dataclasses.replace(
+                      ResamplerConfig.tiny(), output_dim=scorer.unet_cfg.cross_attention_dim))
+    converted = None
+    if getattr(args, "ip_weights", None):
+        from diffsim_tpu_torch.convert.store import load_params
+
+        converted = load_params(args.ip_weights)
+    scorer.enable_ip_adapter(converted, scale=0.5, **kw)
+
+
 def _tiny_configs(name: str, image_size: int = 32) -> dict:
     """The toy configs of ``--model_scale tiny`` (CPU tests), in float32; the tiny DiT's latent
     grid follows ``image_size`` (the tiny VAE downsamples by 2)."""
@@ -105,7 +128,7 @@ def _tiny_configs(name: str, image_size: int = 32) -> dict:
         return dict(dit_cfg=DiTConfig.tiny(input_size=image_size // 2, num_classes=1000),
                     vae_cfg=VAEConfig.tiny(), dtype=torch.float32)
     kw = dict(vae_cfg=VAEConfig.tiny(), text_cfg=CLIPTextConfig.tiny(), dtype=torch.float32)
-    if name == "diffsim":
+    if name in ("diffsim", "diffeats"):
         return dict(unet_cfg=UNetConfig.tiny(), **kw)
     return dict(unet_cfg=UNetConfig.tiny_xl(cross_attention_dim=64),
                 text2_cfg=CLIPTextConfig(vocab_size=1000, hidden=32, layers=2, heads=2,
@@ -121,35 +144,33 @@ def build_metric(args, device=None) -> MetricAdapter:
         raise _not_ported(f"--metric {name}", NOT_PORTED[name])
     if name not in PORTED:
         raise ValueError(f"unknown metric: {name}")
-    if getattr(args, "ip_adapter", False):
-        raise _not_ported("--ip_adapter", "item 5 (IP-Adapter)")
-    if getattr(args, "use_mask", False):
-        raise _not_ported("--use_mask", "item 4 (mask-weighted queries)")
     similarity = args.similarity
     lower = similarity == "mse"
     tokenizer = None
     if name != "dit":  # DiT is class-conditioned: no prompt to tokenize
         _require_tokenizer(args)
         tokenizer = _load_tokenizer(getattr(args, "tokenizer_dir", None))
-    kw = (_tiny_configs(name, args.image_size)
-          if getattr(args, "model_scale", "full") == "tiny" else {})
+    tiny = getattr(args, "model_scale", "full") == "tiny"
+    kw = _tiny_configs(name, args.image_size) if tiny else {}
     params = _load_params(getattr(args, "weights", None))
     target = dict(target_block=args.target_block, target_layer=args.target_layer,
                   target_step=args.target_step, similarity=similarity, seed=args.seed)
 
+    ip_adapter = bool(getattr(args, "ip_adapter", False)) and name in ("diffsim", "diffsim_xl")
     if name == "dit":
         from diffsim_tpu_torch.metrics.diffsim_dit import DiffSimDiT
 
         # the scorer ignores the prompts and target_block, as the JAX scorer does
         scorer = DiffSimDiT(params, img_size=args.image_size, device=device, **kw)
-    elif name == "diffsim":
+    elif name in ("diffsim", "diffeats"):
         from diffsim_tpu_torch.metrics.diffsim_sd15 import DiffSimSD15
 
         scorer = DiffSimSD15(params, img_size=args.image_size, device=device,
                              cfg_parity=getattr(args, "cfg_parity", True),
                              fast_softmax=getattr(args, "bf16_softmax", False),
                              tokenizer=tokenizer, **kw)
-        target["text_attn"] = bool(getattr(args, "use_text_attn", False))
+        if name == "diffsim":
+            target["text_attn"] = bool(getattr(args, "use_text_attn", False))
     else:
         from diffsim_tpu_torch.metrics.diffsim_xl import DiffSimXL
 
@@ -157,11 +178,32 @@ def build_metric(args, device=None) -> MetricAdapter:
                            cfg_parity=getattr(args, "cfg_parity", True),
                            vae_fp32=not getattr(args, "xl_vae_bf16", False),
                            tokenizer=tokenizer, **kw)
+    if ip_adapter:
+        _attach_ip(scorer, args, tiny)
     if getattr(args, "moment_cache_mb", None):
         scorer.moment_cache_mb = args.moment_cache_mb
 
-    def score_pairs(pa, pb, prompts, blocking=True):
-        return scorer.score_batch(pa, pb, prompt=prompts, blocking=blocking, **target)
+    from diffsim_tpu_torch.core.image import process_image_u8
+
+    def preprocess(img):
+        return process_image_u8(img, args.image_size)
+
+    if name == "diffeats":
+        def score_feats(pa, pb, prompts, blocking=True):
+            return scorer.score_feats_batch(pa, pb, prompt=prompts, blocking=blocking, **target)
+
+        return MetricAdapter(score_feats, lower, preprocess=preprocess, scorer=scorer)
+
+    pair_kw = {"ip_adapter": True} if ip_adapter else {}
+    wants_masks = name == "diffsim" and bool(getattr(args, "use_mask", False))
+
+    def score_pairs(pa, pb, prompts, blocking=True, **masks):
+        return scorer.score_batch(pa, pb, prompt=prompts, blocking=blocking, **target,
+                                  **pair_kw, **masks)
+
+    if ip_adapter:  # the triplet paths have no IP-Adapter taps
+        return MetricAdapter(score_pairs, lower, preprocess=preprocess, scorer=scorer,
+                             wants_masks=wants_masks)
 
     def score_triplets(pa, pb, pc, prompts, blocking=True):
         return scorer.score_triplet_batch(pa, pb, pc, prompt=prompts, blocking=blocking,
@@ -177,9 +219,6 @@ def build_metric(args, device=None) -> MetricAdapter:
 
         prewarm = _make_prewarm(scorer)
 
-    from diffsim_tpu_torch.core.image import process_image_u8
-
-    return MetricAdapter(score_pairs, lower,
-                         preprocess=lambda img: process_image_u8(img, args.image_size),
+    return MetricAdapter(score_pairs, lower, preprocess=preprocess,
                          score_triplets=score_triplets, score_triplet_paths=score_triplet_paths,
-                         prewarm=prewarm, scorer=scorer)
+                         prewarm=prewarm, scorer=scorer, wants_masks=wants_masks)

@@ -1,8 +1,12 @@
 """Shared machinery of the port's scorers: device choice, parameter placement and random
-init, and the asynchronous fetch contract of ``diffsim_tpu/metrics/scorer_base.py``."""
+init, the asynchronous fetch contract of ``diffsim_tpu/metrics/scorer_base.py``, the readout of
+each tap kind, and the IP-Adapter attachment of the SD-1.5 and SDXL scorers
+(:class:`IPAdapterMixin`)."""
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 from typing import Callable
 
 import numpy as np
@@ -11,8 +15,17 @@ from torch import nn
 
 from diffsim_tpu_torch.convert import bridge
 from diffsim_tpu_torch.core import prng
-from diffsim_tpu_torch.core.image import load_and_process_u8
+from diffsim_tpu_torch.core.image import CLIP_MEAN, CLIP_STD, load_and_process_u8
 from diffsim_tpu_torch.metrics import readout
+from diffsim_tpu_torch.models.clip_vision import CLIPVision, CLIPVisionConfig
+from diffsim_tpu_torch.models.ip_adapter import (
+    ImageProjection,
+    Resampler,
+    ResamplerConfig,
+    attn2_modules,
+    insert_ip_into_unet,
+)
+from diffsim_tpu_torch.ops.blocks import IPProjection
 from diffsim_tpu_torch.runtime.device_cache import (
     ensure_image_slots,
     make_moment_cache,
@@ -105,11 +118,38 @@ def role_noise(seed: int, h: int, w: int, channels: int, device: torch.device,
             torch.stack([noise_a, noise_b]).permute(0, 3, 1, 2))
 
 
-def pair_score(qkv, sl_a: slice, sl_b: slice, similarity: str) -> torch.Tensor:
-    """(P,) scores between the images at rows ``sl_a`` and ``sl_b`` of taps (P, rows, ...)."""
-    q, k, v = qkv
-    return readout.cross_attention_score(q[:, sl_a], k[:, sl_a], v[:, sl_a],
-                                         q[:, sl_b], k[:, sl_b], v[:, sl_b], similarity)
+def per_item(taps: dict, P: int) -> dict:
+    """The UNet's taps (rows, ...) as (P, rows / P, ...); list-valued taps (the IP-Adapter's
+    per-adapter K/V) element by element."""
+    def split(t):
+        return t.reshape((P, t.shape[0] // P) + t.shape[1:])
+
+    return {k: [split(t) for t in v] if isinstance(v, list) else split(v)
+            for k, v in taps.items()}
+
+
+def pair_score(taps: dict, sl_a: slice, sl_b: slice, similarity: str,
+               mask_weights: torch.Tensor | None = None) -> torch.Tensor:
+    """(P,) scores between the images at rows ``sl_a`` and ``sl_b`` of taps (P, rows, ...), by
+    the readout of the tap's kind: the IP-Adapter readout of IP_QKV taps, the ``diffeats``
+    readout (min-max normalised) of OUTPUT taps, the cross-image attention readout of QKV taps.
+    ``mask_weights`` (P, 2, S) weights the QKV taps' queries of A and B per token."""
+    if "ip_k" in taps:
+        q, ks, vs = taps["q"], taps["ip_k"], taps["ip_v"]
+        return readout.cross_attention_score_ip(
+            q[:, sl_a], [k[:, sl_a] for k in ks], [v[:, sl_a] for v in vs],
+            q[:, sl_b], [k[:, sl_b] for k in ks], [v[:, sl_b] for v in vs], similarity)
+    if "out" in taps:
+        out = taps["out"]
+        return readout.feature_score(out[:, sl_a], out[:, sl_b], similarity,
+                                     minmax_normalize=True)
+    q, k, v = taps["q"], taps["k"], taps["v"]
+    qa, qb = q[:, sl_a], q[:, sl_b]
+    if mask_weights is not None:
+        qa = qa * mask_weights[:, 0, None, None, :, None].to(qa.dtype)
+        qb = qb * mask_weights[:, 1, None, None, :, None].to(qb.dtype)
+    return readout.cross_attention_score(qa, k[:, sl_a], v[:, sl_a], qb, k[:, sl_b],
+                                         v[:, sl_b], similarity)
 
 
 def triplet_scores(scorer, moments_of: Callable, prompts, spec, tap, seed: int, similarity: str,
@@ -156,3 +196,119 @@ def triplet_prompts(prompt, n: int, *lengths) -> list:
     if len(prompts) != n or any(m != n for m in lengths):
         raise ValueError(f"{n} triplets with {len(prompts)} prompts and role lengths {lengths}")
     return prompts
+
+
+class IPAdapterMixin:
+    """The IP-Adapter attachment of the SD-1.5 and SDXL scorers (``diffsim_tpu``
+    ``ScorerBase.enable_ip_adapter`` and its helpers). The scorer provides ``device``,
+    ``dtype``, ``unet``, ``unet_cfg`` and ``_default_resampler_cfg()``. The image encoder and
+    the projection head become the scorer's ``ip_encoder`` and ``ip_proj`` modules, on its
+    device in its dtype, so the device-memory guard counts them."""
+
+    _ip = None  # set by enable_ip_adapter
+    ip_encoder: nn.Module | None = None
+    ip_proj: nn.Module | None = None
+
+    def _default_resampler_cfg(self) -> ResamplerConfig:
+        raise NotImplementedError  # per backbone: sd15_plus / sdxl_plus
+
+    @torch.no_grad()
+    def enable_ip_adapter(self, converted=None, *, scale: float = 0.5, encoder_params=None,
+                          encoder_cfg: CLIPVisionConfig | None = None,
+                          resampler_cfg: ResamplerConfig | None = None, plus: bool = True,
+                          init_seed: int = 1):
+        """Attach IP-Adapter projections to every attn2 (the reference's load_ip_adapter and
+        set_ip_adapter_scale(0.5)). ``converted`` is ``convert_ip_adapter``'s tree (numpy),
+        ``encoder_params`` a ``convert_clip_vision`` tree of ``encoder_cfg`` (CLIP ViT-H/14 by
+        default); each one None draws random weights on the device from ``init_seed``."""
+        encoder_cfg = encoder_cfg or CLIPVisionConfig.h14()
+        cross_dim = self.unet_cfg.cross_attention_dim
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(int(init_seed))
+        proj = None
+        ip_weights = [[None]] * len(attn2_modules(self.unet))
+        if converted is not None:
+            plus = bool(converted["plus"])
+            ip_weights, proj = converted["ip_weights"], converted["image_proj"]
+            if plus and resampler_cfg is None:
+                lat = np.shape(proj["latents"])
+                heads = np.shape(proj["layers"][0]["to_q"]["w"])[1] // 64
+                resampler_cfg = ResamplerConfig(
+                    dim=lat[-1], depth=len(proj["layers"]), dim_head=64, heads=heads,
+                    num_queries=lat[-2], embedding_dim=np.shape(proj["proj_in"]["w"])[0],
+                    output_dim=np.shape(proj["proj_out"]["w"])[1])
+        elif resampler_cfg is None:
+            # random weights must give tokens of this UNet's cross dim, whatever its config
+            resampler_cfg = dataclasses.replace(self._default_resampler_cfg(),
+                                                output_dim=cross_dim)
+        if plus:
+            head = functools.partial(Resampler, resampler_cfg)
+        elif proj is not None:
+            rows, cols = np.shape(proj["proj"]["w"])
+            n = cols // np.shape(proj["norm"]["scale"])[0]
+            head = functools.partial(ImageProjection, rows, cols // n, n)
+        else:
+            head = functools.partial(ImageProjection, encoder_cfg.projection_dim, cross_dim)
+
+        def build(factory, tree, kind):
+            return build_module(factory, tree, kind, self.device, self.dtype, gen)
+
+        self.ip_encoder = build(functools.partial(CLIPVision, encoder_cfg), encoder_params,
+                                "clip_vision")
+        self.ip_proj = build(head, proj, "ip_proj")
+        insert_ip_into_unet(self.unet, [
+            [build(lambda: IPProjection(attn.to_k.in_features, attn.to_q.out_features), w,
+                   "unet") for w in site]
+            for attn, site in zip(attn2_modules(self.unet), ip_weights)])
+        self._ip = {"scale": scale, "plus": plus, "encoder_cfg": encoder_cfg,
+                    "resampler_cfg": resampler_cfg}
+        # the uncond tokens: zeros in CLIP-normalised space (diffusers' encode_image zeroes the
+        # preprocessed pixel_values, not the image), computed once
+        size = encoder_cfg.image_size
+        zero = torch.zeros((1, 3, size, size), dtype=self.dtype, device=self.device)
+        self._ip_uncond = self._ip_tokens(zero)
+
+    def _auto_enable_ip(self):
+        """Called by the score paths when ip_adapter=True and nothing is attached: random
+        weights keep throughput and test runs working, but the scores are meaningless; say so."""
+        if self._ip is None:
+            print("[ip_adapter] no adapter attached: enabling RANDOM weights; scores are "
+                  "meaningless. Call enable_ip_adapter(converted) with convert_ip_adapter's "
+                  "output for real IP-Adapter scoring.")
+            self.enable_ip_adapter()
+
+    def _ip_tokens(self, x: torch.Tensor) -> torch.Tensor:
+        """CLIP-normalised pixels (B, 3, S, S) in the scorer's dtype -> adapter tokens."""
+        if self._ip["plus"]:
+            return self.ip_proj(self.ip_encoder.penultimate(x))
+        return self.ip_proj(self.ip_encoder(x)["image_embeds"])
+
+    def _ip_embed(self, pix: torch.Tensor) -> torch.Tensor:
+        """[-1, 1] pixels (B, 3, H, W) at the scoring resolution -> adapter tokens (B, T, D).
+        The reference feeds the original image through CLIPImageProcessor; the scorers resize
+        the scoring-resolution pixels on the device (``readout.resize_bilinear``, as the JAX
+        package does: its documented divergence)."""
+        x = readout.resize_bilinear(pix, self._ip["encoder_cfg"].image_size)
+        mean, std = (torch.as_tensor(c, device=x.device)[None, :, None, None]
+                     for c in (CLIP_MEAN, CLIP_STD))
+        return self._ip_tokens((((x + 1.0) / 2.0 - mean) / std).to(self.dtype))
+
+    def _ip_args(self, pix: torch.Tensor, P: int) -> dict:
+        """The UNet's IP arguments for the role-major pixels (2P, 3, H, W) of P pairs, placed
+        where the CFG interleave puts each image's rows."""
+        cond = self._ip_embed(pix)
+        cond = cond.reshape((2, P) + cond.shape[1:]).transpose(0, 1)
+        return {"ip_embeds": [self._interleave_ip_embeds(cond, self._ip_uncond, self.cfg_parity,
+                                                         self.dtype)],
+                "ip_scale": [self._ip["scale"]]}
+
+    @staticmethod
+    def _interleave_ip_embeds(cond, ip_uncond, cfg_parity: bool, dtype):
+        """(P, n_img, T, D) per-image cond tokens -> the UNet batch's ip_embeds, matching the
+        CFG interleave of the latents and the text context: per image [uncond, cond] with
+        ``cfg_parity`` ([a_u, a_c, b_u, b_c, ...]), else the cond tokens alone."""
+        P, n_img, t_tok, d_tok = cond.shape
+        if cfg_parity:
+            inter = torch.stack([ip_uncond.expand(cond.shape).to(cond.dtype), cond], dim=2)
+            return inter.reshape(P * n_img * 2, t_tok, d_tok).to(dtype)
+        return cond.reshape(P * n_img, t_tok, d_tok).to(dtype)

@@ -7,8 +7,12 @@ exactly as the JAX ``_site_tap`` does.
 
 The JAX scorer relies on XLA's dead-code elimination to stop the UNet after the tap site. Eager
 PyTorch has none, so with a tap and ``stop_at_tap=True`` (the default) the forward returns
-``(None, taps)`` as soon as the tap site has produced its tensors: with QKV capture it does not
-run the tap site's own attention or anything after it.
+``(None, taps)`` as soon as the tap site has produced its tensors: with QKV or IP_QKV capture it
+does not run the tap site's own attention or anything after it; with OUTPUT capture it stops
+after the tap site's out-projection.
+
+``ip_embeds`` (a list of per-adapter image tokens, (B, T, cross_dim) each) and ``ip_scale``
+reach every attn2 that has IP-Adapter projections (``models/ip_adapter.py``).
 """
 
 from __future__ import annotations
@@ -193,7 +197,7 @@ class UNet(nn.Module):
         self.conv_out = conv3x3(chans[0], cfg.out_channels)
 
     def forward(self, x, t, context, *, tap: TapSpec | None = None, stop_at_tap: bool = True,
-                added_cond: dict | None = None):
+                added_cond: dict | None = None, ip_embeds=None, ip_scale=None):
         """x: (B, C, H, W) noisy latents; t: scalar or (B,) timestep tensor; context:
         (B, 77, cdim) text embeddings; ``added_cond`` for SDXL: {'text_embeds': (B, 1280),
         'time_ids': (B, 6)}. Returns ``(eps_pred, taps)``; ``eps_pred`` is None when the forward
@@ -211,6 +215,7 @@ class UNet(nn.Module):
                              tproj.reshape(time_ids.shape[0], -1).to(x.dtype)], dim=-1)
             emb = emb + self.add_embedding(add.to(x.dtype))
 
+        ip = dict(ip_embeds=ip_embeds, ip_scale=ip_scale)
         taps: dict = {}
         h = self.conv_in(x)
         skips = [h]
@@ -220,7 +225,7 @@ class UNet(nn.Module):
                 h = rn(h, emb)
                 if len(blk.attentions):
                     site = site_tap(tap, "down", i, j, n_attn)
-                    h, tp = blk.attentions[j](h, context, tap=site, stop=stop)
+                    h, tp = blk.attentions[j](h, context, tap=site, stop=stop, **ip)
                     taps.update(tp)
                     if tp and stop:
                         return None, taps
@@ -231,7 +236,7 @@ class UNet(nn.Module):
 
         h = self.mid.resnet1(h, emb)
         site = site_tap(tap, "mid", 0, 0, len(self.mid.attentions))
-        h, tp = self.mid.attentions[0](h, context, tap=site, stop=stop)
+        h, tp = self.mid.attentions[0](h, context, tap=site, stop=stop, **ip)
         taps.update(tp)
         if tp and stop:
             return None, taps
@@ -243,7 +248,7 @@ class UNet(nn.Module):
                 h = rn(torch.cat([h, skips.pop()], dim=1), emb)
                 if len(blk.attentions):
                     site = site_tap(tap, "up", i, j, n_attn)
-                    h, tp = blk.attentions[j](h, context, tap=site, stop=stop)
+                    h, tp = blk.attentions[j](h, context, tap=site, stop=stop, **ip)
                     taps.update(tp)
                     if tp and stop:
                         return None, taps

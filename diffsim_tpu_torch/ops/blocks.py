@@ -20,7 +20,7 @@ from torch import nn
 from diffsim_tpu_torch.ops.attention import merge_heads, sdpa, split_heads
 from diffsim_tpu_torch.ops.kernels import routes
 from diffsim_tpu_torch.ops.kernels.ff import fused_geglu_ff
-from diffsim_tpu_torch.ops.taps import QKV
+from diffsim_tpu_torch.ops.taps import IP_QKV, OUTPUT, QKV
 
 # ---------------------------------------------------------------------------
 # elementary layers
@@ -141,12 +141,26 @@ class TimeMLP(nn.Module):
 # ---------------------------------------------------------------------------
 
 
+class IPProjection(nn.Module):
+    """One IP-Adapter's image key and value projections at one attn2 site."""
+
+    def __init__(self, cross_dim: int, dim: int):
+        super().__init__()
+        self.to_k_ip = nn.Linear(cross_dim, dim, bias=False)
+        self.to_v_ip = nn.Linear(cross_dim, dim, bias=False)
+
+
 class Attention(nn.Module):
     """Multi-head attention; ``forward`` returns ``(out, taps)``.
 
-    ``capture`` is None or taps.QKV. With QKV and ``stop`` the module returns
-    ``(None, {'q','k','v'})`` right after the projections: the scorer needs nothing after the
-    tap site. The OUTPUT and IP_QKV captures are not ported yet (ROADMAP.md, Queue 1)."""
+    ``capture`` is None or one of taps.QKV / OUTPUT / IP_QKV. With ``stop`` the module returns
+    ``(None, taps)`` as soon as its capture is complete: after the projections for QKV, after
+    the adapters' projections for IP_QKV; OUTPUT captures the post-out-proj hidden state.
+
+    ``ip`` holds the IP-Adapter projections of an attn2 site (one :class:`IPProjection` per
+    adapter, attached by ``models/ip_adapter.insert_ip_into_unet``). Given per-adapter image
+    tokens ``ip_embeds`` (B, T, cross_dim), the output is
+    attn(text) + sum_i ip_scale[i] * attn_i(image_i), as in ``diffsim_tpu/ops/blocks.py``."""
 
     def __init__(self, dim: int, heads: int, context_dim: int | None = None):
         super().__init__()
@@ -156,8 +170,10 @@ class Attention(nn.Module):
         self.to_k = nn.Linear(cdim, dim, bias=False)
         self.to_v = nn.Linear(cdim, dim, bias=False)
         self.to_out = nn.Linear(dim, dim)
+        self.ip: nn.ModuleList | None = None
 
-    def forward(self, x, context=None, *, capture=None, stop: bool = False):
+    def forward(self, x, context=None, *, capture=None, stop: bool = False, ip_embeds=None,
+                ip_scale=None):
         ctx = x if context is None else context
         q = split_heads(self.to_q(x), self.heads)
         k = split_heads(self.to_k(ctx), self.heads)
@@ -167,10 +183,25 @@ class Attention(nn.Module):
             taps = {"q": q, "k": k, "v": v}
             if stop:
                 return None, taps
-        elif capture is not None:
-            raise NotImplementedError(f"capture {capture!r} is not ported yet (ROADMAP.md, "
-                                      "Queue 1)")
-        return self.to_out(merge_heads(sdpa(q, k, v))), taps
+        ip = []
+        if ip_embeds is not None and self.ip is not None:
+            ip = [(split_heads(p.to_k_ip(e), self.heads), split_heads(p.to_v_ip(e), self.heads))
+                  for p, e in zip(self.ip, ip_embeds)]
+        if capture == IP_QKV:
+            if not ip:
+                raise ValueError("an IP_QKV tap needs an attn2 site with IP-Adapter "
+                                 "projections and ip_embeds")
+            taps = {"q": q, "ip_k": [k_ for k_, _ in ip], "ip_v": [v_ for _, v_ in ip]}
+            if stop:
+                return None, taps
+        hidden = sdpa(q, k, v)
+        for i, (k_ip, v_ip) in enumerate(ip):
+            scale = 1.0 if ip_scale is None else ip_scale[i]
+            hidden = hidden + scale * sdpa(q, k_ip, v_ip)
+        out = self.to_out(merge_heads(hidden))
+        if capture == OUTPUT:
+            taps = {"out": out}
+        return out, taps
 
 
 # ---------------------------------------------------------------------------
@@ -215,16 +246,19 @@ class BasicTransformerBlock(nn.Module):
         self.norm3 = LayerNorm(dim)
         self.ff = GEGLUFeedForward(dim)
 
-    def forward(self, x, context, *, tap=None, stop: bool = False):
+    def forward(self, x, context, *, tap=None, stop: bool = False, ip_embeds=None,
+                ip_scale=None):
         """``tap`` is None or {'attn': 'attn1'|'attn2', 'capture': ...}. With ``stop`` the
-        block returns ``(None, taps)`` as soon as its tap site has captured."""
+        block returns ``(None, taps)`` as soon as its tap site has captured. ``ip_embeds`` and
+        ``ip_scale`` go to attn2 (the IP-Adapter's image cross-attention)."""
         cap1 = tap["capture"] if (tap and tap["attn"] == "attn1") else None
         h, t1 = self.attn1(self.norm1(x), None, capture=cap1, stop=stop)
         if t1 and stop:
             return None, t1
         x = x + h
         cap2 = tap["capture"] if (tap and tap["attn"] == "attn2") else None
-        h, t2 = self.attn2(self.norm2(x), context, capture=cap2, stop=stop)
+        h, t2 = self.attn2(self.norm2(x), context, capture=cap2, stop=stop,
+                           ip_embeds=ip_embeds, ip_scale=ip_scale)
         if t2 and stop:
             return None, t2
         x = x + h
@@ -248,7 +282,8 @@ class SpatialTransformer(nn.Module):
             BasicTransformerBlock(channels, heads, context_dim) for _ in range(depth))
         self.proj_out = proj(channels, channels)
 
-    def forward(self, x, context, *, tap=None, stop: bool = False):
+    def forward(self, x, context, *, tap=None, stop: bool = False, ip_embeds=None,
+                ip_scale=None):
         """``tap`` is None or {'tblock': int, 'attn': str, 'capture': str}; negative tblock
         indices count from the end."""
         b, c, hgt, wid = x.shape
@@ -262,7 +297,8 @@ class SpatialTransformer(nn.Module):
         n = len(self.blocks)
         for i, blk in enumerate(self.blocks):
             block_tap = tap if (tap is not None and tap["tblock"] % n == i) else None
-            h, t = blk(h, context, tap=block_tap, stop=stop)
+            h, t = blk(h, context, tap=block_tap, stop=stop, ip_embeds=ip_embeds,
+                       ip_scale=ip_scale)
             taps.update(t)
             if t and stop:
                 return None, taps

@@ -10,6 +10,7 @@ votes. The ensemble vote (``run_2afc_ensemble``) waits for the baseline metrics.
 
 from __future__ import annotations
 
+import concurrent.futures as _futures
 import dataclasses
 import os
 from typing import Callable, Sequence
@@ -77,6 +78,7 @@ def run_2afc(
     loader: ImageLoader | None = None,
     print_fn=print,
     timer: StageTimer | None = None,
+    mask_fn: Callable | None = None,
 ) -> Report:
     """Score all comparisons and report accuracy.
 
@@ -86,22 +88,32 @@ def run_2afc(
     every input is a path on disk: images are keyed by path in the device moment cache, the
     runner decodes nothing itself (the adapter decodes only cache misses, through ``loader``),
     and ``prewarm`` decodes the next batch's misses while this one scores. One scored batch
-    stays in flight: its scores are fetched after the next batch is dispatched."""
+    stays in flight: its scores are fetched after the next batch is dispatched.
+
+    ``mask_fn(image_path) -> (1, H, W)`` turns on mask-weighted scoring (``--use_mask``): the
+    masks are decoded beside the images and passed to ``score_pairs(mask_a=, mask_b=)``, which
+    bypasses the triplet and cached paths (they take no masks)."""
     log = ResultLog(out_path)
     report = Report()
     pending = [i for i in range(len(comparisons)) if i not in log.done]
     chunks = [pending[i:i + batch] for i in range(0, len(pending), batch)]
-    use_paths = score_triplet_paths is not None and all(
+    use_paths = score_triplet_paths is not None and mask_fn is None and all(
         isinstance(getattr(comparisons[i], r), (str, os.PathLike)) for i in pending for r in "abc")
     if loader is None:
         # the moment cache takes uint8 pixels
         loader = ImageLoader(img_size, preprocess=(lambda im: process_image_u8(im, img_size))
                              if use_paths else None)
 
+    mask_pool = _futures.ThreadPoolExecutor(max_workers=8) if mask_fn is not None else None
+
     def decode(chunk):
         if use_paths:
             return None  # the adapter decodes the cache misses itself
-        return [tuple(loader.submit(getattr(comparisons[i], r)) for r in "abc") for i in chunk]
+        futs = [tuple(loader.submit(getattr(comparisons[i], r)) for r in "abc") for i in chunk]
+        if mask_pool is not None:
+            futs = [e + tuple(mask_pool.submit(mask_fn, getattr(comparisons[i], r))
+                              for r in "abc") for e, i in zip(futs, chunk)]
+        return futs
 
     inflight = []
     ci = 0
@@ -146,7 +158,14 @@ def run_2afc(
                     prewarm([[getattr(comparisons[i], r) for i in nxt] for r in "abc"], loader)
             else:
                 pa, pb, pc = (np.concatenate([e[j] for e in arrs], axis=0) for j in range(3))
-                if score_triplets is not None:
+                if mask_pool is not None:
+                    ma, mb, mc = (np.concatenate([e[j] for e in arrs], axis=0)
+                                  for j in range(3, 6))
+                    result = score_pairs(np.concatenate([pa, pa], axis=0),
+                                         np.concatenate([pb, pc], axis=0), prompts * 2,
+                                         blocking=False, mask_a=np.concatenate([ma, ma], axis=0),
+                                         mask_b=np.concatenate([mb, mc], axis=0))
+                elif score_triplets is not None:
                     result = score_triplets(pa, pb, pc, prompts, blocking=False)
                 else:
                     result = score_pairs(np.concatenate([pa, pa], axis=0),
@@ -155,6 +174,8 @@ def run_2afc(
         drain()
         pending_fetch = (chunk, result)
     drain()
+    if mask_pool is not None:
+        mask_pool.shutdown(wait=False)
 
     for i in range(len(comparisons)):
         rec = log.done.get(i)

@@ -155,8 +155,8 @@ def test_cli_shard_profile_and_trace(data, tmp_path, capsys):
 @pytest.mark.parametrize("extra, match", [
     (["--num_devices", "2"], "Queue 1 item 7"),
     (["--metric", "clip_i"], "Queue 1 item 6"),
-    (["--ip_adapter"], "Queue 1 item 5"),
-    (["--use_mask"], "Queue 1 item 4"),
+    (["--use_mask", "--sam_weights", "x.npz"], "Queue 1 item 6"),
+    (["--use_mask", "--matting_weights", "x.npz"], "Queue 1 item 6"),
 ])
 def test_unported_options_raise(data, extra, match):
     with pytest.raises(NotImplementedError, match=match):

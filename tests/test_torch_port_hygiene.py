@@ -22,7 +22,8 @@ def _port_modules():
 def test_port_and_chip_smoke_import_no_jax():
     modules = _port_modules() + ["chip_smoke"]
     for name in ("metrics.diffsim_sd15", "metrics.diffsim_dit", "models.dit", "cli.convert",
-                 "convert.diffusion_import", "convert.torch_import"):
+                 "convert.diffusion_import", "convert.torch_import", "models.clip_vision",
+                 "models.ip_adapter", "metrics.ffa"):
         assert f"diffsim_tpu_torch.{name}" in modules
     code = (
         "import importlib, sys\n"

@@ -10,7 +10,7 @@ import torch
 
 from diffsim_tpu.ops import attention as jattn
 from diffsim_tpu.ops import blocks as jb
-from diffsim_tpu.ops.taps import QKV
+from diffsim_tpu.ops.taps import OUTPUT, QKV
 from diffsim_tpu_torch.convert import bridge
 from diffsim_tpu_torch.ops import attention as tattn
 from diffsim_tpu_torch.ops import blocks as tb
@@ -168,7 +168,7 @@ def test_split_and_merge_heads():
     np.testing.assert_array_equal(tattn.merge_heads(out).numpy(), x)
 
 
-@pytest.mark.parametrize("capture", [None, QKV])
+@pytest.mark.parametrize("capture", [None, QKV, OUTPUT])
 def test_attention_module(capture):
     p = _randomize(jb.attention_init(jax.random.PRNGKey(0), 32, 2, context_dim=24), 20)
     x = _rand((2, 9, 32), 21)

@@ -195,15 +195,22 @@ def test_tap_translation_matches_jax():
 
 
 def test_parts_outside_this_slice_raise(fix):
+    """The scorer's whole surface is ported (IP-Adapter, masks, score_feats_batch and
+    tap_values: tests/test_torch_port_ip.py, tests/test_torch_port_surface.py); what its
+    IP-Adapter encoder leaves to the CLIP metrics, the vision taps, raises naming their item."""
+    import dataclasses
+
+    from diffsim_tpu_torch.models.clip_vision import CLIPVisionConfig
+    from diffsim_tpu_torch.models.ip_adapter import ResamplerConfig
+
     scorer = _port(fix[1])
+    scorer.enable_ip_adapter(encoder_cfg=CLIPVisionConfig.tiny(),
+                             resampler_cfg=dataclasses.replace(ResamplerConfig.tiny(),
+                                                               output_dim=32))
     a = np.zeros((1, 32, 32, 3), np.uint8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        scorer.score_batch(a, a, ip_adapter=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        scorer.score_batch(a, a, mask_a=np.ones((1, 32, 32)), mask_b=np.ones((1, 32, 32)))
-    for method in ("score_feats_batch", "tap_values", "enable_ip_adapter"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            getattr(scorer, method)()
+    assert np.isfinite(scorer.score_batch(a, a, ip_adapter=True)).all()
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1 item 6"):
+        scorer.ip_encoder(torch.zeros(1, 3, 32, 32), tap_layer=0)
 
 
 def test_partial_weight_trees_are_refused(fix):

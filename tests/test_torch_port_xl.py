@@ -290,12 +290,21 @@ def test_tokenizer2_pads_with_exclamation_mark(params):
 
 
 def test_parts_outside_this_slice_raise(params):
+    """The IP-Adapter is ported (tests/test_torch_port_ip.py); what its encoder leaves to the
+    CLIP metrics, the vision taps, raises naming their item."""
+    import dataclasses
+
+    from diffsim_tpu_torch.models.clip_vision import CLIPVisionConfig
+    from diffsim_tpu_torch.models.ip_adapter import ResamplerConfig
+
     scorer = _port(params)
+    scorer.enable_ip_adapter(encoder_cfg=CLIPVisionConfig.tiny(),
+                             resampler_cfg=dataclasses.replace(ResamplerConfig.tiny(),
+                                                               output_dim=64))
     a = np.zeros((1, 32, 32, 3), np.uint8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        scorer.score_batch(a, a, ip_adapter=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        scorer.enable_ip_adapter()
+    assert np.isfinite(scorer.score_batch(a, a, ip_adapter=True)).all()
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1 item 6"):
+        scorer.ip_encoder(torch.zeros(1, 3, 32, 32), tap_layer=0)
 
 
 def test_partial_weight_trees_are_refused(params):
