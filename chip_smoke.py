@@ -85,7 +85,24 @@ Phases, each of which fails the run (non-zero exit, no result line) if anything 
    ``bench_backbones.py`` arguments (46 K1, 4 K2, 2 K4, no K3: 16 image keys are not square);
 17. the CLI over the 36 JPEGs with ``--ip_adapter``, ``--use_mask --mask_path`` (a mask tree
    written here), ``--use_mask`` (the border-statistics heuristic) and ``--metric diffeats``,
-   each on the pair path with its exact launches.
+   each on the pair path with its exact launches;
+18. the baseline metrics, card vs CPU at tiny width from one seeded numpy tree per model, in
+   float32 with TF32 off (|d score| <= 1e-4, no K1-K4 launch): clip_i, clip_t, clip_cross,
+   clipfeats, dino, dinov1, dino_cross, dinofeats, lpips, gram (two aspect ratios in one ragged
+   batch) and cute on a tiny U^2-Net's mattes, whose saliency is held within 1e-4;
+19. the convert CLI's baseline families (clip, dinov2 --size base, dinov1, vgg19, lpips --vgg,
+   u2net) in a process where importing jax, safetensors or ml_dtypes raises, on checkpoints of
+   the published names and full widths written here; each ``.npz`` through the ``--weights``
+   reader into its scorer on the card, equal to the checkpoint and scoring;
+20. the baselines at their published widths with random weights, 16 pairs each: CLIP B/32 at
+   224 px (image and text towers), DINOv2-small and DINO v1 ViT-S/8 at 224 px, LPIPS (VGG-16)
+   at 512 px, the VGG-19 Gram at 512 px shortest side (683 x 512 and 512 x 512 buckets), FFA
+   with DINOv2-base at 336 px and the converted U^2-Netp at 320 px: no K1-K4 launch, a repeat
+   bit for bit, each call's time and peak device memory, a profile of the slowest call;
+21. the CLI over the 36 JPEGs with every baseline metric, ``--metric cute --matting_weights``
+   and ``diffsim --use_mask --matting_weights`` (the converted U^2-Netp), and ``--metric
+   ensemble`` (diffsim through the moment cache, clip_i, dino; its K1 / K2 launches predicted
+   from the cached CLI run's forwards), each with its pairs/s.
 
 The line before the last is one JSON object ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. A kernel's time (``ms``), its library call's and its v2's are
@@ -131,17 +148,28 @@ from diffsim_tpu_torch.convert import bridge
 from diffsim_tpu_torch.core.tokenizer import HashTokenizer
 from diffsim_tpu_torch.data import benchmarks
 from diffsim_tpu_torch.metrics import registry
+from diffsim_tpu_torch.metrics.clip_i import CLIPPair, CLIPScore
+from diffsim_tpu_torch.metrics.dino import DinoScore, Dinov2Score
 from diffsim_tpu_torch.metrics.diffsim_dit import DiffSimDiT
 from diffsim_tpu_torch.metrics.diffsim_sd15 import DiffSimSD15
 from diffsim_tpu_torch.metrics.diffsim_xl import DiffSimXL
-from diffsim_tpu_torch.metrics.ffa import MattingInversionWarning
+from diffsim_tpu_torch.metrics.ffa import (
+    ForegroundFeatureAveraging,
+    MattingInversionWarning,
+    U2NetMatting,
+)
+from diffsim_tpu_torch.metrics.lpips import LPIPS, LPIPSNet
+from diffsim_tpu_torch.metrics.vgg_gram import VGGGram
 from diffsim_tpu_torch.metrics.scorer_base import to_device_pixels
 from diffsim_tpu_torch.models.clip_text import CLIPText, CLIPTextConfig
 from diffsim_tpu_torch.models.clip_vision import CLIPVision, CLIPVisionConfig
+from diffsim_tpu_torch.models.dinov2 import Dino, DinoConfig
 from diffsim_tpu_torch.models.dit import DiT, DiTConfig
 from diffsim_tpu_torch.models.ip_adapter import Resampler, ResamplerConfig, attn2_modules
+from diffsim_tpu_torch.models.u2net import U2Net, U2NetConfig
 from diffsim_tpu_torch.models.unet import UNet, UNetConfig
 from diffsim_tpu_torch.models.vae import Encoder, VAEConfig, encode_chunked
+from diffsim_tpu_torch.models.vgg import VGG, VGG16_CFG, VGG19_CFG
 from diffsim_tpu_torch.ops import kernels
 from diffsim_tpu_torch.ops.kernels import build, readout
 from diffsim_tpu_torch.ops.kernels.attention import (
@@ -1415,7 +1443,7 @@ def _cli_run(what: str, tree: str, out: str, *extra):
     kernels.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    report, adapter = run_benchmark("cute", argv)
+    report, (adapter,) = run_benchmark("cute", argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts, fast = kernels.launch_counts(), kernels.bf16_probs_launch_counts()
@@ -1759,6 +1787,520 @@ def convert_phase() -> dict:
     return {"installed_but_blocked": installed, "scores": scores.tolist()}
 
 
+# ---------------------------------------------------------------------------
+# the baseline metrics: CLIP, DINO, LPIPS, VGG-Gram, FFA with U^2-Net, the ensemble
+# ---------------------------------------------------------------------------
+
+BASELINE_PAIRS = 16
+TINY_TEXT = CLIPTextConfig(vocab_size=1000, hidden=32, layers=2, heads=2, intermediate=64,
+                           projection_dim=16)  # with a projection: clip_t reads it
+FFA_TINY = dataclasses.replace(DinoConfig.tiny(), patch=14)  # the 24 x 24 grid at 336 px
+
+
+def _he_convs(tree):
+    """A tree with every convolution kernel (HWIO) redrawn at He's scale, sqrt(2 / fan-in), from
+    its N(0, 0.1) draw, so that deep random conv stacks keep their activations' scale."""
+    if isinstance(tree, dict):
+        return {k: _he_convs(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_he_convs(v) for v in tree]
+    if tree.ndim == 4:
+        return tree * (np.sqrt(2.0 / np.prod(tree.shape[:3])) / 0.1)
+    return tree
+
+
+def _tiny_baselines(device: str, trees: dict) -> dict:
+    """The tiny baseline scorers on ``device``, float32, on the same seeded trees."""
+    return {"clip": CLIPScore(trees["clip"], vision_cfg=CLIPVisionConfig.tiny(),
+                              text_cfg=TINY_TEXT, tokenizer=HashTokenizer(1000), device=device),
+            "dino": Dinov2Score(trees["dino"], cfg=DinoConfig.tiny(), device=device),
+            "dinov1": DinoScore(trees["dinov1"], cfg=DinoConfig.tiny(layerscale=False),
+                                device=device),
+            "lpips": LPIPS(trees["lpips"], device=device),
+            "gram": VGGGram(trees["vgg"], device=device),
+            "ffa": ForegroundFeatureAveraging(trees["ffa"], cfg=FFA_TINY, device=device),
+            "u2net": U2NetMatting(trees["u2net"], U2NetConfig.tiny(), device=device)}
+
+
+def tiny_baselines_phase() -> dict:
+    phase("end to end, the baseline metrics at tiny width in float32: card vs CPU on the same "
+          "bridged weights (|dscore| <= 1e-4), no K1-K4 launch; U^2-Net's saliency within 1e-4 "
+          "and its matte's flipped pixels all within 1e-4 of the cut")
+    rng = np.random.default_rng(2338)
+    trees = {"clip": _random_tree(lambda: CLIPPair(CLIPVisionConfig.tiny(), TINY_TEXT), "clip",
+                                  rng),
+             "dino": _random_tree(lambda: Dino(DinoConfig.tiny()), "dino", rng),
+             "dinov1": _random_tree(lambda: Dino(DinoConfig.tiny(layerscale=False)), "dino",
+                                    rng),
+             "ffa": _random_tree(lambda: Dino(FFA_TINY), "dino", rng),
+             "lpips": _he_convs(_random_tree(LPIPSNet, "lpips", rng)),
+             "vgg": _he_convs(_random_tree(lambda: VGG(VGG19_CFG), "vgg", rng)),
+             "u2net": _he_convs(_random_tree(lambda: U2Net(U2NetConfig.tiny()), "u2net", rng))}
+    clip_pix = [rng.integers(0, 256, (4, 32, 32, 3), dtype=np.uint8) for _ in range(2)]
+    dino_pix = [rng.integers(0, 256, (2, 224, 224, 3), dtype=np.uint8) for _ in range(2)]
+    lpips_pix = [rng.integers(0, 256, (3, 64, 64, 3), dtype=np.uint8) for _ in range(2)]
+    # two aspect ratios in one ragged batch: 48 x 64 and 64 x 64
+    gram_pix = [[rng.integers(0, 256, (1, h, 64, 3), dtype=np.uint8) for h in (48, 64, 48)]
+                for _ in range(2)]
+    texts = ["a cat", "a mug on a table", "two dogs", "a red car"]
+    images = [_salient_image(rng) for _ in range(4)]
+    calls = {
+        "clip_i": lambda s: s["clip"].clipi_score_batch(*clip_pix),
+        "clipt": lambda s: s["clip"].clipt_score_batch(texts, clip_pix[0]),
+        "clip_cross": lambda s: s["clip"].clip_cross_score_batch(*clip_pix, [1]),
+        "clipfeats": lambda s: s["clip"].clip_feature_score_batch(*clip_pix, 0),
+        "dino": lambda s: s["dino"].dino_score_batch(*dino_pix),
+        "dinov1": lambda s: s["dinov1"].dino_score_batch(*dino_pix),
+        "dino_cross": lambda s: s["dino"].dino_cross_score_batch(*dino_pix, 1),
+        "dinofeats": lambda s: s["dino"].dino_feature_score_batch(*dino_pix, 0),
+        "lpips": lambda s: s["lpips"].score_batch(*lpips_pix),
+        "gram": lambda s: s["gram"].score_batch(*gram_pix),
+    }
+    out = {}
+    with tf32_off():
+        scorers = {d: _tiny_baselines(d, trees) for d in ("cuda", "cpu")}
+        # U^2-Net: the saliency, then the matte; the cute metric scores the CPU's mattes on both
+        sal = {d: np.stack([scorers[d]["u2net"].saliency(im) for im in images])
+               for d in scorers}
+        sal_gap = float(np.abs(sal["cuda"] - sal["cpu"]).max())
+        flipped = (sal["cuda"] >= 0.5) != (sal["cpu"] >= 0.5)
+        near = np.abs(sal["cpu"] - 0.5) <= 1e-4
+        print(f"  U^2-Net saliency (tiny, 320 px): card vs CPU max|d| = {sal_gap:.3e} (limit "
+              f"1e-4); matte pixels flipped {int(flipped.sum())} of {flipped.size}, all within "
+              f"1e-4 of the cut: {bool((near | ~flipped).all())}", flush=True)
+        if sal_gap > 1e-4 or (flipped & ~near).any():
+            raise SystemExit("tiny U^2-Net: the card disagrees with the CPU")
+        ffa_cpu = scorers["cpu"]["ffa"]
+        ffa_cpu.matting = scorers["cpu"]["u2net"]
+        rgba = [np.concatenate([ffa_cpu.preprocess(im) for im in images[i::2]]) for i in (0, 1)]
+        calls["cute"] = lambda s: s["ffa"].score_batch("Crop-Feat", *rgba)
+        for name, fn in calls.items():
+            got = {}
+            for device in ("cuda", "cpu"):
+                if device == "cuda":
+                    got[device], _ = _checked_call(f"tiny {name} on the card",
+                                                   lambda: fn(scorers["cuda"]), {})
+                else:
+                    got[device] = fn(scorers["cpu"])
+            gap = float(np.abs(got["cuda"] - got["cpu"]).max())
+            print(f"  {name}: card {got['cuda']}, cpu {got['cpu']}, max|d| = {gap:.3e}",
+                  flush=True)
+            if not (np.isfinite(got["cuda"]).all() and gap <= 1e-4):
+                raise SystemExit(f"tiny {name}: the card disagrees with the CPU")
+            out[name] = gap
+    out["u2net_saliency"] = sal_gap
+    del scorers
+    torch.cuda.empty_cache()
+    return out
+
+
+def _salient_image(rng, size=(320, 240)) -> "Image.Image":
+    """A bright ellipse on a darker noisy ground, at a seeded place."""
+    from PIL import Image
+
+    w, h = size
+    yy, xx = np.mgrid[:h, :w]
+    cy, cx = rng.uniform(0.35, 0.65) * h, rng.uniform(0.35, 0.65) * w
+    inside = ((yy - cy) / (h / 4)) ** 2 + ((xx - cx) / (w / 5)) ** 2 < 1
+    img = rng.integers(10, 90, (h, w, 3)).astype(np.uint8)
+    img[inside] = rng.integers(170, 256, (int(inside.sum()), 3))
+    return Image.fromarray(img)
+
+
+def _baseline_call(name: str, fn, card_line: str, check=None) -> dict:
+    """One full-width baseline call: no K1-K4 launch, finite scores (and ``check``), a repeat
+    bit for bit; its time (median of 5 by CUDA events, host work in) and peak device memory."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    scores, _ = _checked_call(name, fn, {})
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if not np.isfinite(scores).all() or (check is not None and not check(scores)):
+        raise SystemExit(f"{name}: scores out of range: {scores}")
+    if not np.array_equal(fn(), scores):
+        raise SystemExit(f"{name}: a repeat call gave other scores")
+    ms = time_ms(fn, reps=5, warmup=1)
+    print(f"  {name}: {ms:.2f} ms a call of {len(scores)} pairs ({len(scores) / ms * 1e3:.1f} "
+          f"pairs/s), peak device memory {peak:.2f} GiB, a repeat bit for bit; scores "
+          f"{np.round(scores[:4], 5)} ... on {card_line} (information only)", flush=True)
+    return {"call_ms": ms, "peak_gib": peak}
+
+
+def _hundred_cos(s):
+    return (np.abs(s) <= 100.0 + 1e-3).all()
+
+
+def _cos(s):
+    return (np.abs(s) <= 1.0 + 1e-6).all()
+
+
+def baselines_phase(card_line: str, u2net_tree) -> dict:
+    """The baseline metrics at their published widths on the card, random weights from seeded
+    generators (float32; PyTorch's defaults, so cuDNN may run the convolutions in TF32), 16
+    pairs each; a profile of the slowest call."""
+    n = BASELINE_PAIRS
+    rng = np.random.default_rng(2339)
+    out, fns = {}, {}
+
+    def pix(h, w=None):
+        return [rng.integers(0, 256, (n, h, w or h, 3), dtype=np.uint8) for _ in range(2)]
+
+    def run(name, label, fn, check):
+        fns[name] = fn
+        out[name] = _baseline_call(label, fn, card_line, check)
+
+    phase(f"baselines at full width: CLIP ViT-B/32 at 224 px with the 512-wide text tower, {n} "
+          "pairs (50 tokens: the math path)")
+    clip = CLIPScore()
+    p224 = pix(224)
+    texts = [f"a photo of object {i}" for i in range(n)]
+    run("clip_i", "clip_i", lambda: clip.clipi_score_batch(*p224), _hundred_cos)
+    run("clip_t", "clip_t", lambda: clip.clipt_score_batch(texts, p224[0]), _hundred_cos)
+    run("clip_cross", "clip_cross (layer 11)",
+        lambda: clip.clip_cross_score_batch(*p224, -1), _cos)
+    run("clipfeats", "clipfeats (layer 11)",
+        lambda: clip.clip_feature_score_batch(*p224, -1), _cos)
+    phase(f"baselines at full width: DINOv2-small at 224 px (257 tokens) and DINO v1 ViT-S/8 at "
+          f"224 px (785 tokens), {n} pairs")
+    dino, dinov1 = Dinov2Score(), DinoScore()
+    run("dino", "dino", lambda: dino.dino_score_batch(*p224), _hundred_cos)
+    run("dino_cross", "dino_cross (layer 11)", lambda: dino.dino_cross_score_batch(*p224, -1),
+        _cos)
+    run("dinofeats", "dinofeats (layer 11)", lambda: dino.dino_feature_score_batch(*p224, -1),
+        _cos)
+    run("dinov1", "dinov1", lambda: dinov1.dino_score_batch(*p224), _hundred_cos)
+    run("dinov1_cross", "dino_cross on DINO v1 (layer 11, 785 tokens)",
+        lambda: dinov1.dino_cross_score_batch(*p224, -1), _cos)
+    phase(f"baselines at full width: LPIPS (VGG-16) at 512 px, and VGG-19 Gram at 512 px "
+          f"shortest side (683 x 512 and 512 x 512 buckets in one ragged batch), {n} pairs")
+    lpips, gram = LPIPS(), VGGGram()
+    p512, wide = pix(512), pix(512, 683)
+    ragged = [[(sq if i % 2 else wd)[i:i + 1] for i in range(n)] for sq, wd in zip(p512, wide)]
+    run("lpips", "lpips", lambda: lpips.score_batch(*p512), lambda s: (s >= 0).all())
+    run("gram", f"gram (ragged: {n // 2} of 683 x 512, {n - n // 2} of 512 x 512)",
+        lambda: gram.score_batch(*ragged), _cos)
+    phase(f"baselines at full width: FFA (cute) with DINOv2-base at 336 px (577 tokens) and "
+          f"U^2-Netp at 320 px (the converter's .npz of a seeded checkpoint), {n} pairs of "
+          "random 640 x 480 images with a salient blob")
+    ffa = ForegroundFeatureAveraging(matting=U2NetMatting(u2net_tree))
+    images = [_salient_image(rng, (640, 480)) for _ in range(2 * n)]
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    rgba = [np.concatenate([ffa.preprocess(im) for im in images[i::2]]) for i in (0, 1)]
+    torch.cuda.synchronize()
+    prep_ms = (time.perf_counter() - t0) / (2 * n) * 1e3
+    if kernels.launch_counts() != NONE:
+        raise SystemExit(f"FFA's matting launched {kernels.launch_counts()}")
+    print(f"  U^2-Netp matting and preprocessing: {prep_ms:.1f} ms an image (host work in); "
+          f"foreground share of the mattes {float((rgba[0][..., 3] > 0).mean()):.3f}",
+          flush=True)
+    run("cute", "cute (FFA, Crop-Feat)", lambda: ffa.score_batch("Crop-Feat", *rgba), _cos)
+    out["cute"]["matting_ms_per_image"] = prep_ms
+    masks_ms = []
+    for _ in range(5):  # the call's host masks alone, as _features_dispatch computes them
+        t0 = time.perf_counter()
+        for r in rgba:
+            ffa._masks(r[..., :3])
+        masks_ms.append((time.perf_counter() - t0) * 1e3)
+    masks_ms = float(np.median(masks_ms))
+    print(f"  cute (FFA): the host's foreground masks of one call ({2 * n} images) alone "
+          f"{masks_ms:.2f} ms (median of 5), {100 * masks_ms / out['cute']['call_ms']:.1f} % of "
+          "the call", flush=True)
+    out["cute"]["masks_ms"] = masks_ms
+    slowest = max(out, key=lambda k: out[k]["call_ms"])
+    profile_call(fns[slowest], f"{slowest} call ({n} pairs), the slowest baseline call")
+    del fns, clip, dino, dinov1, lpips, gram, ffa
+    torch.cuda.empty_cache()
+    return out
+
+
+BASELINE_CLI = ("clip_i", "clip_cross", "clipfeats", "dino", "dinov1", "dino_cross", "dinofeats",
+                "lpips", "gram")
+
+
+def baseline_cli_phase(tree: str, u2net_npz: str) -> dict:
+    """The CLI with every baseline metric over the 36 JPEGs (60 comparisons, 4 pair calls), no
+    K1-K4 launch; ``cute --matting_weights`` and ``diffsim --use_mask --matting_weights`` with
+    the converter's U^2-Netp; and ``--metric ensemble`` with its predicted launches."""
+    phase("the 2AFC CLI with the baseline metrics: cute --preset cute --metric "
+          f"{'|'.join(BASELINE_CLI)}|cute --matting_weights, diffsim --use_mask "
+          "--matting_weights, and --metric ensemble (diffsim, clip_i, dino)")
+    plan = benchmarks.cute(tree, 2334)
+    calls = -(-len(plan) // CLI_BATCH)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = {m: (["--metric", m], NONE) for m in BASELINE_CLI}
+        runs["cute"] = (["--metric", "cute", "--matting_weights", u2net_npz], NONE)
+        runs["diffsim_u2net_masks"] = (["--use_mask", "--matting_weights", u2net_npz],
+                                       {k: v * calls for k, v in SD15_CALL.items()})
+        for what, (extra, want) in runs.items():
+            report, adapter, scores, counts, _, wall = _cli_run(
+                what, tree, os.path.join(tmp, f"{what}.jsonl"), *extra)
+            if report.total != len(plan) or sorted(scores) != list(range(len(plan))):
+                raise SystemExit(f"{what}: scored {report.total} of {len(plan)} comparisons")
+            if counts != want:
+                raise SystemExit(f"{what}: launched {counts}, expected {want}")
+            if not np.isfinite(np.array(list(scores.values()))).all():
+                raise SystemExit(f"{what}: scores not finite")
+            out[what] = {"pairs_per_s": 2 * len(plan) / wall, "accuracy": report.accuracy,
+                         "counts": counts}
+            del adapter
+            torch.cuda.empty_cache()
+        out["ensemble"] = _ensemble_run(tree, os.path.join(tmp, "ensemble.jsonl"), plan)
+    return out
+
+
+def _ensemble_run(tree: str, path: str, plan) -> dict:
+    """``--metric ensemble`` over the 36 JPEGs: its diffsim member takes the moment cache's path
+    (one UNet forward a scoring call: 8 K1 and 4 K2, as the cached CLI run), CLIP-I and DINOv2
+    the math path; the report follows the members' 2-of-3 vote."""
+    argv = ["--preset", "cute", "--image_path", tree, "--batch_size", str(CLI_BATCH),
+            "--metric", "ensemble", "--results", path]
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    report, adapters = run_benchmark("cute", argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    step = resolve_cached_chunk(CLI_BATCH, None, adapters[0].scorer)
+    forwards = sum(-(-len(plan[i:i + CLI_BATCH]) // step) for i in range(0, len(plan), CLI_BATCH))
+    want = {**NONE, "fused_self_attention": 8 * forwards, "fused_geglu_ff": 4 * forwards}
+    logs = []
+    for m in range(3):
+        with open(f"{path}.m{m}") as f:
+            logs.append({r["idx"]: (r["s_ab"], r["s_ac"]) for r in map(json.loads, f)})
+    votes = sum(np.array([[s[i][0] > s[i][1] for i in range(len(plan))] for s in logs]))
+    print(f"  ensemble: {report.total} comparisons in {wall:.2f} s with the three scorers' "
+          f"init, {2 * report.total / wall:.2f} pairs/s (information only); launches {counts}, "
+          f"predicted {want} ({forwards} UNet forwards); accuracy {report.accuracy:.2f} %",
+          flush=True)
+    if report.total != len(plan) or any(sorted(s) != list(range(len(plan))) for s in logs):
+        raise SystemExit("ensemble: a member's log misses comparisons")
+    if report.correct != int((votes >= 2).sum()):
+        raise SystemExit("ensemble: the report does not follow the 2-of-3 vote")
+    if counts != want:
+        raise SystemExit(f"ensemble: launched {counts}, predicted {want}")
+    del adapters
+    torch.cuda.empty_cache()
+    return {"pairs_per_s": 2 * report.total / wall, "counts": counts,
+            "accuracy": report.accuracy}
+
+
+def _vit_shapes(prefix: str, layers: int, h: int, inter: int, names) -> dict:
+    """The shapes of ``layers`` ViT layers under ``prefix``.<i> with the (norm1, q, k, v, out,
+    norm2, fc1, fc2) ``names`` of a published checkpoint."""
+    n1, q, k, v, o, n2, f1, f2 = names
+    shapes = {}
+    for i in range(layers):
+        base = f"{prefix}.{i}"
+        for nm in (n1, n2):
+            shapes[f"{base}.{nm}.weight"] = shapes[f"{base}.{nm}.bias"] = (h,)
+        for nm in (q, k, v, o):
+            shapes[f"{base}.{nm}.weight"], shapes[f"{base}.{nm}.bias"] = (h, h), (h,)
+        shapes[f"{base}.{f1}.weight"], shapes[f"{base}.{f1}.bias"] = (inter, h), (inter,)
+        shapes[f"{base}.{f2}.weight"], shapes[f"{base}.{f2}.bias"] = (h, inter), (h,)
+    return shapes
+
+
+CLIP_LAYER = ("layer_norm1", "self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj",
+              "self_attn.out_proj", "layer_norm2", "mlp.fc1", "mlp.fc2")
+
+
+def published_clip_sd(gen) -> dict:
+    """HF ``CLIPModel`` (openai/clip-vit-base-patch32) names and shapes: both towers."""
+    vc, h = CLIPVisionConfig.b32(), 768
+    shapes = {"vision_model.embeddings.class_embedding": (h,),
+              "vision_model.embeddings.patch_embedding.weight": (h, 3, vc.patch, vc.patch),
+              "vision_model.embeddings.position_embedding.weight": (vc.tokens, h),
+              "vision_model.pre_layrnorm.weight": (h,), "vision_model.pre_layrnorm.bias": (h,),
+              "vision_model.post_layernorm.weight": (h,),
+              "vision_model.post_layernorm.bias": (h,),
+              "visual_projection.weight": (512, h),
+              "text_model.embeddings.token_embedding.weight": (49408, 512),
+              "text_model.embeddings.position_embedding.weight": (77, 512),
+              "text_model.final_layer_norm.weight": (512,),
+              "text_model.final_layer_norm.bias": (512,),
+              "text_projection.weight": (512, 512)}
+    shapes.update(_vit_shapes("vision_model.encoder.layers", 12, h, 3072, CLIP_LAYER))
+    shapes.update(_vit_shapes("text_model.encoder.layers", 12, 512, 2048, CLIP_LAYER))
+    return _draw(shapes, gen)
+
+
+def published_dinov2_sd(cfg, gen) -> dict:
+    """HF ``Dinov2Model`` names and shapes (facebook/dinov2-base at ``DinoConfig.v2_base``)."""
+    h, p = cfg.hidden, cfg.patch
+    shapes = {"embeddings.cls_token": (1, 1, h), "embeddings.mask_token": (1, h),
+              "embeddings.position_embeddings": (1, cfg.pos_grid ** 2 + 1, h),
+              "embeddings.patch_embeddings.projection.weight": (h, 3, p, p),
+              "embeddings.patch_embeddings.projection.bias": (h,),
+              "layernorm.weight": (h,), "layernorm.bias": (h,)}
+    shapes.update(_vit_shapes("encoder.layer", cfg.layers, h, cfg.intermediate, (
+        "norm1", "attention.attention.query", "attention.attention.key",
+        "attention.attention.value", "attention.output.dense", "norm2", "mlp.fc1", "mlp.fc2")))
+    for i in range(cfg.layers):
+        for j in (1, 2):
+            shapes[f"encoder.layer.{i}.layer_scale{j}.lambda1"] = (h,)
+    return _draw(shapes, gen)
+
+
+def published_dino_v1_sd(cfg, gen) -> dict:
+    """facebookresearch/dino ``dino_vits8`` names and shapes: fused qkv."""
+    h, p = cfg.hidden, cfg.patch
+    shapes = {"cls_token": (1, 1, h), "pos_embed": (1, cfg.pos_grid ** 2 + 1, h),
+              "patch_embed.proj.weight": (h, 3, p, p), "patch_embed.proj.bias": (h,),
+              "norm.weight": (h,), "norm.bias": (h,)}
+    for i in range(cfg.layers):
+        b = f"blocks.{i}"
+        shapes.update({f"{b}.norm1.weight": (h,), f"{b}.norm1.bias": (h,),
+                       f"{b}.attn.qkv.weight": (3 * h, h), f"{b}.attn.qkv.bias": (3 * h,),
+                       f"{b}.attn.proj.weight": (h, h), f"{b}.attn.proj.bias": (h,),
+                       f"{b}.norm2.weight": (h,), f"{b}.norm2.bias": (h,),
+                       f"{b}.mlp.fc1.weight": (cfg.intermediate, h),
+                       f"{b}.mlp.fc1.bias": (cfg.intermediate,),
+                       f"{b}.mlp.fc2.weight": (h, cfg.intermediate), f"{b}.mlp.fc2.bias": (h,)})
+    return _draw(shapes, gen)
+
+
+def published_vgg_sd(cfg, gen, prefix: str = "features.") -> dict:
+    """torchvision ``vgg*.features`` names and shapes, convolutions at He's scale."""
+    out, idx, cin = {}, 0, 3
+    for item in cfg:
+        if item == "M":
+            idx += 1
+            continue
+        out[f"{prefix}{idx}.weight"] = (torch.randn((item, cin, 3, 3), generator=gen)
+                                        * (2.0 / (9 * cin)) ** 0.5).to(torch.bfloat16)
+        out[f"{prefix}{idx}.bias"] = torch.zeros(item, dtype=torch.bfloat16)
+        cin, idx = item, idx + 2
+    return out
+
+
+def published_u2net_sd(cfg, gen) -> dict:
+    """The published u2net repository's names and shapes (REBNCONV ``conv_s1`` / ``bn_s1`` with
+    torch's BatchNorm buffers), float32, convolutions at He's scale."""
+    sd = {}
+
+    def conv(name, cin, cout, k=3):
+        sd[f"{name}.weight"] = torch.randn((cout, cin, k, k), generator=gen) * (
+            2.0 / (k * k * cin)) ** 0.5
+        sd[f"{name}.bias"] = torch.zeros(cout)
+
+    def rebnconv(name, cin, cout):
+        conv(f"{name}.conv_s1", cin, cout)
+        sd[f"{name}.bn_s1.weight"] = 1.0 + 0.05 * torch.randn(cout, generator=gen)
+        sd[f"{name}.bn_s1.bias"] = 0.05 * torch.randn(cout, generator=gen)
+        sd[f"{name}.bn_s1.running_mean"] = 0.05 * torch.randn(cout, generator=gen)
+        sd[f"{name}.bn_s1.running_var"] = 1.0 + 0.05 * torch.rand(cout, generator=gen)
+        sd[f"{name}.bn_s1.num_batches_tracked"] = torch.tensor(0)
+
+    def rsu(name, height, cin, mid, cout):
+        rebnconv(f"{name}.rebnconvin", cin, cout)
+        rebnconv(f"{name}.rebnconv1", cout, mid)
+        depth = 4 if height == 0 else height
+        for i in range(2, depth + 1):
+            rebnconv(f"{name}.rebnconv{i}", mid, mid)
+        for i in range(depth - 1, 1, -1):
+            rebnconv(f"{name}.rebnconv{i}d", 2 * mid, mid)
+        rebnconv(f"{name}.rebnconv1d", 2 * mid, cout)
+
+    for i, stage in enumerate(cfg.encoder, start=1):
+        rsu(f"stage{i}", *stage)
+    for i, stage in zip(range(5, 0, -1), cfg.decoder):
+        rsu(f"stage{i}d", *stage)
+    for i, cin in enumerate(cfg.side_channels, start=1):
+        conv(f"side{i}", cin, 1)
+    conv("outconv", 6, 1, k=1)
+    return sd
+
+
+def convert_baselines_phase(tmp: str) -> dict:
+    """The six baseline families of the convert CLI on this machine, in a process where
+    importing jax, safetensors or ml_dtypes raises, on checkpoints of published names and
+    shapes at full width (bf16 safetensors written here; U^2-Netp as a ``torch.save`` state
+    dict); each ``.npz`` through the ``--weights`` reader into its scorer on the card, equal to
+    the checkpoint's weights, scoring. Returns {family: .npz path}."""
+    phase("the convert CLI's baseline families on this machine (clip, dinov2 --size base, "
+          "dinov1, vgg19, lpips --vgg, u2net), with jax, safetensors and ml_dtypes made to raise "
+          "on import; each .npz through the --weights reader into its scorer on the card")
+    gen = torch.Generator().manual_seed(2340)
+    root = os.path.dirname(os.path.abspath(__file__))
+    sds = {"clip": published_clip_sd(gen),
+           "dinov2": published_dinov2_sd(DinoConfig.v2_base(), gen),
+           "dinov1": published_dino_v1_sd(DinoConfig.v1_vits8(), gen),
+           "vgg19": published_vgg_sd(VGG19_CFG, gen),
+           "lpips": {f"lin{i}.model.1.weight": torch.rand((1, c, 1, 1), generator=gen).to(
+               torch.bfloat16) for i, c in enumerate((64, 128, 256, 512, 512))},
+           "lpips_vgg": published_vgg_sd(VGG16_CFG, gen),
+           "u2net": published_u2net_sd(U2NetConfig.u2netp(), gen)}
+    files = {}
+    for name, sd in sds.items():
+        if name == "u2net":
+            files[name] = os.path.join(tmp, "u2netp.pth")
+            torch.save(sd, files[name])
+        else:
+            files[name] = os.path.join(tmp, f"{name}.safetensors")
+            write_safetensors(files[name], sd)
+    argvs = {"clip": ["--model", files["clip"]],
+             "dinov2": ["--model", files["dinov2"], "--size", "base"],
+             "dinov1": ["--model", files["dinov1"]],
+             "vgg19": ["--model", files["vgg19"]],
+             "lpips": ["--model", files["lpips"], "--vgg", files["lpips_vgg"]],
+             "u2net": ["--model", files["u2net"]]}
+    npz = {}
+    for family, extra in argvs.items():
+        npz[family] = os.path.join(tmp, f"{family}.npz")
+        cmd = [sys.executable, "-c", CONVERT_CLI, family, *extra, "--out", npz[family]]
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, cwd=root, capture_output=True, text=True, timeout=600)
+        print(f"  convert {family}: rc {res.returncode} in {time.perf_counter() - t0:.1f} s: "
+              f"{res.stdout.strip()}", flush=True)
+        if res.returncode:
+            print(res.stderr[-4000:], flush=True)
+            raise SystemExit(f"the convert CLI failed on {family}")
+    load = registry._load_params  # the --weights reader
+
+    def same(ours, ref) -> bool:
+        return torch.equal(ours.detach().cpu(), ref.float())
+
+    clip = CLIPScore(load(npz["clip"]))
+    dinov2 = Dinov2Score(load(npz["dinov2"]), cfg=DinoConfig.v2_base())
+    dinov1 = DinoScore(load(npz["dinov1"]))
+    gram = VGGGram(load(npz["vgg19"]))
+    lpips = LPIPS(load(npz["lpips"]))
+    u2net = U2NetMatting(load(npz["u2net"]))
+    checks = {
+        "clip": same(clip.model.vision.layers[3].attn.q.weight,
+                     sds["clip"]["vision_model.encoder.layers.3.self_attn.q_proj.weight"])
+        and same(clip.model.text.text_projection.weight, sds["clip"]["text_projection.weight"]),
+        "dinov2": same(dinov2.model.layers[5].ls2, sds["dinov2"][
+            "encoder.layer.5.layer_scale2.lambda1"]),
+        "dinov1": same(dinov1.model.layers[2].attn.k.weight,
+                       sds["dinov1"]["blocks.2.attn.qkv.weight"][384:768]),
+        "vgg19": same(gram.model.convs[8].weight, sds["vgg19"]["features.19.weight"]),
+        "lpips": same(lpips.model.lins[4].w, sds["lpips"]["lin4.model.1.weight"].reshape(-1))
+        and same(lpips.model.vgg.convs[0].weight, sds["lpips_vgg"]["features.0.weight"]),
+        "u2net": same(u2net.model.stage4d.rebnconv2d.bn.var,
+                      sds["u2net"]["stage4d.rebnconv2d.bn_s1.running_var"].to(torch.bfloat16)),
+    }
+    if not all(checks.values()):
+        raise SystemExit(f"the converted weights on the card differ from the checkpoints': "
+                         f"{checks}")
+    rng = np.random.default_rng(7)
+    p224 = [rng.integers(0, 256, (2, 224, 224, 3), dtype=np.uint8) for _ in range(2)]
+    p64 = [rng.integers(0, 256, (2, 64, 64, 3), dtype=np.uint8) for _ in range(2)]
+    scores = {"clip_i": clip.clipi_score_batch(*p224), "dinov1": dinov1.dino_score_batch(*p224),
+              "dino_base": dinov2.dino_score_batch(*p224), "gram": gram.score_batch(*p64),
+              "lpips": lpips.score_batch(*p64),
+              "u2net_saliency_mean": np.array([u2net.saliency(_salient_image(rng)).mean()])}
+    if not all(np.isfinite(s).all() for s in scores.values()):
+        raise SystemExit(f"the converted baselines scored non-finite values: {scores}")
+    print(f"  the converted weights on the card equal the checkpoints' ({sorted(checks)}); "
+          f"scores {({k: np.round(v, 4).tolist() for k, v in scores.items()})}", flush=True)
+    del clip, dinov2, dinov1, gram, lpips, u2net
+    torch.cuda.empty_cache()
+    return npz
+
+
 def sd15_fast_768_phase() -> dict:
     phase("SD-1.5 pair path in fast mode at 768 px: the VAE mid attention (9216 tokens, D 512, "
           "bf16) runs K4 in the bf16_probs mode")
@@ -1911,6 +2453,7 @@ def main() -> int:
     tiny_xl_phase()
     tiny_dit_phase()
     tiny_surface_phase()
+    tiny_baselines = tiny_baselines_phase()
     sd15_out = sd15_phase(card_line)
     sd15 = sd15_out["counts"]
     torch.cuda.empty_cache()
@@ -1926,6 +2469,9 @@ def main() -> int:
         dit_counts = dit_out["counts"]
         torch.cuda.empty_cache()
         dit_cli = dit_cli_phase(tree)
+        baseline_npz = convert_baselines_phase(tmp)
+        baselines = baselines_phase(card_line, registry._load_params(baseline_npz["u2net"]))
+        baseline_cli = baseline_cli_phase(tree, baseline_npz["u2net"])
     converted = convert_phase()
 
     def on_sd15(kernel):
@@ -1975,7 +2521,11 @@ def main() -> int:
     # the IP-Adapter, mask, diffeats and tap_values paths: each call's launches
     paths = {"sd15_ip_pairs_call": sd15_out["ip"]["counts"], **sd15_out["surface"],
              "sdxl_ip_pairs_call": xl_out["ip"]["counts"],
-             **{what: run["counts"] for what, run in surface_cli.items()}}
+             **{what: run["counts"] for what, run in surface_cli.items()},
+             # the baselines' calls at full width and their CLI runs (asserted: none) and the
+             # ensemble CLI run (its diffsim member's forwards)
+             "baselines_full_width": NONE,
+             **{f"cli_{what}": run["counts"] for what, run in baseline_cli.items()}}
     for entry in line["kernels"][:4]:
         entry["launches_paths"] = {path: counts[entry["name"]] for path, counts in paths.items()}
     k1_xl = line["kernels"][0]["sdxl"]
@@ -2018,6 +2568,9 @@ def main() -> int:
         name: {k: out["ip"][k] for k in ("call_ms", "no_ip_call_ms", "peak_gib")}
         for name, out in (("sd15_512", sd15_out), ("sdxl_1024", xl_out))}
     line["cli_paths"] = {what: run["pairs_per_s"] for what, run in surface_cli.items()}
+    line["baselines"] = {"full_width": baselines, "card_vs_cpu_tiny": tiny_baselines,
+                         "cli": {what: {k: v for k, v in run.items() if k != "counts"}
+                                 for what, run in baseline_cli.items()}}
     line["dit"] = {"repeat_ms": dit_out["repeat_ms"], "peak_gib": dit_out["peak_gib"],
                    "cached_vs_fresh": dit_out["cached_gap"], "cli": dit_cli,
                    "converter": converted}

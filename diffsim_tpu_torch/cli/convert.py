@@ -10,11 +10,17 @@ either package's ``--weights``.
     python -m diffsim_tpu_torch.cli.convert dit  --ckpt DiT-XL-2-512x512.pt --vae v.safetensors \\
         --image_size 512 --out dit.npz   (a train-format checkpoint's EMA weights, as the
                                           published find_model takes them)
+    python -m diffsim_tpu_torch.cli.convert clip   --model model.safetensors --out clip.npz
+    python -m diffsim_tpu_torch.cli.convert dinov2 --model ... --size small|base --out ...
+    python -m diffsim_tpu_torch.cli.convert dinov1 --model dino_vits8.pth --out ...
+    python -m diffsim_tpu_torch.cli.convert vgg19  --model vgg19.pth --out ...
+    python -m diffsim_tpu_torch.cli.convert lpips  --model lpips_vgg.pth --vgg vgg16.pth --out ...
+    python -m diffsim_tpu_torch.cli.convert u2net  --model u2netp.pth --out u2netp.npz
+                                          (lite or full, told apart by a stage1 width)
 
 ``.safetensors`` files are read by ``convert/torch_import.load_safetensors``; anything else by
-``torch.load``, unwrapping ``{"ema": ...}`` and ``{"model": ...}``. The other families of the
-JAX CLI (clip, dinov2, dinov1, vgg19, lpips, u2net, sam) raise ``NotImplementedError``: their
-models come with ROADMAP Queue 1 item 6.
+``torch.load``, unwrapping ``{"ema": ...}`` and ``{"model": ...}``. The JAX CLI's ``sam`` family
+raises ``NotImplementedError``: SAM comes with ROADMAP Queue 1 item 6.
 """
 
 from __future__ import annotations
@@ -27,8 +33,8 @@ from diffsim_tpu_torch.convert import diffusion_import as DI
 from diffsim_tpu_torch.convert import torch_import as TI
 from diffsim_tpu_torch.convert.store import _flatten, save_params
 
-FAMILIES = ("sd15", "sdxl", "dit")
-NOT_PORTED = ("clip", "dinov2", "dinov1", "vgg19", "lpips", "u2net", "sam")
+FAMILIES = ("sd15", "sdxl", "dit", "clip", "dinov2", "dinov1", "vgg19", "lpips", "u2net")
+NOT_PORTED = ("sam",)
 
 
 def _load(path: str) -> dict:
@@ -62,11 +68,11 @@ def main(argv=None):
     ap.add_argument("--out", required=True)
     args = ap.parse_args(argv)
     if args.family in NOT_PORTED:
-        raise NotImplementedError(f"convert {args.family}: the baseline metrics' converters are "
-                                  "not ported to PyTorch yet (ROADMAP.md, Queue 1 item 6)")
+        raise NotImplementedError(f"convert {args.family}: SAM's converter is not ported to "
+                                  "PyTorch yet (ROADMAP.md, Queue 1 item 6)")
     dtype = args.dtype if args.dtype == "bfloat16" else np.dtype(args.dtype)
 
-    from diffsim_tpu_torch.models import clip_text, dit, unet, vae
+    from diffsim_tpu_torch.models import clip_text, clip_vision, dinov2, dit, unet, vae, vgg
 
     if args.family in ("sd15", "sdxl"):
         ucfg = unet.UNetConfig.sd15() if args.family == "sd15" else unet.UNetConfig.sdxl()
@@ -82,13 +88,39 @@ def main(argv=None):
             tree["text2"] = TI.convert_clip_text(
                 _load(args.text2), clip_text.CLIPTextConfig.sdxl_big_g()
             )
-    else:
+    elif args.family == "dit":
         dcfg = dit.DiTConfig.xl2(input_size=args.image_size // 8)
         tree = {"dit": DI.convert_dit(_load(args.ckpt), dcfg)}
         if args.vae:
             enc, dec = DI.convert_vae(_load(args.vae), vae.VAEConfig.sd())
             tree["vae"] = enc
             tree["vae_decoder"] = dec
+    elif args.family == "clip":
+        sd = _load(args.model)
+        tree = {
+            "vision": TI.convert_clip_vision(sd, clip_vision.CLIPVisionConfig.b32()),
+            "text": TI.convert_clip_text(sd, clip_text.CLIPTextConfig(
+                hidden=512, heads=8, intermediate=2048, projection_dim=512)),
+        }
+    elif args.family == "dinov2":
+        cfg = dinov2.DinoConfig.v2_small() if args.size == "small" else dinov2.DinoConfig.v2_base()
+        tree = TI.convert_dinov2(_load(args.model), cfg)
+    elif args.family == "dinov1":
+        tree = TI.convert_dino_v1(_load(args.model), dinov2.DinoConfig.v1_vits8())
+    elif args.family == "vgg19":
+        tree = {"convs": TI.convert_vgg_features(_load(args.model), vgg.VGG19_CFG)["convs"]}
+    elif args.family == "lpips":
+        tree = TI.convert_lpips(_load(args.model), vgg.VGG16_CFG)
+        if "vgg" not in tree and args.vgg:
+            tree["vgg"] = TI.convert_vgg_features(_load(args.vgg), vgg.VGG16_CFG)
+    else:
+        from diffsim_tpu_torch.convert.u2net_import import convert_u2net
+        from diffsim_tpu_torch.models.u2net import U2NetConfig
+
+        sd = _load(args.model)
+        # the lite checkpoint (u2netp.pth) has 16-channel mids: told apart by stage1's
+        lite = np.asarray(sd["stage1.rebnconv1.conv_s1.weight"]).shape[0] == 16
+        tree = convert_u2net(sd, U2NetConfig.u2netp() if lite else U2NetConfig.u2net())
 
     tree = DI.cast_tree(tree, dtype)
     save_params(args.out, tree)

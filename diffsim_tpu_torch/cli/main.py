@@ -10,6 +10,7 @@ the card. For example, CUTE with the reference's settings:
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import sys
 
@@ -37,8 +38,9 @@ BENCHMARKS = {
 
 
 def run_benchmark(benchmark: str, argv=None, *, device=None):
-    """Plan ``benchmark`` from the flags ``argv`` and score it; returns (report, adapter).
-    ``device`` is the scoring device (None: the card; the CPU tests pass "cpu")."""
+    """Plan ``benchmark`` from the flags ``argv`` and score it; returns (report, the list of
+    adapters that scored it: one, or ``--metric ensemble``'s three). ``device`` is the scoring
+    device (None: the card; the CPU tests pass "cpu")."""
     args = arg_parse(argv)
     if args.num_devices not in (None, 1):
         raise NotImplementedError("--num_devices > 1: multi-GPU scoring is not ported to "
@@ -57,12 +59,25 @@ def run_benchmark(benchmark: str, argv=None, *, device=None):
     print(f"=========seed {args.seed}=========")
     print(f"Experiment on {args.target_block}, layer {args.target_layer}, "
           f"timestep {args.target_step}:")
-    adapter = build_metric(args, device)
-    mask_fn = _mask_fn(args, adapter)
-    loader = ImageLoader(args.image_size, preprocess=adapter.preprocess,
-                         fast_decode=args.fast_decode)
     timer = StageTimer() if args.profile else None
     ctx = trace(args.profile_trace) if args.profile_trace else contextlib.nullcontext()
+    if args.metric == "ensemble":
+        # the reference's three voters: diffsim, CLIP-I and DINOv2
+        adapters = [build_metric(argparse.Namespace(**{**vars(args), "metric": m}), device)
+                    for m in ("diffsim", "clip_i", "dino")]
+        with ctx:
+            report = runner.run_2afc_ensemble(
+                comparisons, adapters, vote_based=rule in (runner.VOTE, runner.VOTE_GREATER),
+                img_size=args.image_size, batch=args.batch_size, out_path=args.results,
+                timer=timer)
+        if timer is not None:
+            timer.report()
+        return report, adapters
+
+    adapter = build_metric(args, device)
+    mask_fn = _mask_fn(args, adapter, device)
+    loader = ImageLoader(args.image_size, preprocess=adapter.preprocess,
+                         fast_decode=args.fast_decode)
     try:
         with ctx:
             report = runner.run_2afc(
@@ -78,12 +93,13 @@ def run_benchmark(benchmark: str, argv=None, *, device=None):
         print(f"[moment cache] {cache.stats}")
     if timer is not None:
         timer.report()
-    return report, adapter
+    return report, [adapter]
 
 
-def _mask_fn(args, adapter):
-    """``--use_mask``: the masks from the ``--mask_path`` tree, or made at score time by the
-    border-statistics heuristic; None without the flag or for a metric without masks."""
+def _mask_fn(args, adapter, device):
+    """``--use_mask``: the masks from the ``--mask_path`` tree, or made at score time by U^2-Net
+    saliency (``--matting_weights``) or the border-statistics heuristic; None without the flag
+    or for a metric without masks."""
     if not args.use_mask:
         return None
     if not adapter.wants_masks:
@@ -94,16 +110,22 @@ def _mask_fn(args, adapter):
         from diffsim_tpu_torch.core.image import load_mask, mask_path_for
 
         return lambda path: load_mask(mask_path_for(path, args.image_path, args.mask_path), size)
-    for flag in ("sam_weights", "matting_weights"):
-        if getattr(args, flag):
-            raise NotImplementedError(f"--use_mask with --{flag}: SAM and U^2-Net masks are not "
-                                      "ported to PyTorch yet (ROADMAP.md, Queue 1 item 6)")
+    if args.sam_weights:
+        raise NotImplementedError("--use_mask with --sam_weights: SAM masks are not ported to "
+                                  "PyTorch yet (ROADMAP.md, Queue 1 item 6)")
     from diffsim_tpu_torch.core.image import mask_from_matting
-    from diffsim_tpu_torch.metrics.ffa import heuristic_matting
+    from diffsim_tpu_torch.metrics.ffa import U2NetMatting, heuristic_matting
 
-    print("[use_mask] generating masks with the border-statistics heuristic (pass --mask_path "
-          "for model-quality masks)")
-    return lambda path: mask_from_matting(heuristic_matting, path, size)
+    if args.matting_weights:
+        from diffsim_tpu_torch.metrics.registry import _load_params
+
+        matting = U2NetMatting(_load_params(args.matting_weights), device=device)
+        print("[use_mask] generating masks with U^2-Net saliency")
+    else:
+        matting = heuristic_matting
+        print("[use_mask] generating masks with the border-statistics heuristic (pass "
+              "--matting_weights or --mask_path for model-quality masks)")
+    return lambda path: mask_from_matting(matting, path, size)
 
 
 def main():

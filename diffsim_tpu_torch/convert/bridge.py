@@ -15,6 +15,12 @@ parameters after the same tree paths ('/' -> '.'), with torch's leaf names:
   maps it to the port's ``nn.Linear`` (``models/dit.py``), as it maps the CLIP vision tower's
   ``patch_embedding`` (``clip_vision``, whose ``class_embedding`` and ``position_embedding``
   are tables);
+* the baseline metrics' models: the CLIP pair (``clip``: the ``vision`` and ``text`` towers of
+  B/32 in one tree, their embedding and position tables as they are), DINOv2 / DINO v1
+  (``dino``: ``cls_token``, ``position_embedding`` and each layer's LayerScale ``ls1`` / ``ls2``
+  as they are), VGG (``vgg``: ``convs``), LPIPS (``lpips``: the VGG-16 trunk and the 1-D ``lins``
+  weights as they are) and U^2-Net (``u2net``: each BatchNorm's ``mean`` / ``var`` as they
+  are, its ``scale`` / ``bias`` as a norm's);
 * the IP-Adapter: its projection head (``ip_proj``: the Resampler with its ``latents`` table,
   or the plain ImageProjection) and, in the ``unet`` kind, each attn2's per-adapter
   ``ip/<i>/to_k_ip`` / ``to_v_ip``. The plain head's ``num_tokens`` leaf is configuration, not a
@@ -37,13 +43,19 @@ from torch import nn
 
 from diffsim_tpu_torch.convert.store import _flatten, as_float32, unflatten
 
-KINDS = ("unet", "vae", "text", "text2", "dit", "clip_vision", "ip_proj")
-# the leaves each kind keeps as they are: embedding and position tables
+KINDS = ("unet", "vae", "text", "text2", "dit", "clip_vision", "ip_proj", "clip", "dino",
+         "vgg", "lpips", "u2net")
+# the leaves each kind keeps as they are, by path: embedding and position tables
 _TABLES = {"text": ("token_embedding", "position_embedding"),
            "text2": ("token_embedding", "position_embedding"),
            "dit": ("pos_embed", "y_embedder"),
            "clip_vision": ("class_embedding", "position_embedding"),
-           "ip_proj": ("latents",)}
+           "ip_proj": ("latents",),
+           "clip": ("vision/class_embedding", "vision/position_embedding",
+                    "text/token_embedding", "text/position_embedding"),
+           "dino": ("cls_token", "position_embedding")}
+# the 1-D leaves each kind keeps as they are, by name at any depth
+_KEPT = {"dino": ("ls1", "ls2"), "lpips": ("w",), "u2net": ("mean", "var")}
 
 
 def _num_tokens(proj_rows: int, norm_dim: int) -> int:
@@ -55,7 +67,9 @@ def _convert(path: str, leaf: np.ndarray, kind: str) -> tuple[str, np.ndarray]:
     *prefix, name = path.split("/")
     arr = np.asarray(leaf)
     if path in _TABLES.get(kind, ()):
-        return path, arr
+        return path.replace("/", "."), arr
+    if name in _KEPT.get(kind, ()) and arr.ndim == 1:
+        return ".".join(prefix + [name]), arr
     if name == "w" and arr.ndim == 4:
         return ".".join(prefix + ["weight"]), arr.transpose(3, 2, 0, 1)
     if name == "w" and arr.ndim == 2:
@@ -107,10 +121,14 @@ def to_jax_tree(state, kind: str):
               else np.asarray(v) for k, v in state.items()}
     flat = {}
     for name, arr in arrays.items():
-        if name in _TABLES.get(kind, ()):
-            flat[name] = arr
+        path = name.replace(".", "/")
+        if path in _TABLES.get(kind, ()):
+            flat[path] = arr
             continue
         prefix, leaf = name.rsplit(".", 1)
+        if leaf in _KEPT.get(kind, ()) and arr.ndim == 1:
+            flat[path] = arr
+            continue
         norm = arrays[f"{prefix}.weight"].ndim == 1
         if leaf == "weight":
             key, arr = ("scale", arr) if norm else (

@@ -8,9 +8,10 @@ families need (``convert/diffusion_import.py``, ``cli/convert.py``). Layout rule
 :func:`load_safetensors` reads the safetensors format itself (an 8-byte little-endian header
 length, a JSON header, then raw little-endian data), so conversion needs neither the
 ``safetensors`` package nor ``ml_dtypes``. :func:`convert_clip_vision` and
-:func:`convert_ip_adapter` convert the IP-Adapter's image encoder and adapter checkpoints; the
-converters of the baseline metrics' models (DINO, VGG, LPIPS, U^2-Net, SAM) come with ROADMAP
-Queue 1 item 6.
+:func:`convert_ip_adapter` convert the IP-Adapter's image encoder and adapter checkpoints;
+:func:`convert_dinov2`, :func:`convert_dino_v1`, :func:`convert_vgg_features` and
+:func:`convert_lpips` the baseline metrics' (``convert/u2net_import.py`` converts U^2-Net). SAM's
+converter comes with ROADMAP Queue 1 item 6.
 """
 
 from __future__ import annotations
@@ -145,6 +146,99 @@ def convert_clip_vision(sd: dict, cfg) -> dict:
     else:
         p["visual_projection"] = {"w": np.eye(cfg.hidden, cfg.projection_dim, dtype=np.float32)}
     return p
+
+
+def convert_dinov2(sd: dict, cfg) -> dict:
+    """HF ``Dinov2Model`` -> the ``dino`` tree (LayerScale leaves when ``cfg.layerscale``)."""
+    layers = []
+    for i in range(cfg.layers):
+        base = f"encoder.layer.{i}"
+        layer = {
+            "norm1": _norm(sd, f"{base}.norm1"),
+            "attn": {
+                "q": _lin(sd, f"{base}.attention.attention.query"),
+                "k": _lin(sd, f"{base}.attention.attention.key"),
+                "v": _lin(sd, f"{base}.attention.attention.value"),
+                "out": _lin(sd, f"{base}.attention.output.dense"),
+            },
+            "norm2": _norm(sd, f"{base}.norm2"),
+            "fc1": _lin(sd, f"{base}.mlp.fc1"),
+            "fc2": _lin(sd, f"{base}.mlp.fc2"),
+        }
+        if cfg.layerscale:
+            layer["ls1"] = sd[f"{base}.layer_scale1.lambda1"]
+            layer["ls2"] = sd[f"{base}.layer_scale2.lambda1"]
+        layers.append(layer)
+    pos = sd["embeddings.position_embeddings"]
+    return {
+        "cls_token": sd["embeddings.cls_token"].reshape(-1),
+        "patch_embedding": {
+            "w": _patch_conv_to_dense(sd["embeddings.patch_embeddings.projection.weight"]),
+            "b": sd["embeddings.patch_embeddings.projection.bias"],
+        },
+        "position_embedding": pos.reshape(-1, pos.shape[-1]),
+        "layers": layers,
+        "final_norm": _norm(sd, "layernorm"),
+    }
+
+
+def convert_dino_v1(sd: dict, cfg) -> dict:
+    """facebookresearch/dino's ``VisionTransformer`` (fused qkv) -> the ``dino`` tree."""
+    layers = []
+    h = cfg.hidden
+    for i in range(cfg.layers):
+        base = f"blocks.{i}"
+        qkv_w = sd[f"{base}.attn.qkv.weight"]  # (3h, h)
+        qkv_b = sd.get(f"{base}.attn.qkv.bias", np.zeros(3 * h, np.float32))
+        layers.append(
+            {
+                "norm1": _norm(sd, f"{base}.norm1"),
+                "attn": {
+                    "q": {"w": qkv_w[:h].T, "b": qkv_b[:h]},
+                    "k": {"w": qkv_w[h:2 * h].T, "b": qkv_b[h:2 * h]},
+                    "v": {"w": qkv_w[2 * h:].T, "b": qkv_b[2 * h:]},
+                    "out": _lin(sd, f"{base}.attn.proj"),
+                },
+                "norm2": _norm(sd, f"{base}.norm2"),
+                "fc1": _lin(sd, f"{base}.mlp.fc1"),
+                "fc2": _lin(sd, f"{base}.mlp.fc2"),
+            }
+        )
+    return {
+        "cls_token": sd["cls_token"].reshape(-1),
+        "patch_embedding": {
+            "w": _patch_conv_to_dense(sd["patch_embed.proj.weight"]),
+            "b": sd["patch_embed.proj.bias"],
+        },
+        "position_embedding": sd["pos_embed"].reshape(-1, sd["pos_embed"].shape[-1]),
+        "layers": layers,
+        "final_norm": _norm(sd, "norm"),
+    }
+
+
+def convert_vgg_features(sd: dict, cfg) -> dict:
+    """torchvision's VGG ``.features`` ('features.N.weight', or bare 'N.weight') -> {'convs'}."""
+    pre = "features." if any(k.startswith("features.") for k in sd) else ""
+    convs = []
+    idx = 0
+    for item in cfg:
+        if item == "M":
+            idx += 1
+            continue
+        convs.append(_conv(sd, f"{pre}{idx}"))
+        idx += 2  # conv + relu
+    return {"convs": convs}
+
+
+def convert_lpips(sd: dict, vgg_cfg) -> dict:
+    """The published LPIPS checkpoint ('lin{i}.model.1.weight', (1, C, 1, 1) heads) -> {'lins'},
+    plus 'vgg' when the trunk is merged in under 'net.' (else convert torchvision's VGG-16 with
+    :func:`convert_vgg_features`)."""
+    out = {"lins": [{"w": sd[f"lin{i}.model.1.weight"].reshape(-1)} for i in range(5)]}
+    net = {k[len("net."):]: v for k, v in sd.items() if k.startswith("net.")}
+    if net:
+        out["vgg"] = convert_vgg_features(net, vgg_cfg)
+    return out
 
 
 def convert_ip_adapter(sd: dict, unet_cfg) -> dict:

@@ -1,6 +1,7 @@
 """Host-side image loading and preprocessing (the port's own copy of the PIL path of
-``diffsim_tpu/core/image.py``, with its threaded :class:`ImageLoader`, the CLIP normalisation
-constants and the foreground masks of ``--use_mask``).
+``diffsim_tpu/core/image.py``, with its threaded :class:`ImageLoader`, the CLIP and DINO
+pipelines of the baseline metrics, their normalisation constants and the foreground masks of
+``--use_mask``).
 
 Parity-critical: images are resized with PIL lanczos and mapped to [-1, 1]. Arrays are NHWC,
 the layout of the scorers' public functions.
@@ -20,6 +21,8 @@ from PIL import Image
 
 CLIP_MEAN = np.array([0.48145466, 0.4578275, 0.40821073], np.float32)
 CLIP_STD = np.array([0.26862954, 0.26130258, 0.27577711], np.float32)
+IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
+IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
 
 
 def load_image(path_or_image, draft_size: int | None = None) -> Image.Image:
@@ -55,6 +58,52 @@ def load_and_process(path, img_size: int = 512, fast_decode: bool = False) -> np
 
 def load_and_process_u8(path, img_size: int = 512, fast_decode: bool = False) -> np.ndarray:
     return process_image_u8(load_image(path, img_size if fast_decode else None), img_size)
+
+
+def _shortest_side_resize(image: Image.Image, size: int, resample=Image.BICUBIC) -> Image.Image:
+    """Resize so that the shorter side is ``size``, keeping the aspect ratio (the longer side
+    truncated to an integer)."""
+    w, h = image.size
+    short, long = (w, h) if w <= h else (h, w)
+    new_long = int(size * long / short)
+    nw, nh = (size, new_long) if w <= h else (new_long, size)
+    return image.resize((nw, nh), resample=resample)
+
+
+def _center_crop(arr: np.ndarray, size: int) -> np.ndarray:
+    h, w = arr.shape[:2]
+    top = (h - size) // 2
+    left = (w - size) // 2
+    return arr[top:top + size, left:left + size]
+
+
+def clip_preprocess_u8(image: Image.Image, size: int = 224) -> np.ndarray:
+    """CLIP's resize and crop on the host, (1, size, size, 3) uint8; the mean / std
+    normalisation runs on the device."""
+    image = _shortest_side_resize(image.convert("RGB"), size)
+    return _center_crop(np.asarray(image, np.uint8), size)[None]
+
+
+def dino_preprocess_u8(image: Image.Image, resize: int = 256, crop: int = 224) -> np.ndarray:
+    """DINO's shortest-side 256 bicubic resize and centre crop to 224, uint8."""
+    image = _shortest_side_resize(image.convert("RGB"), resize)
+    return _center_crop(np.asarray(image, np.uint8), crop)[None]
+
+
+def clip_preprocess(image: Image.Image, size: int = 224) -> np.ndarray:
+    """HF CLIPProcessor: shortest-side bicubic resize to ``size``, centre crop, 1/255, CLIP
+    mean / std. (1, size, size, 3) float32."""
+    image = _shortest_side_resize(image.convert("RGB"), size)
+    arr = _center_crop(np.asarray(image, np.float32) / 255.0, size)
+    return ((arr - CLIP_MEAN) / CLIP_STD)[None]
+
+
+def dino_preprocess(image: Image.Image, resize: int = 256, crop: int = 224) -> np.ndarray:
+    """DINO / DINOv2 (torchvision transforms, HF BitImageProcessor): shortest side 256 bicubic,
+    centre crop 224, ImageNet mean / std. (1, crop, crop, 3) float32."""
+    image = _shortest_side_resize(image.convert("RGB"), resize)
+    arr = _center_crop(np.asarray(image, np.float32) / 255.0, crop)
+    return ((arr - IMAGENET_MEAN) / IMAGENET_STD)[None]
 
 
 class ImageLoader:
@@ -132,8 +181,8 @@ def load_mask(path, img_size: int) -> np.ndarray:
 
 def mask_from_matting(matting, path, img_size: int) -> np.ndarray:
     """A foreground mask made at score time: the alpha channel of ``matting(PIL RGB) -> PIL
-    RGBA`` (``metrics/ffa.heuristic_matting``), resized nearest and binarised to
-    (1, img_size, img_size) float32 in {0, 1}."""
+    RGBA`` (``metrics/ffa.heuristic_matting`` or ``metrics/ffa.U2NetMatting``), resized nearest
+    and binarised to (1, img_size, img_size) float32 in {0, 1}."""
     rgba = np.asarray(matting(load_image(path)), np.uint8)
     alpha = Image.fromarray(rgba[..., 3], "L").resize((img_size, img_size), Image.NEAREST)
     return (np.asarray(alpha, np.float32) > 127.5).astype(np.float32)[None]

@@ -1,31 +1,27 @@
 """Metric registry of the port: the ``--metric`` CLI surface mapped to scorer adapters
 (counterpart of ``diffsim_tpu/metrics/registry.py``).
 
-The port has the ``diffsim`` (SD-1.5, with ``--ip_adapter`` and ``--use_mask``), ``diffeats``
-(SD-1.5's attn1 output features), ``diffsim_xl`` (SDXL, with ``--ip_adapter``) and ``dit``
-(DiT-XL/2) branches. Every other metric raises ``NotImplementedError`` naming the ROADMAP item
-that ports it.
+Every metric of the JAX registry: ``diffsim`` (SD-1.5, with ``--ip_adapter`` and
+``--use_mask``), ``diffeats`` (SD-1.5's attn1 output features), ``diffsim_xl`` (SDXL, with
+``--ip_adapter``), ``dit`` (DiT-XL/2) and the baselines (``clip_i``, ``clip_cross``,
+``clipfeats``, ``dino``, ``dinov1``, ``dino_cross``, ``dinofeats``, ``cute``, ``lpips``,
+``gram``). ``ensemble`` (diffsim, clip_i and dino voting) is assembled by ``cli/main.py`` from
+three of these, as in JAX.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 from typing import Callable
 
 import numpy as np
 import torch
 
-# metric -> the ROADMAP item (Queue 1) that ports it
-NOT_PORTED = dict.fromkeys(("clip_i", "clip_cross", "clipfeats", "dino", "dinov1", "dino_cross",
-                            "dinofeats", "cute", "lpips", "gram", "ensemble"),
-                           "item 6 (the baseline metrics)")
-PORTED = ("diffsim", "diffeats", "diffsim_xl", "dit")
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to PyTorch yet (ROADMAP.md, Queue 1 "
-                               f"{item})")
+DIFFUSION = ("diffsim", "diffeats", "diffsim_xl", "dit")
+BASELINES = ("clip_i", "clip_cross", "clipfeats", "dino", "dinov1", "dino_cross", "dinofeats",
+             "cute", "lpips", "gram")
 
 
 @dataclasses.dataclass
@@ -117,11 +113,24 @@ def _attach_ip(scorer, args, tiny: bool) -> None:
 
 def _tiny_configs(name: str, image_size: int = 32) -> dict:
     """The toy configs of ``--model_scale tiny`` (CPU tests), in float32; the tiny DiT's latent
-    grid follows ``image_size`` (the tiny VAE downsamples by 2)."""
+    grid follows ``image_size`` (the tiny VAE downsamples by 2). As in JAX, LPIPS and VGG-Gram
+    keep their VGG at full width, and FFA's tiny DINO takes patch 14 (the 24 x 24 grid at
+    336 px)."""
     from diffsim_tpu_torch.models.clip_text import CLIPTextConfig
     from diffsim_tpu_torch.models.unet import UNetConfig
     from diffsim_tpu_torch.models.vae import VAEConfig
 
+    if name in ("clip_i", "clip_cross", "clipfeats"):
+        from diffsim_tpu_torch.models.clip_vision import CLIPVisionConfig
+
+        return dict(vision_cfg=CLIPVisionConfig.tiny(), text_cfg=CLIPTextConfig.tiny())
+    if name in ("dino", "dinov1", "dino_cross", "dinofeats", "cute"):
+        from diffsim_tpu_torch.models.dinov2 import DinoConfig
+
+        cfg = DinoConfig.tiny()
+        return dict(cfg=dataclasses.replace(cfg, patch=14) if name == "cute" else cfg)
+    if name in ("lpips", "gram"):
+        return {}
     if name == "dit":
         from diffsim_tpu_torch.models.dit import DiTConfig
 
@@ -140,9 +149,9 @@ def build_metric(args, device=None) -> MetricAdapter:
     target_block/layer/step, similarity, seed, ...); ``device`` is the scoring device (None:
     the card)."""
     name = args.metric
-    if name in NOT_PORTED:
-        raise _not_ported(f"--metric {name}", NOT_PORTED[name])
-    if name not in PORTED:
+    if name in BASELINES:
+        return _baseline(args, device)
+    if name not in DIFFUSION:
         raise ValueError(f"unknown metric: {name}")
     similarity = args.similarity
     lower = similarity == "mse"
@@ -222,3 +231,51 @@ def build_metric(args, device=None) -> MetricAdapter:
     return MetricAdapter(score_pairs, lower, preprocess=preprocess,
                          score_triplets=score_triplets, score_triplet_paths=score_triplet_paths,
                          prewarm=prewarm, scorer=scorer, wants_masks=wants_masks)
+
+
+def _baseline(args, device) -> MetricAdapter:
+    """The adapter of a baseline metric. Each scores pairs only (no triplet path), with its
+    scorer's host preprocessing where the JAX adapter has one (LPIPS and VGG-Gram take the
+    default lanczos / [-1, 1] pixels, as in JAX)."""
+    name = args.metric
+    tiny = getattr(args, "model_scale", "full") == "tiny"
+    kw = _tiny_configs(name) if tiny else {}
+    params = _load_params(getattr(args, "weights", None))
+    if name in ("clip_i", "clip_cross", "clipfeats"):
+        from diffsim_tpu_torch.metrics.clip_i import CLIPScore
+
+        scorer = CLIPScore(params, device=device, **kw)
+        method = {"clip_i": scorer.clipi_score_batch, "clip_cross": scorer.clip_cross_score_batch,
+                  "clipfeats": scorer.clip_feature_score_batch}[name]
+    elif name in ("dino", "dinov1", "dino_cross", "dinofeats"):
+        from diffsim_tpu_torch.metrics.dino import DinoScore, Dinov2Score
+
+        scorer = (DinoScore if name == "dinov1" else Dinov2Score)(params, device=device, **kw)
+        method = {"dino_cross": scorer.dino_cross_score_batch,
+                  "dinofeats": scorer.dino_feature_score_batch}.get(name, scorer.dino_score_batch)
+    elif name == "cute":
+        from diffsim_tpu_torch.metrics.ffa import ForegroundFeatureAveraging, U2NetMatting
+
+        matting = None
+        if getattr(args, "matting_weights", None):
+            matting = U2NetMatting(_load_params(args.matting_weights), device=device)
+        scorer = ForegroundFeatureAveraging(params, matting=matting, device=device, **kw)
+        method = functools.partial(scorer.score_batch, "Crop-Feat")
+    elif name == "lpips":
+        from diffsim_tpu_torch.metrics.lpips import LPIPS
+
+        scorer = LPIPS(params, device=device)
+        method = scorer.score_batch
+    else:
+        from diffsim_tpu_torch.metrics.vgg_gram import VGGGram
+
+        scorer = VGGGram(params, device=device)
+        method = scorer.score_batch
+    layer = (args.target_layer,) if name in ("clip_cross", "clipfeats", "dino_cross",
+                                              "dinofeats") else ()
+
+    def score_pairs(pa, pb, prompts, blocking=True):
+        return method(pa, pb, *layer, blocking=blocking)
+
+    preprocess = None if name in ("lpips", "gram") else scorer.preprocess
+    return MetricAdapter(score_pairs, name == "lpips", preprocess=preprocess, scorer=scorer)

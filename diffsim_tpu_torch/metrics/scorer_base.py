@@ -105,6 +105,38 @@ def to_device_pixels(roles, device: torch.device, dtype: torch.dtype) -> torch.T
     return pix.permute(0, 3, 1, 2).contiguous()
 
 
+def to_device_normalized(pixels, mean, std, device: torch.device) -> torch.Tensor:
+    """NHWC pixels -> one float32 NCHW batch on ``device``, as the baseline scorers'
+    ``_normalize``: uint8 becomes (u8 / 255 - mean) / std on the device; float pixels are taken
+    as already normalised."""
+    pixels = np.asarray(pixels)
+    x = torch.from_numpy(np.ascontiguousarray(pixels)).to(device)
+    if pixels.dtype == np.uint8:
+        mean = torch.as_tensor(mean, device=device)
+        std = torch.as_tensor(std, device=device)
+        x = (x.float() / 255.0 - mean) / std
+    return x.float().permute(0, 3, 1, 2).contiguous()
+
+
+def unit_cosine_100(emb: torch.Tensor) -> torch.Tensor:
+    """(2P, E) embeddings, A rows then B rows -> (P,) 100 x the cosine of each pair, the
+    embeddings normalised in float32 as the JAX baselines do."""
+    emb = emb.float()
+    emb = emb / torch.linalg.vector_norm(emb, dim=-1, keepdim=True)
+    n = emb.shape[0] // 2
+    return 100.0 * (emb[:n] * emb[n:]).sum(dim=-1)
+
+
+def host_cosine(fa: np.ndarray, fb: np.ndarray) -> np.ndarray:
+    """Row cosines of two (N, E) arrays on the host, norms clamped at 1e-8 (the JAX
+    baselines' fetch)."""
+    fa, fb = np.asarray(fa, np.float32), np.asarray(fb, np.float32)
+    dot = np.sum(fa * fb, axis=-1)
+    na = np.maximum(np.linalg.norm(fa, axis=-1), 1e-8)
+    nb = np.maximum(np.linalg.norm(fb, axis=-1), 1e-8)
+    return dot / (na * nb)
+
+
 def role_noise(seed: int, h: int, w: int, channels: int, device: torch.device,
                noise_override=None):
     """(eps_vae, eps_noise), each (2, C, h, w) f32 on ``device``: roles [A, B]. The draws come

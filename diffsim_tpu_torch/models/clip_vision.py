@@ -1,12 +1,18 @@
-"""CLIP vision tower (ViT-B/32, and ViT-H/14: the IP-Adapter's image encoder), on the math path.
+"""CLIP vision tower (ViT-B/32: the CLIP metrics; ViT-H/14: the IP-Adapter's image encoder), on
+the math path (50 or 257 tokens: no attention kernel's route).
 
 Counterpart of ``diffsim_tpu/models/clip_vision.py``. Pixels are NCHW, CLIP-normalised. The
 patch embedding is a bias-free dense layer over (ph, pw, C)-ordered patches, the JAX layout.
 
-The IP-Adapter path reads only the penultimate hidden state. XLA drops the last layer, the
-post-LayerNorm and the projection from that graph; eager PyTorch does not, so
-:meth:`CLIPVision.penultimate` runs the layers up to it and returns. The taps of the CLIP
-metrics (``tap_layer``, :func:`out_proj_replay`) come with ROADMAP Queue 1 item 6.
+The taps of the CLIP metrics keep the reference hooks' semantics:
+
+* ``capture='qkv'`` projects Q/K/V from the tap layer's *raw input*, before ``norm1`` (the
+  reference hook's quirk), not the layer's real post-LayerNorm Q/K/V;
+* ``capture='output'`` is the layer's output hidden state.
+
+XLA drops what a jitted graph does not return; eager PyTorch does not, so :meth:`CLIPVision.tap`
+runs the layers up to the tap and returns, and :meth:`CLIPVision.penultimate` (what the
+IP-Adapter reads) returns before the last layer.
 """
 
 from __future__ import annotations
@@ -51,11 +57,6 @@ class CLIPVisionConfig:
                                 image_size=32, projection_dim=16)
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to PyTorch yet (ROADMAP.md, Queue 1 "
-                               "item 6, the baseline metrics)")
-
-
 class _Attention(nn.Module):
     def __init__(self, hidden: int, heads: int):
         super().__init__()
@@ -65,9 +66,11 @@ class _Attention(nn.Module):
         self.v = nn.Linear(hidden, hidden)
         self.out = nn.Linear(hidden, hidden)
 
+    def qkv(self, x):
+        return tuple(split_heads(proj(x), self.heads) for proj in (self.q, self.k, self.v))
+
     def forward(self, x):
-        q, k, v = (split_heads(proj(x), self.heads) for proj in (self.q, self.k, self.v))
-        return self.out(merge_heads(sdpa(q, k, v)))
+        return self.out(merge_heads(sdpa(*self.qkv(x))))
 
 
 class _Layer(nn.Module):
@@ -106,13 +109,11 @@ class CLIPVision(nn.Module):
         x = torch.cat([cls, x], dim=1) + self.position_embedding[None]
         return self.pre_norm(x)
 
-    def forward(self, pixels: torch.Tensor, *, output_hidden_states: bool = False,
-                tap_layer: int | None = None) -> dict:
+    def forward(self, pixels: torch.Tensor, *, output_hidden_states: bool = False) -> dict:
         """pixels (B, 3, S, S), CLIP-normalised -> {'last_hidden_state', 'pooled' (the
         post-LayerNormed CLS token), 'image_embeds' (its projection)}, plus 'hidden_states'
-        (the embeddings and every layer's output) with ``output_hidden_states``."""
-        if tap_layer is not None:
-            raise _not_ported("the CLIP vision taps (tap_layer)")
+        (the embeddings and every layer's output) with ``output_hidden_states``. The taps of
+        JAX's ``apply(tap_layer=..., capture=...)`` are :meth:`tap`'s."""
         x = self._embed(pixels)
         hidden_states = [x]
         for layer in self.layers:
@@ -125,6 +126,19 @@ class CLIPVision(nn.Module):
             out["hidden_states"] = hidden_states
         return out
 
+    def tap(self, pixels: torch.Tensor, tap_layer: int, capture: str = "qkv") -> dict:
+        """The taps of layer ``tap_layer % layers``, running the layers up to it only:
+        {'q', 'k', 'v'} (B, heads, tokens, head_dim) projected from the tap layer's input before
+        ``norm1``, or {'out'}: the layer's output (B, tokens, hidden)."""
+        if capture not in ("qkv", "output"):
+            raise ValueError(f"unknown capture: {capture}")
+        idx = tap_layer % self.cfg.layers
+        x = self._embed(pixels)
+        for layer in self.layers[:idx]:
+            x = layer(x)
+        layer = self.layers[idx]
+        return dict(zip("qkv", layer.attn.qkv(x))) if capture == "qkv" else {"out": layer(x)}
+
     def penultimate(self, pixels: torch.Tensor) -> torch.Tensor:
         """``forward(pixels, output_hidden_states=True)['hidden_states'][-2]``, without running
         the last layer: what the IP-Adapter-plus Resampler reads."""
@@ -134,6 +148,8 @@ class CLIPVision(nn.Module):
         return x
 
 
-def out_proj_replay(*args, **kwargs):
-    """The CLIP metrics' out-proj replay (``diffsim_tpu/models/clip_vision.py``)."""
-    raise _not_ported("out_proj_replay")
+def out_proj_replay(model: CLIPVision, context: torch.Tensor, tap_layer: int) -> torch.Tensor:
+    """The reference's out-projection replay in its attention readout: merge the heads of
+    ``context`` (B, heads, S, D), then apply the tap layer's ``out`` projection."""
+    layer = model.layers[tap_layer % model.cfg.layers]
+    return layer.attn.out(merge_heads(context))

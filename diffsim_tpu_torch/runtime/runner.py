@@ -5,7 +5,7 @@ pairs of every comparison across the whole benchmark, decodes images on host thr
 card scores the previous batch, logs every comparison to JSONL (resumable), and reproduces each
 reference script's accuracy arithmetic: TID2013 and DreamBench++ compare with ``>`` whatever the
 similarity, CUTE / Sref / IPref flip for mse, NIGHTS and DreamBench++ compare against human
-votes. The ensemble vote (``run_2afc_ensemble``) waits for the baseline metrics.
+votes. :func:`run_2afc_ensemble` is the reference's 2-of-3 vote of three metrics.
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ from typing import Callable, Sequence
 
 import numpy as np
 
-from diffsim_tpu_torch.core.image import ImageLoader, process_image_u8
+from diffsim_tpu_torch.core.image import ImageLoader, load_image, process_image, process_image_u8
 from diffsim_tpu_torch.data.benchmarks import Comparison
 from diffsim_tpu_torch.runtime.profiling import StageTimer
 from diffsim_tpu_torch.runtime.results import ResultLog
@@ -197,4 +197,119 @@ def run_2afc(
     print_fn(f"Accuracy: {report.accuracy}%")
     if rule == STANDARD:
         print_fn(f"2x Accuracy: {report.accuracy_2x}%")
+    return report
+
+
+def run_2afc_ensemble(
+    comparisons: Sequence[Comparison],
+    adapters: Sequence,
+    *,
+    vote_based: bool = False,
+    img_size: int = 512,
+    batch: int = 16,
+    out_path: str | None = None,
+    print_fn=print,
+    timer: StageTimer | None = None,
+) -> Report:
+    """The reference's 2-of-3 majority vote over ``adapters`` (MetricAdapter-like: score_pairs,
+    lower_better, preprocess, score_triplets, score_triplet_paths). Each image of a comparison
+    is decoded once and every metric's preprocessing runs on that one image; every metric of a
+    batch is dispatched before the previous batch's scores are fetched (one batch in flight),
+    through the cached path where the adapter has one and the inputs are paths, else the
+    triplet path, else the pair path. Each metric logs to its own JSONL, ``<out_path>.m<idx>``,
+    and a comparison is done only when every metric's log holds it, so a run resumes.
+    ``vote_based`` (NIGHTS, DreamBench++) compares the majority with the human vote; otherwise
+    a comparison is correct when the majority prefers B."""
+    timer = timer or StageTimer()
+    preps = [ad.preprocess or (lambda img: process_image(img, img_size)) for ad in adapters]
+    logs = [ResultLog(f"{out_path}.m{idx}" if out_path else None) for idx in range(len(adapters))]
+    done = set.intersection(*(set(log.done) for log in logs)) if logs else set()
+    pending = [i for i in range(len(comparisons)) if i not in done]
+    chunks = [pending[i:i + batch] for i in range(0, len(pending), batch)]
+    pool = _futures.ThreadPoolExecutor(max_workers=min(32, os.cpu_count() or 8))
+
+    def decode_all(path):
+        """One decode, every metric's preprocessing: (arr_m0, arr_m1, ...)."""
+        img = load_image(path)
+        return tuple(prep(img) for prep in preps)
+
+    def decode(chunk):
+        return [tuple(pool.submit(decode_all, getattr(comparisons[i], r)) for r in "abc")
+                for i in chunk]
+
+    inflight = []
+    ci = 0
+    while ci < len(chunks) and len(inflight) < PREFETCH:
+        inflight.append((chunks[ci], decode(chunks[ci])))
+        ci += 1
+    pending_fetch = None  # (chunk, [per-metric fetch])
+
+    def drain():
+        nonlocal pending_fetch
+        if pending_fetch is None:
+            return
+        chunk_, fetches = pending_fetch
+        pending_fetch = None
+        for m, fetch in enumerate(fetches):
+            with timer.stage(f"fetch.m{m}"):
+                scores = fetch() if callable(fetch) else fetch
+            if isinstance(scores, tuple):
+                s_ab, s_ac = scores
+            else:
+                s_ab, s_ac = scores[:len(chunk_)], scores[len(chunk_):]
+            for j, i in enumerate(chunk_):
+                logs[m].record(i, s_ab=float(s_ab[j]), s_ac=float(s_ac[j]))
+
+    try:
+        while inflight:
+            chunk, futs = inflight.pop(0)
+            with timer.stage("decode"):
+                arrs = [tuple(f.result() for f in triple) for triple in futs]
+            if ci < len(chunks):
+                inflight.append((chunks[ci], decode(chunks[ci])))
+                ci += 1
+            prompts = [comparisons[i].prompt for i in chunk]
+            roles = [[getattr(comparisons[i], r) for i in chunk] for r in "abc"]
+            pathlike = all(isinstance(p, (str, os.PathLike)) for role in roles for p in role)
+            fetches = []
+            with timer.stage("dispatch"):
+                for m, ad in enumerate(adapters):
+                    pa, pb, pc = (np.concatenate([e[j][m] for e in arrs], axis=0)
+                                  for j in range(3))
+                    if getattr(ad, "score_triplet_paths", None) is not None and pathlike:
+                        # the shared decode's rows feed the moment cache's misses
+                        fetches.append(ad.score_triplet_paths(*roles, pa, pb, pc, prompts,
+                                                              blocking=False))
+                    elif ad.score_triplets is not None:
+                        fetches.append(ad.score_triplets(pa, pb, pc, prompts, blocking=False))
+                    else:
+                        fetches.append(ad.score_pairs(np.concatenate([pa, pa], axis=0),
+                                                      np.concatenate([pb, pc], axis=0),
+                                                      prompts * 2, blocking=False))
+            drain()
+            pending_fetch = (chunk, fetches)
+        drain()
+    finally:
+        pool.shutdown(wait=False)
+
+    report = Report()
+    for i, c in enumerate(comparisons):
+        if any(i not in log.done for log in logs):
+            continue
+        votes = 0
+        for log, ad in zip(logs, adapters):
+            rec = log.done[i]
+            b_wins = rec["s_ab"] < rec["s_ac"] if ad.lower_better else rec["s_ab"] > rec["s_ac"]
+            votes += int(b_wins)
+        majority_b = votes >= 2
+        if vote_based:
+            ok = (c.vote == 1 and majority_b) or (c.vote == 0 and not majority_b)
+        else:
+            ok = majority_b
+        report.total += 1
+        report.correct += int(ok)
+    for log in logs:
+        log.close()
+    print_fn(f"Total {report.total}; Correct {report.correct}")
+    print_fn(f"Accuracy: {report.accuracy}%")
     return report

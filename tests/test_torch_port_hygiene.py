@@ -23,7 +23,9 @@ def test_port_and_chip_smoke_import_no_jax():
     modules = _port_modules() + ["chip_smoke"]
     for name in ("metrics.diffsim_sd15", "metrics.diffsim_dit", "models.dit", "cli.convert",
                  "convert.diffusion_import", "convert.torch_import", "models.clip_vision",
-                 "models.ip_adapter", "metrics.ffa"):
+                 "models.ip_adapter", "metrics.ffa", "metrics.clip_i", "metrics.dino",
+                 "metrics.lpips", "metrics.vgg_gram", "models.dinov2", "models.vgg",
+                 "models.u2net", "convert.u2net_import"):
         assert f"diffsim_tpu_torch.{name}" in modules
     code = (
         "import importlib, sys\n"
@@ -40,16 +42,19 @@ def test_port_and_chip_smoke_import_no_jax():
     assert out.stdout.startswith("ok")
 
 
-@pytest.mark.parametrize("scorer", ["DiffSimSD15", "DiffSimXL", "DiffSimDiT"])
-def test_scorer_without_a_device_raises_when_cuda_is_absent(monkeypatch, scorer):
-    from diffsim_tpu_torch.metrics.diffsim_dit import DiffSimDiT
-    from diffsim_tpu_torch.metrics.diffsim_sd15 import DiffSimSD15
-    from diffsim_tpu_torch.metrics.diffsim_xl import DiffSimXL
+SCORERS = {"DiffSimSD15": "diffsim_sd15", "DiffSimXL": "diffsim_xl", "DiffSimDiT": "diffsim_dit",
+           "CLIPScore": "clip_i", "Dinov2Score": "dino", "DinoScore": "dino", "LPIPS": "lpips",
+           "VGGGram": "vgg_gram", "ForegroundFeatureAveraging": "ffa", "U2NetMatting": "ffa"}
 
-    cls = {"DiffSimSD15": DiffSimSD15, "DiffSimXL": DiffSimXL, "DiffSimDiT": DiffSimDiT}[scorer]
+
+@pytest.mark.parametrize("scorer", sorted(SCORERS))
+def test_scorer_without_a_device_raises_when_cuda_is_absent(monkeypatch, scorer):
+    import importlib
+
+    cls = getattr(importlib.import_module(f"diffsim_tpu_torch.metrics.{SCORERS[scorer]}"), scorer)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        cls()
+        cls(None) if scorer == "U2NetMatting" else cls()
 
 
 def test_chip_smoke_refuses_to_run_without_cuda():

@@ -267,11 +267,18 @@ def test_clip_vision_matches_jax(cfg):
 
 
 def test_clip_vision_taps_wait_for_the_clip_metrics():
+    """The CLIP metrics' taps, which this encoder once left to them, now run on it
+    (tests/test_torch_port_baselines.py holds them to JAX)."""
     model = CLIPVision(CLIPVisionConfig.tiny())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        model(torch.zeros(1, 3, 32, 32), tap_layer=0)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        out_proj_replay(None, None, None, 0)
+    model = model.to_empty(device="cpu")
+    for p in model.parameters():
+        torch.nn.init.normal_(p, std=0.1)
+    x = torch.zeros(1, 3, 32, 32)
+    with torch.no_grad():
+        taps = model.tap(x, 0)
+        assert sorted(taps) == ["k", "q", "v"] and taps["q"].shape == (1, 2, 17, 16)
+        out = out_proj_replay(model, taps["q"], 0)
+    assert out.shape == (1, 17, 32) and torch.isfinite(out).all()
 
 
 def test_resampler_and_image_projection_match_jax():

@@ -268,7 +268,7 @@ def _run(cute, tmp_path, *extra):
     argv = ["--preset", "cute", "--image_path", tree, "--image_size", "32", "--model_scale",
             "tiny", "--batch_size", str(BATCH), "--shard", f"0/{SHARDS}", "--results", path,
             *extra]
-    report, adapter = run_benchmark("cute", argv, device="cpu")
+    report, (adapter,) = run_benchmark("cute", argv, device="cpu")
     recs = [json.loads(line) for line in open(f"{path}.s0-{SHARDS}")]
     assert report.total == 8 and all(set(r) == {"idx", "s_ab", "s_ac"} for r in recs)
     assert sorted(r["idx"] for r in recs) == list(range(8))

@@ -290,8 +290,8 @@ def test_tokenizer2_pads_with_exclamation_mark(params):
 
 
 def test_parts_outside_this_slice_raise(params):
-    """The IP-Adapter is ported (tests/test_torch_port_ip.py); what its encoder leaves to the
-    CLIP metrics, the vision taps, raises naming their item."""
+    """The IP-Adapter is ported (tests/test_torch_port_ip.py), and so are the CLIP metrics'
+    vision taps that its encoder once left to them."""
     import dataclasses
 
     from diffsim_tpu_torch.models.clip_vision import CLIPVisionConfig
@@ -303,8 +303,9 @@ def test_parts_outside_this_slice_raise(params):
                                                                output_dim=64))
     a = np.zeros((1, 32, 32, 3), np.uint8)
     assert np.isfinite(scorer.score_batch(a, a, ip_adapter=True)).all()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1 item 6"):
-        scorer.ip_encoder(torch.zeros(1, 3, 32, 32), tap_layer=0)
+    with torch.no_grad():  # the CLIP metrics' taps run on the IP-Adapter's encoder too
+        taps = scorer.ip_encoder.tap(torch.zeros(1, 3, 32, 32), 0)
+    assert sorted(taps) == ["k", "q", "v"]
 
 
 def test_partial_weight_trees_are_refused(params):
