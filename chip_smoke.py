@@ -102,7 +102,25 @@ Phases, each of which fails the run (non-zero exit, no result line) if anything 
 21. the CLI over the 36 JPEGs with every baseline metric, ``--metric cute --matting_weights``
    and ``diffsim --use_mask --matting_weights`` (the converted U^2-Netp), and ``--metric
    ensemble`` (diffsim through the moment cache, clip_i, dino; its K1 / K2 launches predicted
-   from the cached CLI run's forwards), each with its pairs/s.
+   from the cached CLI run's forwards), each with its pairs/s;
+22. K1 under autograd (DiT training): ``torch.autograd.grad`` through its ``FusedSelfAttention``
+   Function (the kernel's forward, the backward a port of the JAX ``_fused_bwd``) against the
+   same through ``fused_self_attention_plain``, at DiT-XL/2's 256 px training site (32, 16, 256,
+   72) and at (2, 3, 256, 72) and (2, 3, 1024, 80), in float32 and bf16; the output's
+   ``grad_fn`` is the Function; the forward timed beside SDPA and its bound, the plain backward
+   beside SDPA's backward (information);
+23. one DiT training step at tiny width (head dim 72 at 256 tokens, so K1 routes), card vs CPU
+   from one seeded tree in float32 with TF32 off and injected noise, t and label drop: the
+   loss, every gradient, the AdamW step and the EMA;
+24. ``dit_train`` at DiT-XL/2 256 px, batch 32, over 96 random JPEGs in 2 class folders: float32
+   (4 steps, a checkpoint every 2, the SD VAE encoder from a seeded ``.npz`` of its published
+   widths), ``--resume`` from step 2 (the step count continues), ``--bf16`` (3 steps, a profile
+   of one step) and ``--remat`` (2 steps, the random encoder); 28 K1 launches a step (56 with
+   remat) and none of K2-K4 asserted, finite losses, step time, images/s and peak memory;
+25. ``dit_sample`` from that checkpoint with the ``.npz``'s ``vae_decoder``: the 8 default
+   labels at CFG 4.0 and 50 steps (ancestral, then ``--ddim``) into a PNG grid of 256 px images,
+   and ``--num_fid_samples 16 --per_batch 8`` into an ``arr_0`` of (16, 256, 256, 3) uint8; 28
+   K1 launches a denoising step, none from the decoder, ms a step and images/s.
 
 The line before the last is one JSON object ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. A kernel's time (``ms``), its library call's and its v2's are
@@ -129,8 +147,10 @@ import contextlib
 import ctypes
 import dataclasses
 import functools
+import gc
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -143,10 +163,13 @@ import torch
 import torch.nn.functional as F
 from torch.nn.attention import SDPBackend, sdpa_kernel
 
+from diffsim_tpu_torch.cli import dit_sample, dit_train
 from diffsim_tpu_torch.cli.main import run_benchmark
 from diffsim_tpu_torch.convert import bridge
+from diffsim_tpu_torch.convert.store import save_params
 from diffsim_tpu_torch.core.tokenizer import HashTokenizer
 from diffsim_tpu_torch.data import benchmarks
+from diffsim_tpu_torch.data.imagefolder import ImageFolderDataset
 from diffsim_tpu_torch.metrics import registry
 from diffsim_tpu_torch.metrics.clip_i import CLIPPair, CLIPScore
 from diffsim_tpu_torch.metrics.dino import DinoScore, Dinov2Score
@@ -168,9 +191,10 @@ from diffsim_tpu_torch.models.dit import DiT, DiTConfig
 from diffsim_tpu_torch.models.ip_adapter import Resampler, ResamplerConfig, attn2_modules
 from diffsim_tpu_torch.models.u2net import U2Net, U2NetConfig
 from diffsim_tpu_torch.models.unet import UNet, UNetConfig
-from diffsim_tpu_torch.models.vae import Encoder, VAEConfig, encode_chunked
+from diffsim_tpu_torch.models.vae import Decoder, Encoder, VAEConfig, encode_chunked
 from diffsim_tpu_torch.models.vgg import VGG, VGG16_CFG, VGG19_CFG
 from diffsim_tpu_torch.ops import kernels
+from diffsim_tpu_torch.ops.kernels import attention as kattn
 from diffsim_tpu_torch.ops.kernels import build, readout
 from diffsim_tpu_torch.ops.kernels.attention import (
     fused_self_attention, fused_self_attention_plain, round_bf16)
@@ -187,6 +211,7 @@ from diffsim_tpu_torch.ops.kernels.readout import (
 )
 from diffsim_tpu_torch.runtime import hbm_guard
 from diffsim_tpu_torch.runtime.device_cache import resolve_cached_chunk
+from diffsim_tpu_torch.train.dit_trainer import DiTTrainer, TrainConfig
 
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # H100 SXM: bf16 tensor, FP32 SIMT
 PEAK_TF32 = 495e12  # H100 SXM dense TF32 tensor cores: K4 float32 runs 3xTF32 passes
@@ -854,20 +879,20 @@ def k4_phase(gen) -> dict:
     return {"rows": rows, "max_abs_err": main_err}
 
 
-def _random_tree(factory, kind: str, rng) -> dict:
+def _random_tree(factory, kind: str, rng, scale: float = 0.1) -> dict:
     """A seeded numpy parameter tree in the JAX package's layout for the module ``factory``
-    builds: matrices N(0, 0.1), norm scales 1 + N(0, 0.1), biases N(0, 0.05)."""
+    builds: matrices N(0, scale^2), norm scales 1 + N(0, scale^2), biases N(0, scale^2 / 4)."""
     with torch.device("meta"):
         shapes = {k: tuple(v.shape) for k, v in factory().state_dict().items()}
     state = {}
     for name, shape in shapes.items():
         draw = rng.standard_normal(shape).astype(np.float32)
         if name.endswith("bias"):
-            state[name] = draw * 0.05
+            state[name] = draw * (scale / 2)
         elif len(shape) == 1:
-            state[name] = 1.0 + draw * 0.1
+            state[name] = 1.0 + draw * scale
         else:
-            state[name] = draw * 0.1
+            state[name] = draw * scale
     return bridge.to_jax_tree(state, kind)
 
 
@@ -2351,6 +2376,348 @@ def cached_path(name, scorer, pix, s_ab, s_ac, args, miss_calls, hit_calls) -> f
     return float(gap)
 
 
+# ---------------------------------------------------------------------------
+# DiT training and sampling (K1 under autograd)
+# ---------------------------------------------------------------------------
+
+# DiT-XL/2 at 256 px, the published per-GPU batch of 32: every block's attention is
+# (32, 16, 256, 72), 28 per forward; under --remat the backward runs each block's forward again
+TRAIN_BATCH, TRAIN_SIZE = 32, 256
+DIT_TRAIN_SITE = (TRAIN_BATCH, 16, 256, 72)
+TRAIN_STEP = {**NONE, "fused_self_attention": 28}
+REMAT_STEP = {**NONE, "fused_self_attention": 56}
+SAMPLE_STEPS = 50
+# the sampler's CFG batch: the 8 default labels and their null-class copies, in float32
+DIT_SAMPLE_SITE = (2 * 8, 16, 256, 72)
+# K1's forward and gradient are checked at the training site and at two small shapes
+K1_GRAD_SHAPES = [DIT_TRAIN_SITE, (2, 3, 256, 72), (2, 3, 1024, 80)]
+# the tiny training step, card vs CPU: DiT-XL/2's head dim 72 at 256 tokens, so K1 routes
+TINY_TRAIN = dict(input_size=32, patch_size=2, hidden=144, depth=2, heads=2, num_classes=10,
+                  learn_sigma=True)
+# K1 in the tiny VAE's mid attention (1024 tokens at D 64, no grad) and in both DiT blocks
+TINY_TRAIN_STEP = {**NONE, "fused_self_attention": 3}
+
+
+def k1_grad_phase(gen) -> dict:
+    phase("K1 under autograd (DiT training): the FusedSelfAttention Function's output (the "
+          "kernel's forward) vs fused_self_attention_plain, and torch.autograd.grad through the "
+          "Function (the port of _fused_bwd) vs through the plain version, on the card (float32 "
+          "atol 1e-5, bf16 atol=rtol=1e-2); then the sampler's no-grad forward at its CFG batch")
+    rows, err_of, grad_err_of = [], {}, {}
+    for shape in K1_GRAD_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, g = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                          for _ in range(4))
+            qkv = [t.clone().requires_grad_() for t in (q, k, v)]
+            out = fused_self_attention(*qkv)
+            if type(out.grad_fn).__name__ != "FusedSelfAttentionBackward":
+                raise SystemExit(f"K1 under grad: grad_fn {type(out.grad_fn).__name__}, not the "
+                                 "FusedSelfAttention Function")
+            grads = torch.autograd.grad(out, qkv, g)
+            torch.cuda.synchronize()
+            tol = (1e-2, 1e-2) if dtype == torch.bfloat16 else (1e-5, 0.0)
+            name = f"K1 {shape} {str(dtype)[6:]}"
+            with torch.no_grad():
+                err = check_close(f"{name} forward", out, fused_self_attention_plain(q, k, v),
+                                  *tol)
+            ref_qkv = [t.clone().requires_grad_() for t in (q, k, v)]
+            ref = torch.autograd.grad(fused_self_attention_plain(*ref_qkv), ref_qkv, g)
+            grad_err = max(check_close(f"{name} grad d{x}", a, b, *tol)
+                           for x, a, b in zip("qkv", grads, ref))
+            del out, grads, ref, qkv, ref_qkv
+            row = {"shape": list(shape), "dtype": str(dtype)[6:], "max_abs_err": err,
+                   "grad_max_abs_err": grad_err}
+            err_of[dtype] = max(err_of.get(dtype, 0.0), err)
+            grad_err_of[dtype] = max(grad_err_of.get(dtype, 0.0), grad_err)
+            if shape == DIT_TRAIN_SITE:
+                b, h, s, d = shape
+                key = ("launches_dit_train_step" if dtype == torch.float32
+                       else "launches_dit_train_step_bf16")
+                row[key] = TRAIN_STEP["fused_self_attention"]
+                with torch.no_grad():
+                    _timed(row, lambda: fused_self_attention(q, k, v),
+                           lambda: fused_self_attention_plain(q, k, v),
+                           4 * b * h * s * s * d, 4 * b * h * s * d * q.element_size(),
+                           library=lambda: F.scaled_dot_product_attention(q, k, v),
+                           dtype=dtype, exps=b * h * s * s)
+                # the backward, as information: the plain port of _fused_bwd (five (S, S)
+                # products, the weights recomputed) beside SDPA's backward on the same inputs
+                qs = [t.clone().requires_grad_() for t in (q, k, v)]
+                sdpa_out = F.scaled_dot_product_attention(*qs)
+                row["bwd_plain_ms"] = device_ms(
+                    lambda: kattn.fused_self_attention_bwd_plain(q, k, v, g))[0]
+                row["bwd_sdpa_ms"] = device_ms(
+                    lambda: torch.autograd.grad(sdpa_out, qs, g, retain_graph=True))[0]
+                row["bwd_bound_ms"] = bound(10 * b * h * s * s * d,
+                                            7 * b * h * s * d * q.element_size(), dtype,
+                                            b * h * s * s)[0]
+                print(f"    backward: plain {row['bwd_plain_ms']:.4f} ms, SDPA backward "
+                      f"{row['bwd_sdpa_ms']:.4f} ms, bound {row['bwd_bound_ms']:.4f} ms "
+                      "(information)", flush=True)
+                del qs, sdpa_out
+            rows.append(row)
+            del q, k, v, g
+            torch.cuda.empty_cache()
+    b, h, s, d = DIT_SAMPLE_SITE
+    q, k, v = (torch.randn(DIT_SAMPLE_SITE, generator=gen, device="cuda") for _ in range(3))
+    with torch.no_grad():
+        err = check_close(f"K1 {DIT_SAMPLE_SITE} float32 (sampler, no grad)",
+                          fused_self_attention(q, k, v), fused_self_attention_plain(q, k, v),
+                          1e-5, 0.0)
+        row = {"shape": list(DIT_SAMPLE_SITE), "dtype": "float32", "max_abs_err": err,
+               "launches_dit_sample_step": TRAIN_STEP["fused_self_attention"]}
+        _timed(row, lambda: fused_self_attention(q, k, v),
+               lambda: fused_self_attention_plain(q, k, v),
+               4 * b * h * s * s * d, 4 * b * h * s * d * q.element_size(),
+               library=lambda: F.scaled_dot_product_attention(q, k, v),
+               dtype=torch.float32, exps=b * h * s * s)
+    rows.append(row)
+    err_of[torch.float32] = max(err_of[torch.float32], err)
+    del q, k, v
+    torch.cuda.empty_cache()
+    return {"rows": rows, "err": err_of, "grad_err": grad_err_of}
+
+
+def tiny_train_phase() -> None:
+    phase("one DiT training step at tiny width in float32, TF32 off: card vs CPU from one seeded "
+          "tree with injected noise, t (5, 617) and label drop (loss and MSE within 1e-5 "
+          "relative; each gradient within 1e-4 of its leaf's largest entry; the card's AdamW "
+          "step and EMA within 2e-7 of the CPU's AdamW on the card's own gradients)")
+    rng = np.random.default_rng(2337)
+    cfg, vae_cfg = DiTConfig(**TINY_TRAIN), VAEConfig.tiny()
+    trees = {"dit": _random_tree(lambda: DiT(cfg), "dit", rng),
+             "vae": _random_tree(lambda: Encoder(vae_cfg), "vae", rng)}
+    pixels = rng.integers(0, 256, (2, 64, 64, 3), dtype=np.uint8)
+    draws = dict(latent_noise=rng.standard_normal((2, 32, 32, 4)).astype(np.float32),
+                 noise=rng.standard_normal((2, 32, 32, 4)).astype(np.float32),
+                 t=np.array([5, 617]), drop=np.array([False, True]))
+    trainers, metrics, before = {}, {}, None
+    with tf32_off():
+        for device in ("cuda", "cpu"):
+            trainer = DiTTrainer(TrainConfig(image_size=64), dit_cfg=cfg, vae_cfg=vae_cfg,
+                                 vae_params=trees["vae"], device=device)
+            trainer.load_params(trees["dit"])
+            if device == "cuda":
+                before = [p.detach().cpu().clone() for p in trainer.model.parameters()]
+            kernels.reset_launch_counts()
+            metrics[device] = trainer.train_step(pixels, np.array([4, 7]), **draws)
+            counts = kernels.launch_counts()
+            if device == "cuda":
+                print(f"  launches of the card's step: {counts}")
+                if counts != TINY_TRAIN_STEP:
+                    raise SystemExit(f"tiny training step: expected launches {TINY_TRAIN_STEP}")
+            trainers[device] = trainer
+    card, cpu = trainers["cuda"], trainers["cpu"]
+    for key in ("loss", "mse"):
+        gap = abs(metrics["cuda"][key] / metrics["cpu"][key] - 1)
+        print(f"  {key}: card {metrics['cuda'][key]:.7f}, cpu {metrics['cpu'][key]:.7f}, "
+              f"relative gap {gap:.3e}")
+        if not (np.isfinite(metrics["cuda"][key]) and gap <= 1e-5):
+            raise SystemExit(f"tiny training step: the card's {key} disagrees with the CPU's")
+    worst = 0.0
+    for (name, p), q in zip(card.model.named_parameters(), cpu.model.parameters()):
+        gap = (p.grad.cpu() - q.grad).abs().max().item() / q.grad.abs().max().clamp(min=1e-30)
+        worst = max(worst, float(gap))
+        if not gap <= 1e-4:
+            raise SystemExit(f"tiny training step: gradient of {name} off by {gap:.3e} of its "
+                             "largest entry")
+    # the optimizer and the EMA, held apart from the gradients: the first Adam step moves each
+    # weight by about lr * sign(g), so a gradient entry near zero that rounds to the other sign
+    # on the other device moves its weight by up to 2 lr; CPU AdamW on the card's gradients,
+    # within two float32 ulps of the largest weights (~0.5; the two AdamW implementations round
+    # the update in another order)
+    ref = [p.clone().requires_grad_() for p in before]
+    for r, p in zip(ref, card.model.parameters()):
+        r.grad = p.grad.cpu()
+    torch.optim.AdamW(ref, lr=1e-4, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.0).step()
+    d = card.cfg.ema_decay
+    opt_gap = max((p.detach().cpu() - r.detach()).abs().max().item()
+                  for p, r in zip(card.model.parameters(), ref))
+    ema_gap = max((e.cpu() - (b * d + r.detach() * (1 - d))).abs().max().item()
+                  for e, b, r in zip(card.ema.parameters(), before, ref))
+    print(f"  gradients: worst leaf gap {worst:.3e} of its largest entry; AdamW step "
+          f"{opt_gap:.3e}; EMA {ema_gap:.3e}", flush=True)
+    if not (opt_gap <= 2e-7 and ema_gap <= 2e-7):
+        raise SystemExit("tiny training step: the card's AdamW or EMA disagrees with the CPU's")
+
+
+def _train_tree(root: str) -> str:
+    """An ImageFolder tree of 96 random JPEGs, 48 in each of 2 class folders, at 320 x 288."""
+    from PIL import Image
+
+    rng = np.random.default_rng(2338)
+    base = os.path.join(root, "train")
+    for cls in ("n01440764", "n01443537"):
+        os.makedirs(os.path.join(base, cls))
+        for i in range(48):
+            Image.fromarray(rng.integers(0, 256, (288, 320, 3), dtype=np.uint8)).save(
+                os.path.join(base, cls, f"{i:03d}.JPEG"), format="JPEG", quality=90)
+    return base
+
+
+@contextlib.contextmanager
+def _watched(cls, method: str):
+    """Record every call of ``cls.method`` while the block runs: its wall time in ms, ended by a
+    synchronize, the kernels' launches within it, and what it returned if that is a dict."""
+    calls, orig = [], getattr(cls, method)
+
+    def wrapped(self, *args, **kw):
+        before = kernels.launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig(self, *args, **kw)
+        torch.cuda.synchronize()
+        after = kernels.launch_counts()
+        calls.append({"ms": (time.perf_counter() - t0) * 1e3, "out": out if isinstance(
+            out, dict) else None, "counts": {k: after[k] - before[k] for k in after}})
+        return out
+
+    setattr(cls, method, wrapped)
+    try:
+        yield calls
+    finally:
+        setattr(cls, method, orig)
+
+
+def _train_run(mode: str, argv: list, expected: dict, card_line: str,
+               keep: bool = False) -> dict:
+    """One ``dit_train.main(argv)`` on the card with the launch counts set to 0 just before it:
+    every step's launches held to ``expected``, the losses finite; step time (the median over
+    the steps after the first), images/s and peak device memory, with nothing of an earlier
+    run left on the card. ``keep`` returns the trainer under ``"trainer"``."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with _watched(DiTTrainer, "train_step") as steps:
+        trainer = dit_train.main(argv)
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for i, step in enumerate(steps):
+        if step["counts"] != expected:
+            raise SystemExit(f"dit_train {mode}: step {i} launched {step['counts']}, expected "
+                             f"{expected}")
+    losses = [step["out"]["loss"] for step in steps]
+    if not np.isfinite(losses).all():
+        raise SystemExit(f"dit_train {mode}: losses {losses} are not finite")
+    step_ms = statistics.median(s["ms"] for s in steps[1:]) if len(steps) > 1 else steps[0]["ms"]
+    out = {"steps": len(steps), "trainer_step": trainer.step, "losses": losses,
+           "first_step_ms": steps[0]["ms"],
+           "step_ms": step_ms, "images_per_s": TRAIN_BATCH / step_ms * 1e3, "peak_gib": peak,
+           "wall_s": wall, "counts": counts}
+    print(f"  {mode}: {len(steps)} steps to trainer step {trainer.step}, losses {losses}, "
+          f"launches {counts}; "
+          f"step {step_ms:.1f} ms (first {steps[0]['ms']:.1f}), "
+          f"{out['images_per_s']:.2f} images/s, peak {peak:.2f} GiB, {wall:.1f} s in all, on "
+          f"{card_line}", flush=True)
+    if keep:
+        out["trainer"] = trainer
+    return out
+
+
+def train_cli_phase(tmp: str, card_line: str) -> dict:
+    phase(f"DiT training CLI at full width: dit_train --model DiT-XL/2 --image_size 256 "
+          f"--global_batch_size {TRAIN_BATCH} over 96 random JPEGs, float32 (4 steps, checkpoint "
+          "every 2), --resume from step 2, --bf16 (3 steps), --remat (2 steps, random VAE); "
+          "28 K1 launches a step (56 with --remat), none of K2-K4")
+    data = _train_tree(tmp)
+    rng = np.random.default_rng(2339)
+    t0 = time.perf_counter()
+    vae_npz = os.path.join(tmp, "sd_vae.npz")
+    # the SD VAE at its published widths, drawn at the JAX init's scale (N(0, 0.02) weights)
+    save_params(vae_npz, {
+        "vae": _random_tree(lambda: Encoder(VAEConfig.sd()), "vae", rng, scale=0.02),
+        "vae_decoder": _random_tree(lambda: Decoder(VAEConfig.sd()), "vae_decoder", rng,
+                                    scale=0.02)})
+    print(f"  wrote the SD VAE .npz (vae, vae_decoder) in {time.perf_counter() - t0:.1f} s, "
+          f"{os.path.getsize(vae_npz) / 2**20:.0f} MiB", flush=True)
+    base = ["--data_path", data, "--model", "DiT-XL/2", "--image_size", str(TRAIN_SIZE),
+            "--global_batch_size", str(TRAIN_BATCH), "--log_every", "1"]
+    f32_dir = os.path.join(tmp, "results_f32")
+    runs = {"float32": _train_run("float32", base + [
+        "--results_dir", f32_dir, "--max_steps", "4", "--ckpt_every", "2",
+        "--vae_weights", vae_npz], TRAIN_STEP, card_line)}
+    ckpt2 = os.path.join(f32_dir, "ckpt_0000002")
+    runs["resume"] = _train_run("resume", base + [
+        "--results_dir", f32_dir, "--max_steps", "2", "--ckpt_every", "1000",
+        "--vae_weights", vae_npz, "--resume", ckpt2], TRAIN_STEP, card_line)
+    log = open(os.path.join(f32_dir, "log.txt")).read()
+    if (runs["float32"]["trainer_step"] != 4 or runs["resume"]["trainer_step"] != 4
+            or "at step 2" not in log or log.count("(step=0000003)") != 2):
+        raise SystemExit("dit_train --resume: the step count did not continue from step 2")
+    shutil.rmtree(ckpt2)
+    runs["bf16"] = _train_run("bf16", base + [
+        "--results_dir", os.path.join(tmp, "results_bf16"), "--max_steps", "3",
+        "--ckpt_every", "1000", "--vae_weights", vae_npz, "--bf16"], TRAIN_STEP, card_line,
+        keep=True)
+    bf16_trainer = runs["bf16"].pop("trainer")
+    if any(p.dtype != torch.float32 for p in bf16_trainer.model.parameters()):
+        raise SystemExit("dit_train --bf16: the master weights are not float32")
+    pixels, labels = next(iter(ImageFolderDataset(data, TRAIN_SIZE, seed=1).epoch_batches(
+        TRAIN_BATCH)))
+    profile_call(lambda: bf16_trainer.train_step(pixels, labels),
+                 f"DiT-XL/2 bf16 training step at batch {TRAIN_BATCH}, 256 px")
+    del bf16_trainer
+    runs["remat"] = _train_run("remat", base + [
+        "--results_dir", os.path.join(tmp, "results_remat"), "--max_steps", "2",
+        "--ckpt_every", "1000", "--remat"], REMAT_STEP, card_line)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"runs": runs, "ckpt": os.path.join(f32_dir, "ckpt_0000004"), "vae_npz": vae_npz}
+
+
+def sample_cli_phase(tmp: str, train: dict, card_line: str) -> dict:
+    phase(f"DiT sampling CLI at full width from the training checkpoint: dit_sample --model "
+          f"DiT-XL/2 --image_size 256 on the 8 default labels, CFG 4.0, {SAMPLE_STEPS} steps "
+          "(ancestral, --ddim) and --num_fid_samples 16 --per_batch 8, decoded by the SD VAE "
+          "decoder; 28 K1 launches per denoising step, none from the decoder")
+    base = ["--ckpt", train["ckpt"], "--vae_weights", train["vae_npz"], "--model", "DiT-XL/2",
+            "--image_size", str(TRAIN_SIZE), "--cfg_scale", "4.0",
+            "--num_sampling_steps", str(SAMPLE_STEPS)]
+    out = {}
+    for mode, extra, path in (("ancestral", [], "grid.png"), ("ddim", ["--ddim"], "grid_ddim.png"),
+                              ("fid", ["--num_fid_samples", "16", "--per_batch", "8"],
+                               "fid.npz")):
+        target = os.path.join(tmp, path)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with _watched(DiTTrainer, "sample") as calls:
+            dit_sample.main(base + extra + ["--out", target])
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        want = {**NONE, "fused_self_attention": 28 * SAMPLE_STEPS * len(calls)}
+        if counts != want or any(c["counts"] != {**NONE, "fused_self_attention":
+                                                  28 * SAMPLE_STEPS} for c in calls):
+            raise SystemExit(f"dit_sample {mode}: launches {counts}, expected {want}")
+        if mode == "fid":
+            with np.load(target) as f:
+                arr = f["arr_0"]
+            if arr.shape != (16, TRAIN_SIZE, TRAIN_SIZE, 3) or arr.dtype != np.uint8:
+                raise SystemExit(f"dit_sample --num_fid_samples: {arr.shape} {arr.dtype}")
+            images = 16
+        else:
+            from PIL import Image
+
+            with Image.open(target) as img:
+                if img.size != (4 * TRAIN_SIZE, 2 * TRAIN_SIZE):
+                    raise SystemExit(f"dit_sample {mode}: grid of {img.size}")
+            images = 8
+        sample_ms = sum(c["ms"] for c in calls)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        out[mode] = {"calls": len(calls), "counts": counts,
+                     "ms_per_step": sample_ms / (SAMPLE_STEPS * len(calls)),
+                     "images_per_s": images / sample_ms * 1e3, "peak_gib": peak, "wall_s": wall}
+        print(f"  {mode}: {len(calls)} sample call(s), launches {counts}; "
+              f"{out[mode]['ms_per_step']:.1f} ms per denoising step (decode included), "
+              f"{out[mode]['images_per_s']:.3f} images/s, peak {peak:.2f} GiB, {wall:.1f} s "
+              f"in all, on {card_line}", flush=True)
+    return out
+
+
 def profile_call(fn, what: str, top: int = 14) -> None:
     """Device time by kernel over one call, from torch.profiler (information for PERF.md):
     the device's busy time is the sum of kernel self times (one stream, no overlap)."""
@@ -2401,6 +2768,7 @@ K2_DESIGN = ("two persistent wgmma+TMA GEMMs, 2 ping-ponged consumer warpgroups 
 K3_DESIGN = ("K1's wgmma+TMA pipeline, cross then self pass per 128-row q block, "
              "2 ping-ponged consumer warpgroups (bf16)")
 K4_DESIGN = "3xTF32 mma.sync (float32)"
+K1_F32_DESIGN = "plain FMA tiles, the score tile and accumulator in shared memory (float32)"
 XL_PER = f"one SDXL score_triplet_batch call ({XL_T} triplets, 1024 px), the sum over its launches"
 DIT_PER = (f"one DiT-XL/2 score_triplet_batch call ({DIT_T} triplets, 512 px, tap block 13), the "
            "sum over its launches")
@@ -2426,6 +2794,49 @@ def kernel_entry(name, source, replaces, design, result, path, sdxl=None, dit=No
     return entry
 
 
+TRAIN_PER = f"one DiT-XL/2 training step at batch {TRAIN_BATCH}, 256 px (the forward's launches)"
+
+
+SAMPLE_PER = "one DiT-XL/2 denoising step with CFG on 8 labels, 256 px, float32"
+
+
+def train_entries(k1_grad: dict, runs: dict, sampled: dict) -> list[dict]:
+    """K1's rows on the training path, float32 (the trainer's default) and bf16 (``--bf16``):
+    the forward's time per step at the training site beside its bound and SDPA's, with the
+    launches per step of the CLI runs in that dtype. ``max_abs_err`` is the forward's error
+    against the plain version, ``grad_max_abs_err`` the gradient's. The float32 row carries the
+    sampler's numbers per denoising step under "sample"."""
+    entries = []
+    for dtype, key, mode in ((torch.float32, "launches_dit_train_step", "float32"),
+                             (torch.bfloat16, "launches_dit_train_step_bf16", "bf16")):
+        name = str(dtype)[6:]
+        run = runs[mode]
+        per_step = run["counts"]["fused_self_attention"] // run["steps"]
+        result = {"rows": [r for r in k1_grad["rows"] if r["dtype"] == name],
+                  "max_abs_err": k1_grad["err"][dtype]}
+        entry = kernel_entry(f"fused_self_attention (DiT train, {name})",
+                             "diffsim_tpu_torch/csrc/fused_attention.cu",
+                             "diffsim_tpu/ops/pallas/attention.py:101",
+                             K1_DESIGN if dtype == torch.bfloat16 else K1_F32_DESIGN, result,
+                             (per_step, key, TRAIN_PER))
+        entry["backward"] = ("fused_self_attention_bwd_plain (torch.matmul, the port of "
+                             "_fused_bwd, diffsim_tpu/ops/pallas/attention.py:132)")
+        row = next(r for r in result["rows"] if key in r)
+        for field in ("bwd_plain_ms", "bwd_sdpa_ms", "bwd_bound_ms"):
+            entry[field] = row[field] * per_step
+        entry["grad_max_abs_err"] = k1_grad["grad_err"][dtype]
+        entry["launches_run"] = {m: r["counts"]["fused_self_attention"] for m, r in runs.items()
+                                 if (m == "bf16") == (dtype == torch.bfloat16)}
+        if dtype == torch.float32:
+            run = sampled["ancestral"]
+            per_step = run["counts"]["fused_self_attention"] // (SAMPLE_STEPS * run["calls"])
+            entry["sample"] = _path(result, per_step, "launches_dit_sample_step", SAMPLE_PER)
+            entry["launches_run"].update({f"sample_{m}": r["counts"]["fused_self_attention"]
+                                          for m, r in sampled.items()})
+        entries.append(entry)
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
@@ -2449,11 +2860,13 @@ def main() -> int:
     k4 = k4_phase(gen)
     k1_fast = k1_fast_phase(gen)
     k4_fast = k4_fast_phase(gen)
+    k1_grad = k1_grad_phase(gen)
     tiny_phase()
     tiny_xl_phase()
     tiny_dit_phase()
     tiny_surface_phase()
     tiny_baselines = tiny_baselines_phase()
+    tiny_train_phase()
     sd15_out = sd15_phase(card_line)
     sd15 = sd15_out["counts"]
     torch.cuda.empty_cache()
@@ -2473,6 +2886,10 @@ def main() -> int:
         baselines = baselines_phase(card_line, registry._load_params(baseline_npz["u2net"]))
         baseline_cli = baseline_cli_phase(tree, baseline_npz["u2net"])
     converted = convert_phase()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        train = train_cli_phase(tmp, card_line)
+        sampled = sample_cli_phase(tmp, train, card_line)
 
     def on_sd15(kernel):
         return sd15[kernel], "launches_sd15_forward", SD15_PER
@@ -2515,6 +2932,7 @@ def main() -> int:
                      on_xl("streaming_self_attention")),
         fast_k1,
         fast_k4,
+        *train_entries(k1_grad, train["runs"], sampled),
     ]}
     for entry in line["kernels"][:2]:  # K1 and K2 on this slice's main path, the CLI run
         entry["launches_cli"] = cli["counts"][entry["name"]]
@@ -2557,6 +2975,12 @@ def main() -> int:
           f"peak {dit_out['peak_gib']:.2f} GiB, cached vs fresh {dit_out['cached_gap']:.3e}; "
           f"CLI --metric dit hit rate {dit_cli['hit_rate']:.4f}, "
           f"{dit_cli['pairs_per_s']:.2f} pairs/s", flush=True)
+    for entry in line["kernels"][-2:]:
+        print(f"  {entry['name']} on {card_line}: {entry['ms']:.3f} ms per training step in "
+              f"{entry['launches']} launches (SDPA {entry['library_ms']:.3f}, bound "
+              f"{entry['bound_ms']:.3f}, {100 * entry['roofline_share']:.1f} %); the plain "
+              f"backward {entry['bwd_plain_ms']:.3f} ms per step (SDPA's backward "
+              f"{entry['bwd_sdpa_ms']:.3f})", flush=True)
     for guard in (sd15_out["guard"], xl_out["guard"], dit_out["guard"]):
         if (guard["per_triplet"] < guard["slope"] or guard["encode_bytes"] < guard["encode_peak"]
                 or any(guard["estimates"][t] < guard["peaks"][t] for t in guard["peaks"])):
@@ -2571,6 +2995,10 @@ def main() -> int:
     line["baselines"] = {"full_width": baselines, "card_vs_cpu_tiny": tiny_baselines,
                          "cli": {what: {k: v for k, v in run.items() if k != "counts"}
                                  for what, run in baseline_cli.items()}}
+    line["dit_train"] = {mode: {k: v for k, v in run.items() if k != "counts"}
+                         for mode, run in train["runs"].items()}
+    line["dit_sample"] = {mode: {k: v for k, v in run.items() if k != "counts"}
+                          for mode, run in sampled.items()}
     line["dit"] = {"repeat_ms": dit_out["repeat_ms"], "peak_gib": dit_out["peak_gib"],
                    "cached_vs_fresh": dit_out["cached_gap"], "cli": dit_cli,
                    "converter": converted}

@@ -43,8 +43,8 @@ from torch import nn
 
 from diffsim_tpu_torch.convert.store import _flatten, as_float32, unflatten
 
-KINDS = ("unet", "vae", "text", "text2", "dit", "clip_vision", "ip_proj", "clip", "dino",
-         "vgg", "lpips", "u2net")
+KINDS = ("unet", "vae", "vae_decoder", "text", "text2", "dit", "clip_vision", "ip_proj", "clip",
+         "dino", "vgg", "lpips", "u2net")
 # the leaves each kind keeps as they are, by path: embedding and position tables
 _TABLES = {"text": ("token_embedding", "position_embedding"),
            "text2": ("token_embedding", "position_embedding"),

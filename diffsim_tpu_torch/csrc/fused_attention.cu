@@ -36,8 +36,9 @@
 // consumer scales its accumulator by 1 / l and stores its rows in bf16; the rows past S of a
 // partial last q block are computed on TMA's zero rows and not stored.
 //
-// float32 (a tight numerical check on the card, not on any main path): the PR 1 tiling with plain
-// FMAs, the score tile and accumulator in shared memory (attention_common.cuh).
+// float32 (the forward of the DiT trainer's default float32 step, and a tight numerical check on
+// the card): the first design's tiling with plain FMAs, the score tile and accumulator in shared
+// memory (attention_common.cuh).
 //
 // C interface (loaded with ctypes): every entry point returns cudaGetLastError().
 

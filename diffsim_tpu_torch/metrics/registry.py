@@ -60,7 +60,7 @@ def _make_prewarm(scorer):
 
 def _load_params(path):
     """The ``--weights`` tree. The converters also write the VAE decoder (``vae_decoder``),
-    which no scorer runs (the port has no decoder yet): it is dropped here."""
+    which no scorer runs: it is dropped here (the DiT sampler reads it from its own file)."""
     if not path:
         return None
     from diffsim_tpu_torch.convert.store import load_params

@@ -1,8 +1,10 @@
 """DiT (Diffusion Transformer) family, DiT-{S,B,L,XL}/{2,4,8}, with adaLN-Zero conditioning.
 
-Counterpart of ``diffsim_tpu/models/dit.py`` (inference only: the training-time label dropout,
-``remat`` and ``forward_with_cfg`` belong to training and sampling, ROADMAP Queue 1 item 8).
-Latents are NCHW, as in the port's UNet. The patch embedding is an ``nn.Linear`` over
+Counterpart of ``diffsim_tpu/models/dit.py``, for scoring and for training: label dropout
+(a ``drop`` mask, which the trainer draws from its generator), ``remat`` (each block under
+``torch.utils.checkpoint``) and :meth:`DiT.init_weights` (``dit.init``). The sampler's
+classifier-free guidance lives in ``train/dit_trainer.py``, as in the JAX package, which calls no
+``forward_with_cfg``. Latents are NCHW, as in the port's UNet. The patch embedding is an ``nn.Linear`` over
 flattened patches in (ph, pw, C) feature order (:func:`patchify`), the JAX package's dense
 layout, so the weight bridge maps it by its dense rule; the published checkpoint's strided
 ``Conv2d`` kernel is flattened to it by ``convert/torch_import._patch_conv_to_dense``.
@@ -21,6 +23,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from diffsim_tpu_torch.ops.attention import sdpa
 from diffsim_tpu_torch.ops.blocks import TimeMLP, silu, timestep_embedding
@@ -37,6 +40,7 @@ class DiTConfig:
     heads: int = 16
     mlp_ratio: float = 4.0
     num_classes: int = 1000
+    class_dropout_prob: float = 0.1
     learn_sigma: bool = False  # the reference's modelsdit.py default (models.py uses True)
 
     @property
@@ -198,6 +202,20 @@ class FinalLayer(nn.Module):
         return self.linear(_modulate(_layer_norm(x), shift, scale))
 
 
+def _checkpointed(blk: nn.Module, h, c_emb):
+    """``blk(h, c_emb)`` under non-reentrant checkpointing, with the block's parameters as
+    they are at the forward passed in as inputs: the recompute in the backward then runs on the
+    same tensors, also when the forward ran under ``torch.func.functional_call`` (the trainer's
+    bf16 view), whose parameters are gone from the module by then."""
+    named = list(blk.named_parameters())
+    names = [n for n, _ in named]
+
+    def run(h, c_emb, *tensors):
+        return torch.func.functional_call(blk, dict(zip(names, tensors)), (h, c_emb))
+
+    return checkpoint(run, h, c_emb, *(t for _, t in named), use_reentrant=False)
+
+
 class DiT(nn.Module):
     """The DiT backbone. Parameter names follow the JAX tree (``patch_embed``, ``pos_embed``,
     ``t_embedder``, ``y_embedder``, ``blocks``, ``final``); ``pos_embed`` (N, hidden) and
@@ -215,9 +233,29 @@ class DiT(nn.Module):
         self.blocks = nn.ModuleList(DiTBlock(cfg) for _ in range(cfg.depth))
         self.final = FinalLayer(cfg)
 
-    def forward(self, x: torch.Tensor, t, y: torch.Tensor, tap: TapSpec | None = None):
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> "DiT":
+        """Fill the parameters in place from ``generator``, as ``dit.init`` does: weights and the
+        ``y_embedder`` table N(0, 0.02), biases zero, ``pos_embed`` the fixed sin-cos table."""
+        for name, p in self.named_parameters():
+            if name.endswith("bias"):
+                p.zero_()
+            else:
+                p.normal_(0.0, 0.02, generator=generator)
+        table = pos_embed_2d(self.cfg.hidden, self.cfg.tokens_per_side)
+        self.pos_embed.copy_(torch.from_numpy(table))
+        return self
+
+    def forward(self, x: torch.Tensor, t, y: torch.Tensor, tap: TapSpec | None = None, *,
+                drop: torch.Tensor | None = None, remat: bool = False):
         """x (B, C, H, W) latents, t (B,) or a scalar timestep, y (B,) class labels ->
-        ``(out (B, out_channels, H, W), {})``, or ``(None, taps)`` with a tap on ``blocks``."""
+        ``(out (B, out_channels, H, W), {})``, or ``(None, taps)`` with a tap on ``blocks``.
+
+        ``drop`` is training's label dropout, a boolean (B,) mask (the trainer draws it with
+        probability ``class_dropout_prob``): where it is true the label becomes the null class,
+        the last row of ``y_embedder``. ``remat=True`` runs each block under
+        ``torch.utils.checkpoint`` (non-reentrant), so the backward recomputes its activations;
+        the numbers are unchanged."""
         cfg = self.cfg
         b = x.shape[0]
         t = torch.as_tensor(t, dtype=torch.float32, device=x.device)
@@ -225,13 +263,18 @@ class DiT(nn.Module):
             t = t.expand(b)
         h = self.patch_embed(patchify(x, cfg.patch_size)) + self.pos_embed[None]
         c_emb = self.t_embedder(timestep_embedding(t, 256).to(h.dtype))
+        if drop is not None:
+            y = torch.where(drop, cfg.num_classes, y)
         c_emb = c_emb + self.y_embedder[y]
         tap_at = None
         if tap is not None and tap.block == "blocks":
             tap_at = tap.address[0] % cfg.depth
         for i, blk in enumerate(self.blocks):
             capture = tap.capture if i == tap_at else None
-            h, taps = blk(h, c_emb, capture=capture)
+            if remat and capture is None:
+                h, taps = _checkpointed(blk, h, c_emb)
+            else:
+                h, taps = blk(h, c_emb, capture=capture)
             if h is None:
                 return None, taps
         out = self.final(h, c_emb)

@@ -1,9 +1,9 @@
-"""AutoencoderKL encoder (the Stable Diffusion VAE), NCHW inside.
+"""AutoencoderKL (the Stable Diffusion VAE), NCHW inside.
 
-Counterpart of the encoder half of ``diffsim_tpu/models/vae.py``: the scorers only encode. The
-decoder is not ported yet (ROADMAP.md). The mid attention is single-head at d = 512; at 512 px
-(4096 tokens) it takes the math path, as in the JAX package; at >= 8192 tokens (1024 px, the
-SDXL path) it runs the K4 streaming kernel (``ops/kernels/attention_stream.py``).
+Counterpart of ``diffsim_tpu/models/vae.py``: the encoder, which the scorers and the DiT trainer
+run, and the decoder, which the DiT sampler runs. The mid attention is single-head at d = 512; at
+up to 4096 tokens (512 px) it takes the math path, as in the JAX package; at >= 8192 tokens
+(1024 px, the SDXL path) it runs the K4 streaming kernel (``ops/kernels/attention_stream.py``).
 """
 
 from __future__ import annotations
@@ -14,7 +14,15 @@ import torch
 from torch import nn
 
 from diffsim_tpu_torch.ops.attention import sdpa
-from diffsim_tpu_torch.ops.blocks import Downsample, GroupNorm, ResnetBlock, conv1x1, conv3x3, silu
+from diffsim_tpu_torch.ops.blocks import (
+    Downsample,
+    GroupNorm,
+    ResnetBlock,
+    Upsample,
+    conv1x1,
+    conv3x3,
+    silu,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,6 +118,46 @@ class Encoder(nn.Module):
         h = self.mid(h)
         h = self.conv_out(silu(self.norm_out(h)))
         return self.quant_conv(h)
+
+
+class _Up(nn.Module):
+    def __init__(self, cin: int, cout: int, layers: int, upsample: bool):
+        super().__init__()
+        self.resnets = nn.ModuleList(
+            ResnetBlock(cin if j == 0 else cout, cout) for j in range(layers))
+        self.upsample = Upsample(cout) if upsample else None
+
+    def forward(self, x):
+        for rn in self.resnets:
+            x = rn(x)
+        return x if self.upsample is None else self.upsample(x)
+
+
+class Decoder(nn.Module):
+    """Latents already divided by the scaling factor, (B, latent, h, w) -> an image
+    (B, 3, 8h, 8w) in about [-1, 1]: ``post_quant_conv``, ``conv_in``, the mid block, the up
+    blocks (``layers_per_block + 1`` resnets each, all but the last followed by a nearest-2x
+    upsample and a 3x3 conv), ``norm_out``, ``conv_out``; ``decoder_init`` / ``decoder_apply``
+    of the JAX package."""
+
+    def __init__(self, cfg: VAEConfig):
+        super().__init__()
+        rev = tuple(reversed(cfg.block_out_channels))
+        self.post_quant_conv = conv1x1(cfg.latent_channels, cfg.latent_channels)
+        self.conv_in = conv3x3(cfg.latent_channels, rev[0])
+        self.mid = _Mid(rev[0])
+        cins = (rev[0],) + rev[:-1]
+        self.up = nn.ModuleList(
+            _Up(cin, cout, cfg.layers_per_block + 1, i < len(rev) - 1)
+            for i, (cin, cout) in enumerate(zip(cins, rev)))
+        self.norm_out = GroupNorm(rev[-1], eps=1e-6)
+        self.conv_out = conv3x3(rev[-1], cfg.in_channels)
+
+    def forward(self, z):
+        h = self.mid(self.conv_in(self.post_quant_conv(z)))
+        for blk in self.up:
+            h = blk(h)
+        return self.conv_out(silu(self.norm_out(h)))
 
 
 def default_chunk(x: torch.Tensor) -> int:

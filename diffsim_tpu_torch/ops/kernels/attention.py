@@ -5,6 +5,12 @@ CUDA kernel is ``csrc/fused_attention.cu`` (design and bound in its header). On 
 wrapper runs :func:`fused_self_attention_plain`, the TPU kernel's arithmetic in torch; on a CUDA
 tensor it launches the kernel or raises. ``bf16_probs`` is the TPU kernel's fast mode
 (``--bf16_softmax``, ``ops/attention.py:fast_softmax``).
+
+Under grad (grad mode on and an input that requires it) the call goes through
+:class:`FusedSelfAttention`, the counterpart of the TPU kernel's custom VJP: the forward is the
+same dispatch, the backward :func:`fused_self_attention_bwd_plain`, a port of ``_fused_bwd``
+(``diffsim_tpu/ops/pallas/attention.py:132-151``). The TPU package computes that backward in
+XLA outside any Pallas kernel, so its products here are ``torch.matmul``.
 """
 
 from __future__ import annotations
@@ -59,6 +65,27 @@ def fused_self_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     return (pv * (1.0 / s)).to(v.dtype)
 
 
+def fused_self_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                   g: torch.Tensor):
+    """The TPU kernel's backward (``_fused_bwd``), line for line: the f32 logits and softmax
+    recomputed, ``dv = W^T g``, ``dp = g V^T``, ``tmp = (dp - rowsum(dp * W)) * W``,
+    ``dq = tmp K * scale``, ``dk = tmp^T Q * scale``, each gradient cast to its input's dtype.
+    Exact whatever mode the forward took (the bf16_probs mode is forward-only, as in JAX). The
+    (B, H, S, S) float32 weights are materialised, as XLA's backward does."""
+    scale = q.shape[-1] ** -0.5
+    qf, kf = q.float(), k.float()
+    w = torch.softmax(torch.matmul(qf, kf.transpose(-1, -2)) * scale, dim=-1)
+    g32 = g.float()
+    dv = torch.matmul(w.transpose(-1, -2), g32)
+    tmp = torch.matmul(g32, v.float().transpose(-1, -2))  # dp, made tmp in place
+    tmp -= (tmp * w).sum(dim=-1, keepdim=True)
+    tmp *= w
+    del w
+    dq = torch.matmul(tmp, kf) * scale
+    dk = torch.matmul(tmp.transpose(-1, -2), qf) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def _lib() -> ctypes.CDLL:
     lib = build.library("fused_attention")
     if lib.fused_attention_fwd.argtypes is None:
@@ -68,14 +95,37 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+class FusedSelfAttention(torch.autograd.Function):
+    """K1 under autograd: the forward dispatches as :func:`fused_self_attention` does without
+    grad (counting its launch), saves q, k and v; the backward is
+    :func:`fused_self_attention_bwd_plain`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bf16_probs):
+        ctx.save_for_backward(q, k, v)
+        return _dispatch(q, k, v, bf16_probs)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (*fused_self_attention_bwd_plain(*ctx.saved_tensors, g), None)
+
+
 def fused_self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          bf16_probs: bool = False) -> torch.Tensor:
     """(B, H, S, D) self-attention, softmax scale 1/sqrt(D), output in V's dtype;
-    ``bf16_probs`` selects the fast mode.
+    ``bf16_probs`` selects the fast mode. Differentiable: with grad mode on and an input that
+    requires grad, the call goes through :class:`FusedSelfAttention`.
 
     CUDA: contiguous bf16 or float32 tensors of one shape, S % 64 == 0, D % 8 == 0, D <= 160.
     Counts one launch in ``fused_self_attention.launches`` and, in the fast mode, one in
     ``fused_self_attention.launches_bf16_probs``."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FusedSelfAttention.apply(q, k, v, bf16_probs)
+    return _dispatch(q, k, v, bf16_probs)
+
+
+def _dispatch(q, k, v, bf16_probs: bool) -> torch.Tensor:
+    """The plain version on a CPU tensor; on a CUDA tensor the kernel's launch, or a raise."""
     if q.device.type == "cpu":
         return fused_self_attention_plain(q, k, v, bf16_probs)
     if q.device.type != "cuda":

@@ -92,7 +92,11 @@ def streaming_self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     CUDA: contiguous tensors of one shape, D <= 512; float32 with S % 64 == 0 and D % 64 == 0,
     bf16 with S % 32 == 0 and D % 8 == 0 (the SDXL VAE's mid attention is (B, 1, 16384, 512)).
     Counts one launch in ``streaming_self_attention.launches`` and, in the fast mode, one in
-    ``streaming_self_attention.launches_bf16_probs``."""
+    ``streaming_self_attention.launches_bf16_probs``. Not differentiable, as the TPU kernel is
+    not: under grad, on inputs that require it, the call raises."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        raise RuntimeError("streaming_self_attention has no backward (the TPU kernel defines no "
+                           "VJP either): call it under torch.no_grad() or on detached inputs")
     if q.device.type == "cpu":
         return streaming_self_attention_plain(q, k, v, bf16_probs)
     if q.device.type != "cuda":

@@ -4,6 +4,10 @@ Replaces the TPU kernel ``diffsim_tpu/ops/pallas/ff.py:fused_geglu_ff``. The CUD
 ``csrc/geglu_ff.cu`` (design and bound in its header). Weights are in the nn.Linear (out, in)
 layout: W1 (8C, C), W2 (C, 4C). On a CPU tensor the wrapper runs :func:`fused_geglu_ff_plain`;
 on a CUDA tensor it launches the kernels or raises.
+
+Under grad the call goes through :class:`FusedGegluFF`, whose backward
+:func:`fused_geglu_ff_bwd_plain` ports the TPU kernel's custom VJP (``_fused_bwd``,
+``diffsim_tpu/ops/pallas/ff.py:107-132``), XLA math there and ``torch.matmul`` here.
 """
 
 from __future__ import annotations
@@ -27,6 +31,43 @@ def fused_geglu_ff_plain(x, w1, b1, w2, b2) -> torch.Tensor:
     return F.linear(y.float(), w2.float(), b2.float()).to(x.dtype)
 
 
+def fused_geglu_ff_bwd_plain(x, w1, b1, w2, b2, g):
+    """The TPU kernel's backward (``_fused_bwd``): the hidden projection recomputed in f32, the
+    erf-form GELU and its derivative Phi(g) + g * pdf(g), the intermediate cast to x's dtype
+    where the forward casts it, f32 products, each gradient in its input's dtype. Weights in the
+    nn.Linear layout, so dW1 is (8C, C) and dW2 (C, 4C)."""
+    g32 = g.float()
+    hg = F.linear(x.float(), w1.float(), b1.float())
+    h, gate = hg.chunk(2, dim=-1)
+    phi = 0.5 * (1.0 + torch.erf(gate * 0.7071067811865476))
+    gelu_g = gate * phi
+    y = (h * gelu_g).to(x.dtype)
+    dw2 = torch.matmul(g32.t(), y.float())
+    db2 = g32.sum(dim=0)
+    dy = torch.matmul(g32, w2.float())
+    pdf = torch.exp(-0.5 * gate * gate) * 0.3989422804014327
+    dhg = torch.cat([dy * gelu_g, dy * h * (phi + gate * pdf)], dim=-1)
+    dx = torch.matmul(dhg, w1.float())
+    dw1 = torch.matmul(dhg.t(), x.float())
+    db1 = dhg.sum(dim=0)
+    return (dx.to(x.dtype), dw1.to(w1.dtype), db1.to(b1.dtype), dw2.to(w2.dtype),
+            db2.to(b2.dtype))
+
+
+class FusedGegluFF(torch.autograd.Function):
+    """K2 under autograd: the forward dispatches as :func:`fused_geglu_ff` does without grad,
+    the backward is :func:`fused_geglu_ff_bwd_plain`."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2):
+        ctx.save_for_backward(x, w1, b1, w2, b2)
+        return _dispatch(x, w1, b1, w2, b2)
+
+    @staticmethod
+    def backward(ctx, g):
+        return fused_geglu_ff_bwd_plain(*ctx.saved_tensors, g)
+
+
 def kernel_takes(n: int, c: int) -> bool:
     """The shape contract of the CUDA kernels, both dtypes: C % 32 == 0 (the bf16 kernels read
     64-column k panels, TMA zero-filling the last half panel when C % 64 == 32; y has 4C columns,
@@ -47,7 +88,15 @@ def _lib() -> ctypes.CDLL:
 def fused_geglu_ff(x, w1, b1, w2, b2) -> torch.Tensor:
     """x (N, C) -> (N, C). CUDA: contiguous tensors of one dtype (bfloat16 or float32) and a
     shape that :func:`kernel_takes`. One call launches the two GEMM kernels and counts one
-    launch in ``fused_geglu_ff.launches``."""
+    launch in ``fused_geglu_ff.launches``. Differentiable through :class:`FusedGegluFF`."""
+    tensors = (x, w1, b1, w2, b2)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        return FusedGegluFF.apply(*tensors)
+    return _dispatch(*tensors)
+
+
+def _dispatch(x, w1, b1, w2, b2) -> torch.Tensor:
+    """The plain version on a CPU tensor; on a CUDA tensor the kernels' launch, or a raise."""
     if x.device.type == "cpu":
         return fused_geglu_ff_plain(x, w1, b1, w2, b2)
     if x.device.type != "cuda":

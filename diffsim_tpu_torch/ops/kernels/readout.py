@@ -58,12 +58,16 @@ def cross_self_partials(q, k_cross, v_cross, k_self, v_self, mse: bool = False):
     """(N, S, D) rows -> three (N,) f32 partial sums, as :func:`cross_self_partials_plain`.
 
     CUDA: contiguous bf16 or float32 tensors of one shape, S % 64 == 0, D % 8 == 0, D <= 128.
-    Counts one launch in ``cross_self_partials.launches``."""
+    Counts one launch in ``cross_self_partials.launches``. Not differentiable, as the TPU
+    kernel is not: under grad, on inputs that require it, the call raises."""
+    tensors = (q, k_cross, v_cross, k_self, v_self)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError("cross_self_partials has no backward (the TPU kernel defines no VJP "
+                           "either): call it under torch.no_grad() or on detached inputs")
     if q.device.type == "cpu":
         return cross_self_partials_plain(q, k_cross, v_cross, k_self, v_self, mse)
     if q.device.type != "cuda":
         raise ValueError(f"cross_self_partials: unsupported device {q.device}")
-    tensors = (q, k_cross, v_cross, k_self, v_self)
     if q.dim() != 3 or any(t.shape != q.shape for t in tensors):
         raise ValueError("cross_self_partials: q and the four K/V must share one (N, S, D) "
                          f"shape, got {[tuple(t.shape) for t in tensors]}")

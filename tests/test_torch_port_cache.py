@@ -25,6 +25,16 @@ ARGS = {"diffsim": dict(prompt="p", target_step=600, similarity="cosine", target
                            target_layer=(0, 1, 1))}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The tiny models run faster on one intra-op thread than on many, most of all while the
+    suite's parallel workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np_cache(capacity, cls=DeviceFeatureCache):
     pool = np.zeros((capacity, 2), np.float32)
     calls = []

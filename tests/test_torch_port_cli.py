@@ -27,6 +27,16 @@ from tests import fixtures
 CACHED_ATOL = 2e-6  # cached vs fresh scores (tests/test_torch_port_cache.py)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The tiny models run faster on one intra-op thread than on many, most of all while the
+    suite's parallel workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def data(tmp_path_factory):
     root = str(tmp_path_factory.mktemp("bench"))

@@ -36,6 +36,16 @@ from tests.test_convert_diffusion import synth_dit_sd, synth_unet_sd, synth_vae_
 FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The tiny models run faster on one intra-op thread than on many, most of all while the
+    suite's parallel workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _assert_same_tree(ours, ref):
     """Equal trees: the same paths, and every leaf equal in dtype, shape and value."""
     a, b = store._flatten(ours), store._flatten(jax.device_get(ref))

@@ -25,7 +25,9 @@ def test_port_and_chip_smoke_import_no_jax():
                  "convert.diffusion_import", "convert.torch_import", "models.clip_vision",
                  "models.ip_adapter", "metrics.ffa", "metrics.clip_i", "metrics.dino",
                  "metrics.lpips", "metrics.vgg_gram", "models.dinov2", "models.vgg",
-                 "models.u2net", "convert.u2net_import"):
+                 "models.u2net", "convert.u2net_import", "models.diffusion",
+                 "train.dit_trainer", "train.timestep_sampler", "data.imagefolder",
+                 "cli.dit_train", "cli.dit_sample"):
         assert f"diffsim_tpu_torch.{name}" in modules
     code = (
         "import importlib, sys\n"
@@ -42,16 +44,18 @@ def test_port_and_chip_smoke_import_no_jax():
     assert out.stdout.startswith("ok")
 
 
-SCORERS = {"DiffSimSD15": "diffsim_sd15", "DiffSimXL": "diffsim_xl", "DiffSimDiT": "diffsim_dit",
-           "CLIPScore": "clip_i", "Dinov2Score": "dino", "DinoScore": "dino", "LPIPS": "lpips",
-           "VGGGram": "vgg_gram", "ForegroundFeatureAveraging": "ffa", "U2NetMatting": "ffa"}
+SCORERS = {"DiffSimSD15": "metrics.diffsim_sd15", "DiffSimXL": "metrics.diffsim_xl",
+           "DiffSimDiT": "metrics.diffsim_dit", "CLIPScore": "metrics.clip_i",
+           "Dinov2Score": "metrics.dino", "DinoScore": "metrics.dino", "LPIPS": "metrics.lpips",
+           "VGGGram": "metrics.vgg_gram", "ForegroundFeatureAveraging": "metrics.ffa",
+           "U2NetMatting": "metrics.ffa", "DiTTrainer": "train.dit_trainer"}
 
 
 @pytest.mark.parametrize("scorer", sorted(SCORERS))
 def test_scorer_without_a_device_raises_when_cuda_is_absent(monkeypatch, scorer):
     import importlib
 
-    cls = getattr(importlib.import_module(f"diffsim_tpu_torch.metrics.{SCORERS[scorer]}"), scorer)
+    cls = getattr(importlib.import_module(f"diffsim_tpu_torch.{SCORERS[scorer]}"), scorer)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cls(None) if scorer == "U2NetMatting" else cls()

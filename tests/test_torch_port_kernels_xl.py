@@ -30,6 +30,16 @@ from diffsim_tpu_torch.ops.kernels.readout import (
 )
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The tiny models run faster on one intra-op thread than on many, most of all while the
+    suite's parallel workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _rand(shape, seed, scale=1.0):
     return (np.random.default_rng(seed).standard_normal(shape) * scale).astype(np.float32)
 

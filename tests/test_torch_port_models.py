@@ -30,6 +30,16 @@ FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures", "torch_parity_tiny
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The tiny models run faster on one intra-op thread than on many, most of all while the
+    suite's parallel workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _port(factory, tree, kind):
     return build_module(factory, tree, kind, torch.device("cpu"), torch.float32, None)
 

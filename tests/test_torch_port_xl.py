@@ -37,6 +37,16 @@ TEXT2 = dict(vocab_size=1000, hidden=32, layers=2, heads=2, intermediate=64, act
              projection_dim=16)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The tiny models run faster on one intra-op thread than on many, most of all while the
+    suite's parallel workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _redrawn(tree, seed):
     """A JAX init tree with every leaf redrawn N(0, 0.1) from ``seed`` (numpy)."""
     rng = np.random.default_rng(seed)
