@@ -10,10 +10,10 @@ Phases, each of which fails the run (non-zero exit, no result line) if anything 
 3. K1 ``fused_self_attention`` at the SD-1.5 main-path shapes (B = 24: 4 triplets x 6 CFG
    rows), the SDXL ones (B = 12: 2 triplets) and DiT-XL/2's (48, 16, 1024, 72) (8 triplets x 6
    rows; head dim 72 runs as the kernel's 80-wide instantiation), at S = 1280, in float32, and
-   at every head dim it takes, against its plain version; timed beside the plain version,
-   ``F.scaled_dot_product_attention`` (a yardstick only; the port never calls it), its
-   previous design (v2, ``csrc/attention_v2.cu``, also held to the plain version) and the
-   card's bound;
+   at every head dim it takes in bf16 and in float32, against its plain version; timed beside
+   the plain version, ``F.scaled_dot_product_attention`` (a yardstick only; the port never
+   calls it), its previous design (v2, ``csrc/attention_v2.cu``, also held to the plain
+   version: in float32 the FMA kernel that the 3xTF32 design replaced) and the card's bound;
 4. K2 ``fused_geglu_ff`` at its main-path shapes, the same way, beside its previous design
    (v2, ``csrc/geglu_ff_v2.cu``) and, as information, cuBLAS's two projections with PyTorch's
    elementwise GEGLU between them (no single PyTorch call computes GEGLU-FF, so K2 has no
@@ -49,7 +49,8 @@ Phases, each of which fails the run (non-zero exit, no result line) if anything 
    against their plain versions (atol = rtol = 1e-2), then on inputs with exact logits and
    each row's max at key 0 against a reference that rounds where the kernels round (float32
    within 1e-5, bf16 within half an output ulp, and at most a tenth of the exact mode's
-   disagreement with it), timed beside the exact mode;
+   disagreement with it), timed beside the exact mode and, K1 in float32, beside its previous
+   (FMA) design;
 11. the 2AFC CLI at full SD-1.5 width: ``run_benchmark("cute", --preset cute ...)`` over a
    CUTE-shaped tree of 36 random 640 x 480 JPEGs (60 comparisons), through the device moment
    cache (one miss per image, the rest hits; 8 K1 and 4 K2 per UNet forward, no K3 or K4),
@@ -107,7 +108,8 @@ Phases, each of which fails the run (non-zero exit, no result line) if anything 
    Function (the kernel's forward, the backward a port of the JAX ``_fused_bwd``) against the
    same through ``fused_self_attention_plain``, at DiT-XL/2's 256 px training site (32, 16, 256,
    72) and at (2, 3, 256, 72) and (2, 3, 1024, 80), in float32 and bf16; the output's
-   ``grad_fn`` is the Function; the forward timed beside SDPA and its bound, the plain backward
+   ``grad_fn`` is the Function; the forward timed beside SDPA and its bound (float32: also
+   beside the previous FMA design, at the training site and the sampler's), the plain backward
    beside SDPA's backward (information);
 23. one DiT training step at tiny width (head dim 72 at 256 tokens, so K1 routes), card vs CPU
    from one seeded tree in float32 with TF32 off and injected noise, t and label drop: the
@@ -134,9 +136,9 @@ reading. ``call_ms`` is the whole wrapper call between two CUDA events (median o
 host work included, as information; plain versions are timed that way too (5 calls for the
 slowest). Each phase header prints the card's SM clock, power and throttle reasons: a card held
 at its power limit lowers its clock. A bound is the largest of three times at the H100 SXM's
-published dense peaks: the products (989 TFLOP/s bf16 tensor cores; K4 float32 three
-TF32 passes at 495 TFLOP/s, 2.5 on average in its bf16_probs mode, whose P V takes two; 67
-TFLOP/s float32 outside the tensor cores), the exponentials
+published dense peaks: the products (989 TFLOP/s bf16 tensor cores; K1 and K4 float32 three
+TF32 passes at 495 TFLOP/s, 2.5 on average in their bf16_probs modes, whose P V takes two; 67
+TFLOP/s float32 outside the tensor cores, which the FMA designs ran on), the exponentials
 (3.9e12/s on the special-function units, FlashAttention-3 section 1: b h s^2 for K1 and K4,
 twice that per direction for K3) and the bytes (3.35 TB/s).
 """
@@ -214,7 +216,7 @@ from diffsim_tpu_torch.runtime.device_cache import resolve_cached_chunk
 from diffsim_tpu_torch.train.dit_trainer import DiTTrainer, TrainConfig
 
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # H100 SXM: bf16 tensor, FP32 SIMT
-PEAK_TF32 = 495e12  # H100 SXM dense TF32 tensor cores: K4 float32 runs 3xTF32 passes
+PEAK_TF32 = 495e12  # H100 SXM dense TF32 tensor cores: K1 and K4 float32 run 3xTF32 passes
 PEAK_EXP = 3.9e12  # exp/s of the H100 SXM's special-function units (FlashAttention-3, section 1)
 PEAK_BYTES = 3.35e12  # HBM3 bandwidth, H100 SXM
 CUTE = dict(prompt="The photo of a cat", target_block="up_blocks", target_layer=(0,),
@@ -239,6 +241,9 @@ K4_MAIN = (2, 1, 16384, 512)  # one VAE chunk of two 1024 px images
 K4_768 = (2, 1, 9216, 512)  # the VAE mid attention of one SD-1.5 pair at 768 px
 # K4's key tiles, whose row sums its bf16_probs mode rounds (csrc/streaming_attention.cu)
 K4_SUM_TILE = {torch.float32: 64, torch.bfloat16: 32}
+# K1 float32's truncating tensor-core steps in one P V sum in its bf16_probs mode: a fresh sum
+# per 64-key tile, 8 k8 steps of 2 TF32 products (csrc/fused_attention.cu)
+K1_F32_TC_STEPS = 64 // 8 * 2
 # the bf16_probs mode of K1 at the SD-1.5 main-path sites and one SDXL site, in bf16
 K1_FAST_SITES = [(BATCH, 8, 4096, 40), (BATCH, 8, 1024, 80), (BATCH, 8, 256, 160),
                  (XL_BATCH, 20, 1024, 64)]
@@ -528,15 +533,18 @@ def disagreement(out, ref) -> float:
     return ((out.double() - ref).abs().mean() / ref.abs().mean()).item()
 
 
-def check_rounding(name, kernel, shape, dtype, gen, sum_tile: int | None = None) -> dict:
+def check_rounding(name, kernel, shape, dtype, gen, sum_tile: int | None = None,
+                   tc_steps: int | None = None) -> dict:
     """Hold a kernel's bf16_probs mode to :func:`rounded_probs_reference` elementwise (float32:
     within 1e-5 + 1e-5 |ref|; bf16: within half a bf16 ulp, 2^-8 |ref|, + 1e-5; both plus the
-    flippable roundings' allowance; bf16 kernels sum P V in the tensor cores over S/16 k16
-    steps), and require its disagreement with the reference to be at most a tenth of the exact
-    mode's on the same inputs. The mean signed error over the mean magnitude, towards zero
-    negative, is printed as information (the tensor cores' truncation shows there)."""
+    flippable roundings' allowance and ``tc_steps`` truncating tensor-core steps of the P V sum:
+    by default S/16 k16 steps for bf16 kernels and none for float32), and require its
+    disagreement with the reference to be at most a tenth of the exact mode's on the same
+    inputs. The mean signed error over the mean magnitude, towards zero negative, is printed as
+    information (the tensor cores' truncation shows there)."""
     q, k, v = planted_qkv(shape, dtype, gen)
-    tc_steps = shape[2] // 16 if dtype == torch.bfloat16 else 0
+    if tc_steps is None:
+        tc_steps = shape[2] // 16 if dtype == torch.bfloat16 else 0
     ref, allow = rounded_probs_reference(q, k, v, sum_tile, tc_steps)
     fast = kernel(q, k, v, True).double()
     exact = kernel(q, k, v, False).double()
@@ -631,6 +639,7 @@ def _timed(row, kernel, plain, flops, nbytes, *, library=None, v2=None, info=Non
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 YARDSTICKS = {
     "fused_attention_v2_fwd": ("attention_v2", [_P] * 4 + [_I] * 3 + [_F, _P]),
+    "fused_attention_f32_v1_fwd": ("attention_v2", [_P] * 4 + [_I] * 3 + [_F, _I, _P]),
     "streaming_attention_v2_fwd": ("attention_v2", [_P] * 4 + [_I] * 3 + [_F, _P]),
     "geglu_ff_v2_fwd": ("geglu_ff_v2", [_P] * 7 + [_I, _I, _P]),
     "fused_readout_v2_fwd": ("fused_readout_v2", [_P] * 6 + [_I] * 3 + [_F, _I, _P]),
@@ -653,6 +662,25 @@ def v2_kernel(name: str, q, k, v):
     _yardstick(name, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h, s, d,
                float(d**-0.5))
     return out
+
+
+def v2_f32_attention(q, k, v, tol, bf16_probs: bool = False):
+    """The previous design of K1's float32 path (plain FMAs) on these inputs, held to the plain
+    version within ``tol`` (atol, rtol) first; returns the call, the yardstick of the 3xTF32
+    kernel's time."""
+    b, h, s, d = q.shape
+
+    def call():
+        out = torch.empty_like(v)
+        _yardstick("fused_attention_f32_v1_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                   out.data_ptr(), b * h, s, d, float(d**-0.5), int(bf16_probs))
+        return out
+
+    mode = " bf16_probs" if bf16_probs else ""
+    with torch.no_grad():
+        check_close(f"K1 v2 (FMA){mode} {(b, h, s, d)} float32", call(),
+                    fused_self_attention_plain(q, k, v, bf16_probs), *tol)
+    return call
 
 
 def v2_geglu_ff(x, w1, b1, w2, b2):
@@ -716,19 +744,29 @@ def k1_phase(gen) -> dict:
                    4 * b * h * s * s * d, 4 * b * h * s * d * q.element_size(),
                    library=lambda: F.scaled_dot_product_attention(q, k, v), v2=v2,
                    exps=b * h * s * s)
+        elif dtype == torch.float32:  # the 3xTF32 design beside the FMA one it replaced
+            _timed(row, lambda: fused_self_attention(q, k, v),
+                   lambda: fused_self_attention_plain(q, k, v),
+                   4 * b * h * s * s * d, 4 * b * h * s * d * q.element_size(),
+                   library=lambda: F.scaled_dot_product_attention(q, k, v),
+                   v2=v2_f32_attention(q, k, v, tol), dtype=dtype, exps=b * h * s * s,
+                   tf32_passes=3.0)
         rows.append(row)
         del q, k, v, ref
         torch.cuda.empty_cache()
-    # every head dim the kernel takes (D % 8 == 0, D <= 160: ten padded widths), two S
-    errs = []
-    for d in range(8, 161, 8):
-        for s in (64, 192):
-            q, k, v = (torch.randn((2, 3, s, d), generator=gen, device="cuda").to(torch.bfloat16)
-                       for _ in range(3))
-            errs.append(check_close(f"K1 {(2, 3, s, d)} bf16", fused_self_attention(q, k, v),
-                                    fused_self_attention_plain(q, k, v), 1e-2, 1e-2, quiet=True))
-    print(f"  K1 at every D in 8..160 step 8, S in (64, 192), bf16: max|kernel - plain| = "
-          f"{max(errs):.3e} ok", flush=True)
+    # every head dim the kernel takes (D % 8 == 0, D <= 160: ten padded bf16 widths, twenty
+    # float32 instantiations), two S
+    for dtype, tol in ((torch.bfloat16, (1e-2, 1e-2)), (torch.float32, (1e-5, 0.0))):
+        errs = []
+        for d in range(8, 161, 8):
+            for s in (64, 192):
+                q, k, v = (torch.randn((2, 3, s, d), generator=gen, device="cuda").to(dtype)
+                           for _ in range(3))
+                errs.append(check_close(f"K1 {(2, 3, s, d)} {dtype}",
+                                        fused_self_attention(q, k, v),
+                                        fused_self_attention_plain(q, k, v), *tol, quiet=True))
+        print(f"  K1 at every D in 8..160 step 8, S in (64, 192), {dtype}: max|kernel - plain| "
+              f"= {max(errs):.3e} (atol {tol[0]}) ok", flush=True)
     return {"rows": rows, "max_abs_err": main_err}
 
 
@@ -1295,13 +1333,14 @@ def dit_phase(card_line: str) -> dict:
 
 
 def _mode_row(row, kernel, plain, flops, nbytes, *, exact, dtype, exps, tf32_passes=0.0,
-              plain_reps=20):
+              plain_reps=20, v2=None):
     """Time a kernel's bf16_probs mode as ``_timed`` does, with its exact mode and SDPA (exact
     float32 or bf16 softmax) beside it as information: no PyTorch call computes attention with
-    bf16 probabilities, so the mode has no library time."""
+    bf16 probabilities, so the mode has no library time. ``v2`` is the mode in the kernel's
+    previous design."""
     q, k, v = exact
     _timed(row, kernel, plain, flops, nbytes, dtype=dtype, exps=exps, tf32_passes=tf32_passes,
-           plain_reps=plain_reps,
+           plain_reps=plain_reps, v2=v2,
            info={"exact_ms": lambda: (fused_self_attention if q.shape[-1] <= 160
                                       else streaming_self_attention)(q, k, v),
                  "sdpa_exact_ms": lambda: F.scaled_dot_product_attention(q, k, v)})
@@ -1325,16 +1364,24 @@ def k1_fast_phase(gen) -> dict:
         del out, ref
         row = {"shape": [b, h, s, d], "dtype": str(dtype).replace("torch.", ""),
                "max_abs_err": err}
+        f32 = dtype == torch.float32
         row["rounding"] = check_rounding(f"K1 bf16_probs {(b, h, s, d)} {dtype}",
-                                         fused_self_attention, (b, h, s, d), dtype, gen)
+                                         fused_self_attention, (b, h, s, d), dtype, gen,
+                                         tc_steps=K1_F32_TC_STEPS if f32 else None)
         torch.cuda.empty_cache()
-        if K1_SITES.get((b, h, s, d), (0,))[0] and dtype == torch.bfloat16:
+        sd15_site = K1_SITES.get((b, h, s, d), (0,))[0] and not f32
+        if sd15_site:
             main_err = max(main_err, err)  # the sites of the SD-1.5 tail in fast mode
             row["launches_sd15_forward"] = K1_SITES[(b, h, s, d)][0]
+        if sd15_site or f32:
+            # float32 beside its previous (FMA) design, which is held to the plain version too;
+            # Q K^T in 3 TF32 products, P V (P exact in TF32) in 2
             _mode_row(row, lambda: fused_self_attention(q, k, v, True),
                       lambda: fused_self_attention_plain(q, k, v, True),
                       4 * b * h * s * s * d, 4 * b * h * s * d * q.element_size(),
-                      exact=(q, k, v), dtype=dtype, exps=b * h * s * s)
+                      exact=(q, k, v), dtype=dtype, exps=b * h * s * s,
+                      tf32_passes=2.5 if f32 else 0.0,
+                      v2=v2_f32_attention(q, k, v, (1e-2, 1e-2), True) if f32 else None)
         rows.append(row)
         del q, k, v
         torch.cuda.empty_cache()
@@ -2439,7 +2486,10 @@ def k1_grad_phase(gen) -> dict:
                            lambda: fused_self_attention_plain(q, k, v),
                            4 * b * h * s * s * d, 4 * b * h * s * d * q.element_size(),
                            library=lambda: F.scaled_dot_product_attention(q, k, v),
-                           dtype=dtype, exps=b * h * s * s)
+                           v2=v2_f32_attention(q, k, v, tol) if dtype == torch.float32
+                           else None,
+                           dtype=dtype, exps=b * h * s * s,
+                           tf32_passes=3.0 if dtype == torch.float32 else 0.0)
                 # the backward, as information: the plain port of _fused_bwd (five (S, S)
                 # products, the weights recomputed) beside SDPA's backward on the same inputs
                 qs = [t.clone().requires_grad_() for t in (q, k, v)]
@@ -2470,7 +2520,9 @@ def k1_grad_phase(gen) -> dict:
                lambda: fused_self_attention_plain(q, k, v),
                4 * b * h * s * s * d, 4 * b * h * s * d * q.element_size(),
                library=lambda: F.scaled_dot_product_attention(q, k, v),
-               dtype=torch.float32, exps=b * h * s * s)
+               v2=v2_f32_attention(q, k, v, (1e-5, 0.0)), dtype=torch.float32,
+               exps=b * h * s * s,
+               tf32_passes=3.0)
     rows.append(row)
     err_of[torch.float32] = max(err_of[torch.float32], err)
     del q, k, v
@@ -2768,7 +2820,8 @@ K2_DESIGN = ("two persistent wgmma+TMA GEMMs, 2 ping-ponged consumer warpgroups 
 K3_DESIGN = ("K1's wgmma+TMA pipeline, cross then self pass per 128-row q block, "
              "2 ping-ponged consumer warpgroups (bf16)")
 K4_DESIGN = "3xTF32 mma.sync (float32)"
-K1_F32_DESIGN = "plain FMA tiles, the score tile and accumulator in shared memory (float32)"
+K1_F32_DESIGN = ("3xTF32 mma.sync, 4 warps of 16 q rows, scores and probabilities in registers, "
+                 "K/V double-buffered by cp.async (float32)")
 XL_PER = f"one SDXL score_triplet_batch call ({XL_T} triplets, 1024 px), the sum over its launches"
 DIT_PER = (f"one DiT-XL/2 score_triplet_batch call ({DIT_T} triplets, 512 px, tap block 13), the "
            "sum over its launches")
@@ -2976,8 +3029,9 @@ def main() -> int:
           f"CLI --metric dit hit rate {dit_cli['hit_rate']:.4f}, "
           f"{dit_cli['pairs_per_s']:.2f} pairs/s", flush=True)
     for entry in line["kernels"][-2:]:
+        v2 = f"previous design {entry['v2_ms']:.3f}, " if "v2_ms" in entry else ""
         print(f"  {entry['name']} on {card_line}: {entry['ms']:.3f} ms per training step in "
-              f"{entry['launches']} launches (SDPA {entry['library_ms']:.3f}, bound "
+              f"{entry['launches']} launches ({v2}SDPA {entry['library_ms']:.3f}, bound "
               f"{entry['bound_ms']:.3f}, {100 * entry['roofline_share']:.1f} %); the plain "
               f"backward {entry['bwd_plain_ms']:.3f} ms per step (SDPA's backward "
               f"{entry['bwd_sdpa_ms']:.3f})", flush=True)

@@ -1,9 +1,13 @@
-// The previous (v2) designs of K1's bf16 path and K4's float32 path, kept only as a yardstick:
-// chip_smoke.py times each redesigned kernel against its v2 in the same run, on the same inputs.
-// No path of the port calls them. Their designs, as PERF.md describes them:
+// The previous (v2) designs of K1's bf16 and float32 paths and K4's float32 path, kept only as a
+// yardstick: chip_smoke.py times each redesigned kernel against its v2 in the same run, on the
+// same inputs. No path of the port calls them. Their designs, as PERF.md describes them:
 //   * K1 v2 (fused_attention_v2_fwd): one block of 4 warps per 64-row q tile, mma.sync.m16n8k16
 //     with register-resident S, P and O, K/V tiles double-buffered with cp.async
 //     (attention_common.cuh's tile loop, which K3 still uses);
+//   * K1 float32 v1, the first design of K1's float32 path (fused_attention_f32_v1_fwd, both
+//     modes): one block of 4 warps per 64-row q tile, plain FMAs, the score tile and the
+//     accumulator in shared memory (attention_common.cuh attend_f32, which K3's float32 path
+//     still uses);
 //   * K4 v2 (streaming_attention_v2_fwd): CUDA-core FMAs, no TF32, a 64-row q tile with Q in
 //     shared memory, K in 64 x 64 chunks and V in 8-key chunks through a 4-buffer cp.async ring.
 //
@@ -84,6 +88,46 @@ cudaError_t dispatch_bf16(const void* q, const void* k, const void* v, void* o, 
 }
 
 }  // namespace k1v2
+
+namespace k1f32v1 {
+
+using namespace attn;
+
+__global__ void __launch_bounds__(THREADS)
+attention_f32(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, float* __restrict__ o, int s_len, int d,
+              float scale, bool bf16_probs) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const LayoutF32 L = make_layout_f32(d, 1);
+  const size_t head = size_t(blockIdx.y) * s_len * d;
+  const int q0 = blockIdx.x * BQ;
+  load_tile_f32(reinterpret_cast<float*>(smem + L.q), L.ld_qkv, q + head + size_t(q0) * d, d);
+  attend_f32(L, smem, 0, k + head, v + head, s_len, d, scale, bf16_probs, round_bf16(scale));
+  __syncthreads();
+
+  const float* Os = reinterpret_cast<const float*>(smem + L.o[0]);
+  const float* Ls = reinterpret_cast<const float*>(smem + L.l[0]);
+  float* out = o + head + size_t(q0) * d;
+  for (int i = threadIdx.x; i < BQ * d; i += THREADS) {
+    const int r = i / d, c = i % d;
+    out[i] = Os[r * L.ld_o + c] * (1.0f / (bf16_probs ? round_bf16(Ls[r]) : Ls[r]));
+  }
+}
+
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int bh, int s, int d,
+                       float scale, bool bf16_probs, cudaStream_t stream) {
+  const LayoutF32 L = make_layout_f32(d, 1);
+  cudaError_t err = cudaFuncSetAttribute(attention_f32,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(L.total));
+  if (err != cudaSuccess) return err;
+  attention_f32<<<dim3(s / BQ, bh), THREADS, L.total, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), s, d, scale, bf16_probs);
+  return cudaGetLastError();
+}
+
+}  // namespace k1f32v1
 
 namespace k4v2 {
 
@@ -377,6 +421,16 @@ int fused_attention_v2_fwd(const void* q, const void* k, const void* v, void* o,
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(
       k1v2::dispatch_bf16(q, k, v, o, bh, s, d, scale, static_cast<cudaStream_t>(stream)));
+}
+
+// q, k, v, o: contiguous (bh, s, d) float32; s % 64 == 0, d % 8 == 0, 0 < d <= 160;
+// bf16_probs 0 or 1.
+int fused_attention_f32_v1_fwd(const void* q, const void* k, const void* v, void* o, int bh,
+                               int s, int d, float scale, int bf16_probs, void* stream) {
+  if (bh <= 0 || bh > 65535 || s <= 0 || s % attn::BQ != 0 || d <= 0 || d > 160 || d % 8 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(k1f32v1::launch_f32(q, k, v, o, bh, s, d, scale, bf16_probs != 0,
+                                              static_cast<cudaStream_t>(stream)));
 }
 
 // q, k, v, o: contiguous (bh, s, d) float32; s % 64 == 0, d % 64 == 0, d <= 512.

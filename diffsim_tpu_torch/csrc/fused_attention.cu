@@ -36,9 +36,38 @@
 // consumer scales its accumulator by 1 / l and stores its rows in bf16; the rows past S of a
 // partial last q block are computed on TMA's zero rows and not stored.
 //
-// float32 (the forward of the DiT trainer's default float32 step, and a tight numerical check on
-// the card): the first design's tiling with plain FMAs, the score tile and accumulator in shared
-// memory (attention_common.cuh).
+// float32 (the forward of the DiT trainer's default float32 step at (32, 16, 256, 72), of the
+// float32 sampler at (16, 16, 256, 72), and the tiny float32 card-vs-CPU checks): 3xTF32 on the
+// tensor cores, mma.sync.m16n8k8. Each float32 operand is split where its fragment is loaded,
+// hi = tf32(x) rounded to nearest, lo = x - hi (attention_common.cuh split_tf32), and each product
+// is a_lo b_hi + a_hi b_lo + a_hi b_hi with f32 accumulation; the dropped a_lo b_lo term is
+// ~2^-22 relative, while one TF32 pass (2^-11) misses the 1e-5 check against the plain version
+// by 24-55x (tests/test_torch_port_k1_tf32x3.py emulates both). Design (FlashAttention-2's warp
+// layout): a block of 4 warps owns 64 q rows of one head, each warp 16 rows across all of D; the
+// grid is (S / 64, B H), 2048 blocks at the training site, two resident on an SM (about 190
+// registers a thread at D = 72). Q, K and V come to shared memory by cp.async, K/V in 64-key
+// tiles double-buffered, at leading dims that make every fragment load conflict-free (ld_k_f32,
+// ld_v_f32); Q's fragments are read and split from its tile at each k8 step (held in registers,
+// they pushed the count near the 255 limit and ran slower). Each D % 8 == 0 up to 160 has its own
+// instantiation, so every loop has a fixed trip count and every shared offset is a constant:
+// padding D to 16 and skipping the last step at run time cut the loops into small blocks that
+// the compiler could not schedule across. The scores never leave registers: with each k8 step's
+// k order permuted (fragment k = t and t + 4 are columns 2t and 2t + 1), the C fragment of a
+// score n8 tile is already the A fragment of P V's k8 step, and V's B fragment takes rows 2t and
+// 2t + 1 of the step's 8 keys.
+// The online softmax is the bf16 pipeline's (attention_wgmma.cuh softmax_tile: exp2 with
+// scale log2 e folded into one FMA). The tensor cores truncate their f32 sums, so no sum of
+// theirs runs long: Q K^T spans at most 20 k8 steps, and each tile's P V is a fresh sum, added to
+// the corr-rescaled accumulator with rounded f32 FMAs. In the bf16_probs mode P is exact in bf16,
+// so its TF32 low part is zero and P V takes two products instead of three.
+// Why not wgmma: TF32 wgmma takes its B operand from shared memory only K-major, and V stored
+// (key, d) is N-major for P V, so it would need a transposing copy first (a later design's lever).
+// Bound at the training site: 4 B H S^2 D = 9.66 GFLOP, three TF32 passes at 495 TFLOP/s =
+// 0.0586 ms a launch (1.640 ms a training step of 28 launches; 0.0293 ms a launch at the
+// sampler's (16, 16, 256, 72)), above the bytes (151 MB, 0.0451 ms) and the exponentials
+// (33.6 M, 0.0086 ms). The first design of this path (plain FMAs, score tile and accumulator in
+// shared memory, bound by the 67 TFLOP/s FP32 SIMT rate) is kept as a yardstick in
+// attention_v2.cu.
 //
 // C interface (loaded with ctypes): every entry point returns cudaGetLastError().
 
@@ -166,41 +195,207 @@ cudaError_t dispatch_bf16(const void* q, const void* k, const void* v, void* o, 
 }
 
 // ---------------------------------------------------------------------------
-// float32: plain FMAs, score tile and accumulator in shared memory
+// float32: 3xTF32 mma.sync, four warps of 16 q rows, scores and probabilities in registers
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(THREADS)
-attention_f32(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, float* __restrict__ o, int s_len, int d,
-              float scale, bool bf16_probs) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const LayoutF32 L = make_layout_f32(d, 1);
-  const size_t head = size_t(blockIdx.y) * s_len * d;
-  const int q0 = blockIdx.x * BQ;
-  load_tile_f32(reinterpret_cast<float*>(smem + L.q), L.ld_qkv, q + head + size_t(q0) * d, d);
-  attend_f32(L, smem, 0, k + head, v + head, s_len, d, scale, bf16_probs, round_bf16(scale));
-  __syncthreads();
+// Leading dims (floats) of the shared K and V tiles. K (and Q) rows are read as 8-byte pairs at
+// columns 2t of rows g, conflict-free when ld = 8 mod 16 (8 or 24 mod 32); V as single floats at
+// rows 2t and 2t + 1, column g, conflict-free when ld = 4 mod 8. Every row start stays 16-byte
+// aligned for cp.async.
+__host__ __device__ constexpr int ld_k_f32(int d) { return d % 16 == 8 ? d : d + 8; }
+__host__ __device__ constexpr int ld_v_f32(int d) { return d + 4; }
 
-  const float* Os = reinterpret_cast<const float*>(smem + L.o[0]);
-  const float* Ls = reinterpret_cast<const float*>(smem + L.l[0]);
-  float* out = o + head + size_t(q0) * d;
-  for (int i = threadIdx.x; i < BQ * d; i += THREADS) {
-    const int r = i / d, c = i % d;
-    out[i] = Os[r * L.ld_o + c] * (1.0f / (bf16_probs ? round_bf16(Ls[r]) : Ls[r]));
+// Shared memory (bytes) at head dim D: two stages of a K tile and a V tile, then the Q tile.
+// Stages are addressed as offsets from the shared base, so that every load is a shared-memory
+// load.
+template <int D>
+struct SmemF32 {
+  static constexpr size_t KB = align128(size_t(BKV) * ld_k_f32(D) * 4);
+  static constexpr size_t VB = align128(size_t(BKV) * ld_v_f32(D) * 4);
+  static constexpr size_t STAGE = KB + VB;  // K at 0, V at KB within a stage
+  static constexpr size_t Q = 2 * STAGE;
+  static constexpr size_t TOTAL = 2 * STAGE + KB;
+};
+
+// cp.async of rows [0, 64) x columns [0, D) of a row-major (rows, D) f32 matrix into a tile of
+// leading dim LD, 16 bytes a copy.
+template <int D, int LD>
+__device__ __forceinline__ void copy_tile_f32(float* dst, const float* __restrict__ src) {
+  constexpr int CPR = D / 4;
+#pragma unroll 4
+  for (int i = threadIdx.x; i < BKV * CPR; i += THREADS) {
+    const int r = i / CPR, c = i % CPR;
+    cp_async16(dst + r * LD + 4 * c, src + size_t(r) * D + 4 * c);
   }
 }
 
-cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int bh, int s, int d,
-                       float scale, bool bf16_probs, cudaStream_t stream) {
-  const LayoutF32 L = make_layout_f32(d, 1);
-  cudaError_t err = cudaFuncSetAttribute(attention_f32,
+// One block: 64 q rows of one head, warp w rows 16 w .. 16 w + 15 over all D columns; 64-key
+// K/V tiles double-buffered with cp.async. Instantiated at every D % 8 == 0 up to 160, so every
+// loop has a fixed trip count and every shared offset is a constant. Per tile: S = Q K^T in 3
+// TF32 passes into one register tile (at most 20 k8 steps), the online softmax on it
+// (attention_wgmma.cuh softmax_tile, whose register layout is mma.sync's), then P V as a fresh
+// sum per tile (8 k8 steps, 3 passes; 2 where P is bf16-exact), added to the rescaled
+// accumulator with rounded f32 FMAs: the tensor cores' sums truncate, so no sum of theirs runs
+// over the whole row.
+template <int D, bool BF16P>
+__global__ void __launch_bounds__(THREADS, 2)
+attention_tf32(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, float* __restrict__ o, int s_len, float scale_log2,
+               float scale_bf16) {
+  constexpr int KS = D / 8;    // k8 steps of Q K^T, n8 tiles of O
+  constexpr int NS = BKV / 8;  // n8 tiles of a score tile, k8 steps of P V
+  constexpr int LDK = ld_k_f32(D), LDV = ld_v_f32(D);
+  using L = SmemF32<D>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const float* Qs = reinterpret_cast<const float*>(smem + L::Q);
+  auto k_tile = [&](int buf) { return reinterpret_cast<float*>(smem + buf * L::STAGE); };
+  auto v_tile = [&](int buf) { return reinterpret_cast<float*>(smem + buf * L::STAGE + L::KB); };
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int n_tiles = s_len / BKV;
+  const size_t head = size_t(blockIdx.y) * s_len * D;
+  const int q0 = blockIdx.x * BQ;
+  const float* kh = k + head;
+  const float* vh = v + head;
+
+  copy_tile_f32<D, LDK>(reinterpret_cast<float*>(smem + L::Q), q + head + size_t(q0) * D);
+  copy_tile_f32<D, LDK>(k_tile(0), kh);
+  copy_tile_f32<D, LDV>(v_tile(0), vh);
+  cp_async_commit();
+
+  float acc[KS][4];
+#pragma unroll
+  for (int n = 0; n < KS; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
+  float m_run[2] = {-INFINITY, -INFINITY};  // rows g, g + 8, over unscaled logits
+  float l_run[2] = {0.0f, 0.0f};             // this thread's share of the row sums
+
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int buf = tile & 1;
+    if (tile + 1 < n_tiles) {
+      copy_tile_f32<D, LDK>(k_tile(buf ^ 1), kh + size_t(tile + 1) * BKV * D);
+      copy_tile_f32<D, LDV>(v_tile(buf ^ 1), vh + size_t(tile + 1) * BKV * D);
+    }
+    cp_async_commit();
+    cp_async_wait_all_but_one();  // this tile has landed
+    __syncthreads();
+    const float* Kt = k_tile(buf);
+    const float* Vt = v_tile(buf);
+
+    // S = Q K^T, unscaled: K stored (key, D) row-major is the col-major B operand; the small
+    // products go first into each sum
+    float sc[NS][4];
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      uint32_t ah[4], al[4];
+      load_a_3xtf32(ah, al, Qs, LDK, 16 * warp, 8 * ks, g, t);
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+        const float2 kp =
+            *reinterpret_cast<const float2*>(Kt + (8 * n + g) * LDK + 8 * ks + 2 * t);
+        uint32_t bh0, bl0, bh1, bl1;
+        split_tf32(kp.x, bh0, bl0);
+        split_tf32(kp.y, bh1, bl1);
+        if (ks == 0) {
+          mma_tf32_first(sc[n], al, bh0, bh1);
+        } else {
+          mma_tf32(sc[n], al, bh0, bh1);
+        }
+        mma_tf32(sc[n], ah, bl0, bl1);
+        mma_tf32(sc[n], ah, bh0, bh1);
+      }
+    }
+    float s[4 * NS];  // the same registers in softmax_tile's flat layout
+#pragma unroll
+    for (int i = 0; i < 4 * NS; ++i) s[i] = sc[i / 4][i % 4];
+
+    float corr[2];
+    softmax_tile<BF16P>(s, m_run, l_run, corr, scale_log2, scale_bf16, BKV, t);
+
+    // O = O * corr + P V: the score tile's n8 tile kk is P V's k8 step kk, its C fragment
+    // (keys 2t, 2t + 1 of rows g, g + 8) the A fragment under the permuted k order; V's B
+    // fragment takes the same order, rows 2t and 2t + 1 of the step's 8 keys
+    float part[KS][4];
+#pragma unroll
+    for (int kk = 0; kk < NS; ++kk) {
+      // A fragment (g, 2t), (g + 8, 2t), (g, 2t + 1), (g + 8, 2t + 1) = C elements 0, 2, 1, 3
+      uint32_t ph[4], pl[4];
+      if constexpr (BF16P) {  // bf16-exact, so exact in tf32: no low part
+        ph[0] = __float_as_uint(s[4 * kk]);
+        ph[1] = __float_as_uint(s[4 * kk + 2]);
+        ph[2] = __float_as_uint(s[4 * kk + 1]);
+        ph[3] = __float_as_uint(s[4 * kk + 3]);
+      } else {
+        split_tf32(s[4 * kk], ph[0], pl[0]);
+        split_tf32(s[4 * kk + 2], ph[1], pl[1]);
+        split_tf32(s[4 * kk + 1], ph[2], pl[2]);
+        split_tf32(s[4 * kk + 3], ph[3], pl[3]);
+      }
+      const float* v0 = Vt + (8 * kk + 2 * t) * LDV + g;
+#pragma unroll
+      for (int n = 0; n < KS; ++n) {
+        uint32_t bh0, bl0, bh1, bl1;
+        split_tf32(v0[8 * n], bh0, bl0);
+        split_tf32(v0[8 * n + LDV], bh1, bl1);
+        if constexpr (BF16P) {
+          if (kk == 0) {
+            mma_tf32_first(part[n], ph, bl0, bl1);
+          } else {
+            mma_tf32(part[n], ph, bl0, bl1);
+          }
+        } else {
+          if (kk == 0) {
+            mma_tf32_first(part[n], pl, bh0, bh1);
+          } else {
+            mma_tf32(part[n], pl, bh0, bh1);
+          }
+          mma_tf32(part[n], ph, bl0, bl1);
+        }
+        mma_tf32(part[n], ph, bh0, bh1);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < KS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] = fmaf(acc[n][e], corr[e / 2], part[n][e]);
+    __syncthreads();  // every warp is done with this stage before it is refilled
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float l = quad_sum(l_run[i]);
+    const float inv = 1.0f / (BF16P ? round_bf16(l) : l);
+    float* orow = o + head + size_t(q0 + 16 * warp + g + 8 * i) * D;
+#pragma unroll
+    for (int n = 0; n < KS; ++n)
+      *reinterpret_cast<float2*>(orow + 8 * n + 2 * t) =
+          make_float2(acc[n][2 * i] * inv, acc[n][2 * i + 1] * inv);
+  }
+}
+
+template <int D, bool BF16P>
+cudaError_t launch_tf32(const void* q, const void* k, const void* v, void* o, int bh, int s,
+                        float scale, cudaStream_t stream) {
+  constexpr size_t bytes = SmemF32<D>::TOTAL;
+  cudaError_t err = cudaFuncSetAttribute(attention_tf32<D, BF16P>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(L.total));
+                                         static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
-  attention_f32<<<dim3(s / BQ, bh), THREADS, L.total, stream>>>(
+  attention_tf32<D, BF16P><<<dim3(s / BQ, bh), THREADS, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), s, d, scale, bf16_probs);
+      static_cast<float*>(o), s, scale * LOG2E, round_bf16(scale));
   return cudaGetLastError();
+}
+
+// launch_tf32 at the head dim d (d % 8 == 0, d <= 160): one instantiation per width
+template <bool BF16P, int D = 8>
+cudaError_t dispatch_f32(const void* q, const void* k, const void* v, void* o, int bh, int s,
+                         int d, float scale, cudaStream_t st) {
+  if constexpr (D > 160) {
+    return cudaErrorInvalidValue;
+  } else {
+    return d == D ? launch_tf32<D, BF16P>(q, k, v, o, bh, s, scale, st)
+                  : dispatch_f32<BF16P, D + 8>(q, k, v, o, bh, s, d, scale, st);
+  }
 }
 
 }  // namespace
@@ -218,7 +413,8 @@ int fused_attention_fwd(const void* q, const void* k, const void* v, void* o, in
     return static_cast<int>(bf16_probs ? dispatch_bf16<true>(q, k, v, o, bh, s, d, scale, st)
                                        : dispatch_bf16<false>(q, k, v, o, bh, s, d, scale, st));
   if (dtype == 0)
-    return static_cast<int>(launch_f32(q, k, v, o, bh, s, d, scale, bf16_probs != 0, st));
+    return static_cast<int>(bf16_probs ? dispatch_f32<true>(q, k, v, o, bh, s, d, scale, st)
+                                       : dispatch_f32<false>(q, k, v, o, bh, s, d, scale, st));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

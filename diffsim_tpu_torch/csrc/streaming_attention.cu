@@ -65,6 +65,12 @@ namespace {
 constexpr int THREADS = 256;  // 8 warps
 constexpr float LOG2E = 1.4426950408889634f;
 
+// the 3xTF32 fragments and products of attention_common.cuh
+using attn::load_a_3xtf32;
+using attn::mma_tf32;
+using attn::mma_tf32_first;
+using attn::split_tf32;
+
 __host__ __device__ constexpr size_t align128(size_t x) { return (x + 127) & ~size_t(127); }
 
 // Copy rows [0, rows) x columns [0, d) of a row-major (rows, d) f32 matrix into a tile of
@@ -91,55 +97,6 @@ constexpr int SLOT_FLOATS = K64 * LDC;  // one K chunk; one V chunk (8 x (d + 4)
 
 __device__ inline void cp_async_wait_slots() {  // all but the SLOTS - 2 newest groups landed
   asm volatile("cp.async.wait_group %0;\n" ::"n"(SLOTS - 2));
-}
-
-// x = hi + lo: hi = tf32(x), rounded to nearest with ties away from zero (cvt.rna's rounding,
-// done with two integer operations instead of the slower conversion), lo = x - hi exactly
-// (|lo| <= 2^-11 |x|). lo goes to the tensor cores as it is: they read the top 19 bits of a tf32
-// operand, so lo is truncated to tf32 there, an error of at most 2^-22 |x|.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-// c (16x8, f32) += a (16x8, tf32, row) * b (8x8, tf32, col). Fragments (PTX ISA, mma.m16n8k8,
-// lane = 4 g + t): a = (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4); b = (t, g), (t + 4, g);
-// c = (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1).
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// c = a b + 0: the first product of a fresh sum
-__device__ __forceinline__ void mma_tf32_first(float (&c)[4], const uint32_t (&a)[4],
-                                               uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
-      : "=f"(c[0]), "=f"(c[1]), "=f"(c[2]), "=f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.0f));
-}
-
-// The k index of every k8 step is permuted: the fragment's k = t and k = t + 4 are the
-// step's columns 2t and 2t + 1, so that a thread's two values of a row are one 8-byte load. A
-// dot product does not depend on the order of its terms, as long as A and B take the same one.
-//
-// Load the A fragment of rows (row0 + g, row0 + g + 8) x columns (col0 + 2t, col0 + 2t + 1) of
-// a row-major f32 tile of leading dim ld (ld = 8 mod 32: conflict-free), split into hi and lo.
-__device__ __forceinline__ void load_a_3xtf32(uint32_t (&ah)[4], uint32_t (&al)[4],
-                                              const float* tile, int ld, int row0, int col0,
-                                              int g, int t) {
-  const float* p = tile + (row0 + g) * ld + col0 + 2 * t;
-  const float2 lo_row = *reinterpret_cast<const float2*>(p);
-  const float2 hi_row = *reinterpret_cast<const float2*>(p + 8 * ld);
-  split_tf32(lo_row.x, ah[0], al[0]);
-  split_tf32(hi_row.x, ah[1], al[1]);
-  split_tf32(lo_row.y, ah[2], al[2]);
-  split_tf32(hi_row.y, ah[3], al[3]);
 }
 
 // Shared memory (bytes): the Q tile (leading dim d + 8), the chunk ring, the score tile

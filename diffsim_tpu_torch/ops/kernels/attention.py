@@ -1,9 +1,10 @@
 """K1 ``fused_self_attention``: square self-attention over (B, H, S, D).
 
 Replaces the TPU kernel ``diffsim_tpu/ops/pallas/attention.py:fused_self_attention``. The
-CUDA kernel is ``csrc/fused_attention.cu`` (design and bound in its header). On a CPU tensor the
-wrapper runs :func:`fused_self_attention_plain`, the TPU kernel's arithmetic in torch; on a CUDA
-tensor it launches the kernel or raises. ``bf16_probs`` is the TPU kernel's fast mode
+CUDA kernel is ``csrc/fused_attention.cu`` (design and bound in its header): bf16 on ``wgmma`` +
+TMA, float32 as three TF32 products (3xTF32) on ``mma.sync`` with the scores and probabilities
+in registers. On a CPU tensor the wrapper runs :func:`fused_self_attention_plain`, the TPU
+kernel's arithmetic in torch; on a CUDA tensor it launches the kernel or raises. ``bf16_probs`` is the TPU kernel's fast mode
 (``--bf16_softmax``, ``ops/attention.py:fast_softmax``).
 
 Under grad (grad mode on and an input that requires it) the call goes through
