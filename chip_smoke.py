@@ -123,6 +123,28 @@ Phases, each of which fails the run (non-zero exit, no result line) if anything 
    labels at CFG 4.0 and 50 steps (ancestral, then ``--ddim``) into a PNG grid of 256 px images,
    and ``--num_fid_samples 16 --per_batch 8`` into an ``arr_0`` of (16, 256, 256, 3) uint8; 28
    K1 launches a denoising step, none from the decoder, ms a step and images/s.
+26. SAM at tiny width, card vs CPU on one seeded tree in float32 with TF32 off: ``predict``'s
+   mask logits and IoU within 1e-4, ``SamMasking``'s mattes of two aspect ratios equal except
+   where the CPU's resampled logit is within 1e-4 of 0; no K1-K4 launch;
+27. SAM ViT-H at full width, 1024 px, random weights drawn on the card: ``SamMasking`` on four
+   images of different aspect ratios, each mask's time, ``predict``'s device time and profile,
+   the peak device memory, no K1-K4 launch; one image's multimask logits and IoU held to the
+   same module in float64 on the card (1e-3 of the largest), the flipped mask pixels counted;
+28. ``python -m diffsim_tpu_torch.cli.convert sam`` on a ``torch.save`` checkpoint of the
+   published sam_vit_b names and widths in the process where jax, safetensors and ml_dtypes
+   raise on import (ViT-B picked by the width; the ``.npz`` equal to the checkpoint in bf16), then
+   ``cute --preset cute --use_mask --sam_weights`` at full SD-1.5 width over the 36 JPEGs (32 K1,
+   16 K2);
+29. the scoring service (``cli/serve.make_server``) at full SD-1.5 width, 512 px, on an ephemeral
+   localhost port: three concurrent clients by path and by base64 fused into fewer rounds than
+   requests (8 K1 and 4 K2 a round), an oversize request in rounds of 4 and 2, ``/healthz``, a
+   bad path answered 400 while the server keeps serving, every served score within 1e-3 of the
+   scorer's own ``score_batch`` on the same pixels; request latency p50 and max;
+30. ``retrieval rank`` at full SD-1.5 width: one query against nine of the JPEGs through the
+   moment cache (10 misses, 16 K1 / 8 K2) and by the pair route (24 / 12), scores within 1e-3
+   and the rankings in the same order wherever two scores are further apart (the spread of the
+   scores and the number of such pairs printed: with random weights the scores barely depend
+   on the image).
 
 The line before the last is one JSON object ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. A kernel's time (``ms``), its library call's and its v2's are
@@ -134,8 +156,9 @@ events around the 20 calls, which covers the whole call. Each timed row and each
 name the method under ``timing``. They are timed in turns, twice, and each keeps its lower
 reading. ``call_ms`` is the whole wrapper call between two CUDA events (median of 20),
 host work included, as information; plain versions are timed that way too (5 calls for the
-slowest). Each phase header prints the card's SM clock, power and throttle reasons: a card held
-at its power limit lowers its clock. A bound is the largest of three times at the H100 SXM's
+slowest). Each phase header prints the seconds since the script started (so each phase's time
+is the difference of two headers) and the card's SM clock, power and throttle reasons: a card
+held at its power limit lowers its clock. A bound is the largest of three times at the H100 SXM's
 published dense peaks: the products (989 TFLOP/s bf16 tensor cores; K1 and K4 float32 three
 TF32 passes at 495 TFLOP/s, 2.5 on average in their bf16_probs modes, whose P V takes two; 67
 TFLOP/s float32 outside the tensor cores, which the FMA designs ran on), the exponentials
@@ -146,6 +169,7 @@ twice that per direction for K3) and the bytes (3.35 TB/s).
 from __future__ import annotations
 
 import contextlib
+import copy
 import ctypes
 import dataclasses
 import functools
@@ -165,10 +189,12 @@ import torch
 import torch.nn.functional as F
 from torch.nn.attention import SDPBackend, sdpa_kernel
 
-from diffsim_tpu_torch.cli import dit_sample, dit_train
+from diffsim_tpu_torch.cli import dit_sample, dit_train, retrieval, serve
+from diffsim_tpu_torch.cli.args import arg_parse
 from diffsim_tpu_torch.cli.main import run_benchmark
 from diffsim_tpu_torch.convert import bridge
 from diffsim_tpu_torch.convert.store import save_params
+from diffsim_tpu_torch.core.image import process_image_u8
 from diffsim_tpu_torch.core.tokenizer import HashTokenizer
 from diffsim_tpu_torch.data import benchmarks
 from diffsim_tpu_torch.data.imagefolder import ImageFolderDataset
@@ -184,6 +210,7 @@ from diffsim_tpu_torch.metrics.ffa import (
     U2NetMatting,
 )
 from diffsim_tpu_torch.metrics.lpips import LPIPS, LPIPSNet
+from diffsim_tpu_torch.metrics.sam_masking import SamMasking, infer_config, resampled_logits
 from diffsim_tpu_torch.metrics.vgg_gram import VGGGram
 from diffsim_tpu_torch.metrics.scorer_base import to_device_pixels
 from diffsim_tpu_torch.models.clip_text import CLIPText, CLIPTextConfig
@@ -191,6 +218,7 @@ from diffsim_tpu_torch.models.clip_vision import CLIPVision, CLIPVisionConfig
 from diffsim_tpu_torch.models.dinov2 import Dino, DinoConfig
 from diffsim_tpu_torch.models.dit import DiT, DiTConfig
 from diffsim_tpu_torch.models.ip_adapter import Resampler, ResamplerConfig, attn2_modules
+from diffsim_tpu_torch.models.sam import Sam, SamConfig
 from diffsim_tpu_torch.models.u2net import U2Net, U2NetConfig
 from diffsim_tpu_torch.models.unet import UNet, UNetConfig
 from diffsim_tpu_torch.models.vae import Decoder, Encoder, VAEConfig, encode_chunked
@@ -280,8 +308,11 @@ TINY_SD15_K3_CALL = {**NONE, "fused_self_attention": 4, "fused_geglu_ff": 3,
 TINY_XL_IP_CALL = {**TINY_XL_CALL, "fused_self_attention": 8, "cross_self_partials": 0}
 
 
+START = time.perf_counter()  # each phase header gives the seconds since the script started
+
+
 def phase(name: str) -> None:
-    print(f"== {name}", flush=True)
+    print(f"== [{time.perf_counter() - START:.1f} s] {name}", flush=True)
     # the card's state as the phase starts: a card held at its power limit lowers its clock
     smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu,"
                           "clocks_throttle_reasons.active", "--format=csv,noheader"],
@@ -2770,6 +2801,377 @@ def sample_cli_phase(tmp: str, train: dict, card_line: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# SAM masks, the scoring service and the retrieval tool
+# ---------------------------------------------------------------------------
+
+SAM_TOL = 1e-4  # tiny SAM, card vs CPU in float32 with TF32 off: logits and IoU, atol = rtol
+# SAM ViT-H at 1024 px, float32 vs float64 on the card: |d| <= SAM_F64_TOL * max |logit64| over
+# the multimask logits, and as much of the largest IoU prediction on the IoUs
+SAM_F64_TOL = 1e-3
+# the SD-1.5 scorer's scores through the service or ``rank``'s cached route against its own
+# score_batch / pair route on the same pixels: cuDNN picks its algorithms per batch shape, and
+# cached and fresh scores already differ by 1.27e-4 (PERF.md)
+SERVED_TOL = 1e-3
+SERVE_FLAGS = ["--metric", "diffsim", "--image_size", "512", "--prompt", CUTE["prompt"],
+               "--target_block", CUTE["target_block"], "--target_layer", "0", "--target_step",
+               str(CUTE["target_step"]), "--similarity", CUTE["similarity"], "--seed",
+               str(CUTE["seed"])]
+SERVE_BATCH = 2  # --batch_size: rounds of at most 4 pairs
+SAM_SIZES = ((640, 480), (480, 640), (1024, 1024), (800, 450))  # (w, h) of the ViT-H images
+
+
+def _sam_forward(model, pixels, coords, labels, device):
+    with torch.no_grad():
+        masks, iou = model.predict(
+            torch.from_numpy(pixels).to(device, next(model.parameters()).dtype),
+            torch.from_numpy(coords).to(device), torch.from_numpy(labels).to(device))
+    return masks, iou
+
+
+def sam_tiny_phase() -> None:
+    phase(f"SAM at tiny width in float32, TF32 off: card vs CPU on one seeded tree bridged to "
+          f"both (predict's mask logits and IoU within atol = rtol = {SAM_TOL:g}; SamMasking's "
+          "mattes of two aspect ratios equal except where the CPU's resampled logit is within "
+          "that of 0); no K1-K4 launch")
+    rng = np.random.default_rng(12)
+    tree = _random_tree(lambda: Sam(SamConfig.tiny()), "sam", rng, scale=0.3)
+    pixels = rng.standard_normal((2, 32, 32, 3)).astype(np.float32)
+    coords = np.asarray([[[10.0, 20.0], [5.0, 7.0]], [[31.0, 0.0], [16.0, 16.0]]], np.float32)
+    labels = np.asarray([[1, 0], [2, 3]], np.int64)
+    with tf32_off():
+        maskings = {d: SamMasking(tree, SamConfig.tiny(), device=d) for d in ("cuda", "cpu")}
+        kernels.reset_launch_counts()
+        out = {d: _sam_forward(m.model, pixels, coords, labels, d) for d, m in maskings.items()}
+        for i, what in enumerate(("mask logits", "IoU")):
+            card, cpu = out["cuda"][i].cpu(), out["cpu"][i]
+            print(f"  tiny SAM predict, {what}: max |card - CPU| = "
+                  f"{(card - cpu).abs().max().item():.3e} of max {cpu.abs().max().item():.3e}",
+                  flush=True)
+            if not torch.allclose(card, cpu, atol=SAM_TOL, rtol=SAM_TOL):
+                raise SystemExit(f"tiny SAM: the card's {what} differ from the CPU's")
+        for size in ((48, 40), (24, 56)):
+            img = _salient_image(rng, size)
+            card, cpu = (np.asarray(maskings[d](img))[..., 3] for d in ("cuda", "cpu"))
+            m = maskings["cpu"]
+            px, co, lb, resized = m.inputs(img)
+            logits = resampled_logits(m.best_logits(px, co, lb), m.cfg, resized, size)
+            differ = card != cpu
+            print(f"  tiny SAM matte {size[0]}x{size[1]}: foreground {(cpu > 0).mean():.3f}, "
+                  f"{int(differ.sum())} pixels differ, all where |logit| <= {SAM_TOL:g}: "
+                  f"{not differ[np.abs(logits) > SAM_TOL].any()}", flush=True)
+            if differ[np.abs(logits) > SAM_TOL].any():
+                raise SystemExit("tiny SAM: the card's matte differs from the CPU's")
+        counts = kernels.launch_counts()
+    if counts != NONE:
+        raise SystemExit(f"tiny SAM launched {counts}: SAM runs on the math path")
+
+
+def sam_vit_h_phase(card_line: str) -> dict:
+    phase("SAM ViT-H at full width, 1024 px (1280 wide, 32 blocks, 16 heads of 80, global layers "
+          "7/15/23/31, windows of 14 over the 64 x 64 grid padded to 70), random weights drawn "
+          f"on the card, float32: SamMasking on {len(SAM_SIZES)} images of different aspect "
+          "ratios, each mask's time, the peak device memory, no K1-K4 launch; one image's "
+          f"logits against the same module in float64 (|d| <= {SAM_F64_TOL:g} x max |logit|)")
+    masking = SamMasking(None, SamConfig.vit_h(), device="cuda")
+    weights = sum(p.numel() * p.element_size() for p in masking.model.parameters()) / 2**30
+    rng = np.random.default_rng(13)
+    images = [_salient_image(rng, size) for size in SAM_SIZES]
+    masking(images[0])  # warm-up: cuBLAS's handles and the allocator's pools
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    walls = []
+    for img in images:
+        t0 = time.perf_counter()
+        rgba = masking(img)
+        walls.append((time.perf_counter() - t0) * 1e3)
+        fg = (np.asarray(rgba)[..., 3] > 0).mean()
+        if rgba.mode != "RGBA" or rgba.size != img.size:
+            raise SystemExit(f"SAM ViT-H: a {rgba.mode} matte of {rgba.size} for {img.size}")
+        print(f"  {img.size[0]}x{img.size[1]}: {walls[-1]:.1f} ms a mask, host work in; "
+              f"foreground {fg:.3f}", flush=True)
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if counts != NONE:
+        raise SystemExit(f"SAM ViT-H launched {counts}: SAM runs on the math path")
+    px, co, lb, resized = masking.inputs(images[0])
+    device_ms_, _ = device_ms(lambda: _sam_forward(masking.model, px, co, lb, "cuda"), reps=5,
+                              warmup=1)
+    profile_call(lambda: _sam_forward(masking.model, px, co, lb, "cuda"), "SAM ViT-H predict")
+    masks32, iou32 = _sam_forward(masking.model, px, co, lb, "cuda")
+    model64 = copy.deepcopy(masking.model).double()
+    masks64, iou64 = _sam_forward(model64, px, co, lb, "cuda")
+    del model64
+    torch.cuda.empty_cache()
+    err = (masks32.double() - masks64).abs().max().item()
+    scale = masks64.abs().max().item()
+    iou_err = (iou32.double() - iou64).abs().max().item()
+    best32, best64 = int(iou32.argmax()), int(iou64.argmax())
+    size = images[0].size
+    lg32, lg64 = (resampled_logits(m[0, b].float().cpu().numpy(), masking.cfg, resized, size)
+                  for m, b in ((masks32, best32), (masks64, best64)))
+    flips = int(((lg32 > 0) != (lg64 > 0)).sum())
+    print(f"  float32 vs float64 on the card: max |d logit| {err:.3e} of max |logit| "
+          f"{scale:.3e} ({err / scale:.3e}), max |d IoU| {iou_err:.3e}; best mask {best32} / "
+          f"{best64}; {flips} of {size[0] * size[1]} mask pixels flip", flush=True)
+    if not (err <= SAM_F64_TOL * scale and iou_err <= SAM_F64_TOL * iou64.abs().max().item()):
+        raise SystemExit("SAM ViT-H: float32 is off its float64 run")
+    print(f"  SAM ViT-H on {card_line}: {statistics.median(walls):.1f} ms a mask (median of "
+          f"{len(walls)}, host work in; predict {device_ms_:.1f} ms on the device by "
+          f"{TIMING['method']}), peak device memory {peak:.2f} GiB with {weights:.2f} GiB of "
+          "weights", flush=True)
+    out = {"mask_ms": walls, "predict_device_ms": device_ms_, "peak_gib": peak,
+           "weights_gib": weights, "f64_rel_err": err / scale, "flipped_pixels": flips}
+    del masking
+    torch.cuda.empty_cache()
+    return out
+
+
+def published_sam_sd(cfg, gen) -> dict:
+    """A state dict of the published ``sam_vit_*.pth`` names and shapes at ``cfg``'s widths (the
+    repo's torch mirror of the layout, on the meta device): matrices N(0, 0.02^2), norm weights
+    one, biases zero."""
+    from tools.torch_sam import Sam as PublishedSam
+
+    with torch.device("meta"):
+        shapes = {k: tuple(v.shape) for k, v in PublishedSam(
+            image_size=cfg.image_size, patch=cfg.patch, encoder_dim=cfg.encoder_dim,
+            encoder_depth=cfg.encoder_depth, encoder_heads=cfg.encoder_heads,
+            global_attn=cfg.global_attn, window=cfg.window, prompt_dim=cfg.prompt_dim,
+            decoder_heads=cfg.decoder_heads, decoder_depth=cfg.decoder_depth,
+            decoder_mlp=cfg.decoder_mlp).state_dict().items()}
+    sd = {}
+    for name, shape in shapes.items():
+        if name.endswith("bias"):
+            sd[name] = torch.zeros(shape)
+        elif len(shape) == 1:
+            sd[name] = torch.ones(shape)
+        else:
+            sd[name] = torch.randn(shape, generator=gen) * 0.02
+    return sd
+
+
+def sam_cli_phase(tree: str) -> dict:
+    phase("convert sam and the CLI with SAM masks: python -m diffsim_tpu_torch.cli.convert sam "
+          "on a torch.save sam_vit_b checkpoint of the published names and widths (jax, "
+          "safetensors and ml_dtypes made to raise on import), then cute --preset cute "
+          "--use_mask --sam_weights at full SD-1.5 width, 512 px, over the 36 JPEGs")
+    plan = benchmarks.cute(tree, 2334)
+    calls = -(-len(plan) // CLI_BATCH)
+    with tempfile.TemporaryDirectory() as tmp:
+        sd = published_sam_sd(SamConfig.vit_b(), torch.Generator().manual_seed(2338))
+        ckpt, npz = os.path.join(tmp, "sam_vit_b.pth"), os.path.join(tmp, "sam.npz")
+        torch.save(sd, ckpt)
+        cmd = [sys.executable, "-c", CONVERT_CLI, "sam", "--model", ckpt, "--out", npz]
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+                             capture_output=True, text=True, timeout=600)
+        convert_s = time.perf_counter() - t0
+        print(f"  convert sam --model sam_vit_b.pth: rc {res.returncode} in {convert_s:.1f} s: "
+              f"{res.stdout.strip()}", flush=True)
+        if res.returncode:
+            print(res.stderr[-4000:], flush=True)
+            raise SystemExit("the convert CLI failed on the SAM checkpoint")
+        params = registry._load_params(npz)
+        qkv = params["image_encoder"]["blocks"][3]["attn"]["qkv"]["w"]
+        want = sd["image_encoder.blocks.3.attn.qkv.weight"].to(torch.bfloat16).float().T
+        convt = params["mask_decoder"]["upscale"]["convt1"]["w"]
+        want_t = sd["mask_decoder.output_upscaling.0.weight"].to(torch.bfloat16).float()
+        if (infer_config(params) != SamConfig.vit_b() or not np.array_equal(qkv, want.numpy())
+                or not np.array_equal(convt, want_t.permute(2, 3, 0, 1).numpy())):
+            raise SystemExit("convert sam: the .npz is not the checkpoint's ViT-B in bf16")
+        report, adapter, scores, counts, _, wall = _cli_run(
+            "cli_sam_masks", tree, os.path.join(tmp, "sam.jsonl"), "--use_mask",
+            "--sam_weights", npz)
+    want = {k: v * calls for k, v in SD15_CALL.items()}
+    if report.total != len(plan) or sorted(scores) != list(range(len(plan))):
+        raise SystemExit(f"cli_sam_masks: scored {report.total} of {len(plan)} comparisons")
+    if counts != want:
+        raise SystemExit(f"cli_sam_masks: launched {counts}, expected {want} ({calls} calls)")
+    _check_scores("cli_sam_masks", np.array(list(scores.values())))
+    del adapter
+    torch.cuda.empty_cache()
+    return {"counts": counts, "wall_s": wall, "pairs_per_s": 2 * len(plan) / wall,
+            "convert_s": convert_s}
+
+
+def _post(port: int, payload: dict, path: str = "/score"):
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                 data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=300) as r:
+        return json.loads(r.read())
+
+
+def serve_phase(tree: str, card_line: str) -> dict:
+    phase("the scoring service at full SD-1.5 width, 512 px: make_server on an ephemeral "
+          "localhost port in a thread, max_wait_ms 200, --batch_size 2 (rounds of at most 4 "
+          "pairs); 3 concurrent clients by path and by base64; an oversize request chunked; "
+          f"/healthz; a bad path 400; each request's scores within {SERVED_TOL:g} of the "
+          "scorer's own score_batch on the same pixels")
+    import base64
+    import threading
+    import urllib.error
+    import urllib.request
+
+    from PIL import Image
+
+    paths = sorted(os.path.join(d, f) for d, _, fs in os.walk(tree) for f in fs)[:6]
+    server, batcher = serve.make_server(
+        arg_parse(SERVE_FLAGS + ["--batch_size", str(SERVE_BATCH)]), 0, max_wait_ms=200.0)
+    port = server.server_address[1]
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    rounds = []
+    real = batcher._score
+
+    def counted(pix_a, pix_b, prompts):  # the batcher thread alone touches the card
+        before = kernels.launch_counts()
+        scores = real(pix_a, pix_b, prompts)
+        after = kernels.launch_counts()
+        rounds.append((len(prompts), {k: after[k] - before[k] for k in after}))
+        return scores
+
+    batcher._score = counted
+    b64 = {p: {"b64": base64.b64encode(open(p, "rb").read()).decode()} for p in paths}
+    prompt = CUTE["prompt"]
+    try:
+        _post(port, {"pairs": [[paths[0], paths[1]]], "prompt": prompt})  # warm-up round
+        rounds.clear()
+        requests = [[[paths[0], paths[1]]], [[paths[2], b64[paths[3]]]],
+                    [[b64[paths[4]], paths[5]], [paths[1], paths[4]]]]
+        results, latency = [None] * 3, [None] * 3
+
+        def client(i):
+            t0 = time.perf_counter()
+            results[i] = _post(port, {"pairs": requests[i], "prompt": prompt})["scores"]
+            latency[i] = (time.perf_counter() - t0) * 1e3
+
+        clients = [threading.Thread(target=client, args=(i,)) for i in range(3)]
+        for t in clients:
+            t.start()
+        for t in clients:
+            t.join(timeout=600)
+        if any(t.is_alive() for t in clients) or any(r is None for r in results):
+            raise SystemExit(f"serve: a client got no answer: {results}")
+        burst = list(rounds)
+        if len(burst) >= len(requests):
+            raise SystemExit(f"serve: {len(requests)} concurrent requests took {len(burst)} "
+                             "rounds, none fused")
+        rounds.clear()
+        oversize = [[paths[i % 6], paths[(i + 1) % 6]] for i in range(2 * SERVE_BATCH + 2)]
+        big = _post(port, {"pairs": oversize, "prompt": prompt})["scores"]
+        if [n for n, _ in rounds] != [2 * SERVE_BATCH, 2]:
+            raise SystemExit(f"serve: an oversize request of {len(oversize)} pairs took rounds "
+                             f"{[n for n, _ in rounds]}")
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=60) as r:
+            health = json.loads(r.read())
+        try:
+            _post(port, {"pairs": [[paths[0], os.path.join(tree, "missing.png")]]})
+            raise SystemExit("serve: a bad path was answered")
+        except urllib.error.HTTPError as err:
+            if err.code != 400:
+                raise SystemExit(f"serve: a bad path got HTTP {err.code}, not 400")
+        after_bad = _post(port, {"pairs": [[paths[2], paths[3]]], "prompt": prompt})["scores"]
+    finally:
+        batcher._score = real
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    if not health.get("ok") or health.get("metric") != "diffsim":
+        raise SystemExit(f"serve: /healthz answered {health}")
+
+    def pix(spec):
+        path = spec if isinstance(spec, str) else next(p for p in paths if b64[p] is spec)
+        return process_image_u8(Image.open(path), 512)
+
+    gaps = []
+    for pairs, got in [*zip(requests, results), (oversize, big), ([[paths[2], paths[3]]],
+                                                                  after_bad)]:
+        ref = real(np.concatenate([pix(a) for a, _ in pairs]),
+                   np.concatenate([pix(b) for _, b in pairs]), [prompt] * len(pairs))
+        gaps.append(float(np.abs(np.asarray(got) - ref).max()))
+        _check_scores("serve", np.asarray(got))
+    per_round = [c for _, c in burst]
+    print(f"  served on {card_line}: the burst of 3 requests (4 pairs) in {len(burst)} round(s) "
+          f"of {[n for n, _ in burst]} pairs, launches a round {per_round}; request latency p50 "
+          f"{statistics.median(latency):.1f} ms, max {max(latency):.1f} ms (information); the "
+          f"oversize request in rounds of {2 * SERVE_BATCH} and 2; max |served - score_batch| "
+          f"{max(gaps):.3e}", flush=True)
+    if max(gaps) > SERVED_TOL:
+        raise SystemExit("serve: a served score is off the scorer's score_batch")
+    want = {k: v for k, v in SD15_CALL.items()}
+    if any(c != want for c in per_round):
+        raise SystemExit(f"serve: launches a round {per_round}, expected {want}")
+    batcher._score = None  # the batcher thread waits on its queue: let the scorer go
+    del server, batcher, real
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"burst_rounds": [n for n, _ in burst], "launches_round": per_round[0],
+            "latency_ms": latency, "max_gap": max(gaps)}
+
+
+def rank_phase(tree: str, card_line: str) -> dict:
+    phase("retrieval rank at full SD-1.5 width, 512 px: 1 query against a gallery of 9 JPEGs "
+          "through the moment cache (5 triplets in calls of 4: 10 misses), then the pair route "
+          f"(--no_device_cache); scores within {SERVED_TOL:g}, and the rankings agree wherever "
+          "two scores are further apart")
+    images = sorted(os.path.join(d, f) for d, _, fs in os.walk(tree) for f in fs)
+    with tempfile.TemporaryDirectory() as tmp:
+        gal, q = os.path.join(tmp, "gallery"), os.path.join(tmp, "query")
+        os.makedirs(gal)
+        os.makedirs(q)
+        for i, src in enumerate(images[:9]):
+            shutil.copy(src, os.path.join(gal, f"g{i}.jpg"))
+        shutil.copy(images[20], os.path.join(q, "q0.jpg"))
+        runs = {}
+        for route, extra in (("cached", []), ("pairs", ["--no_device_cache"])):
+            out = os.path.join(tmp, route)
+            kernels.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            adapter = retrieval.rank(["--query_path", q, "--gallery_path", gal, "--out_path", out,
+                                      *SERVE_FLAGS, "--batch_size", "4", *extra])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = kernels.launch_counts()
+            with open(os.path.join(out, "q0.txt")) as f:
+                ranked = [(ln.split()[0], float(ln.split()[1])) for ln in f]
+            cache = getattr(adapter.scorer, "_moment_cache", None)
+            runs[route] = {"ranked": ranked, "counts": counts, "wall_s": wall,
+                           "stats": dict(cache.stats) if cache is not None else None}
+            print(f"  rank, {route} route: {wall:.2f} s with the scorer's init; launches "
+                  f"{counts}; moment cache {runs[route]['stats']}", flush=True)
+            del adapter, cache
+            torch.cuda.empty_cache()
+    cached, pairs = runs["cached"], runs["pairs"]
+    if cached["stats"]["misses"] != 10 or cached["stats"]["resident"] != 10:
+        raise SystemExit(f"rank: {cached['stats']}, expected 10 misses (1 query, 9 gallery)")
+    for route, forwards in (("cached", 2), ("pairs", 3)):  # 5 triplets / 4, 9 pairs / 4
+        want = {k: v * forwards for k, v in SD15_CALL.items()}
+        if runs[route]["counts"] != want:
+            raise SystemExit(f"rank ({route}): launched {runs[route]['counts']}, expected {want}")
+    a, b = dict(cached["ranked"]), dict(pairs["ranked"])
+    gap = max(abs(a[n] - b[n]) for n in b)
+    order_a = [n for n, _ in cached["ranked"]]
+    order_b = [n for n, _ in pairs["ranked"]]
+    apart = [(x, y) for x in b for y in b if b[x] - b[y] > SERVED_TOL]
+    swapped = [(x, y) for x, y in apart if order_a.index(x) > order_a.index(y)]
+    print(f"  rank on {card_line}: cached vs pair route max |d| {gap:.3e}; scores "
+          f"{min(b.values()):.6f} to {max(b.values()):.6f}; {len(apart)} pairs of gallery images "
+          f"further apart than {SERVED_TOL:g}, all in the same order: {not swapped}; order "
+          f"{order_a} / {order_b}", flush=True)
+    if sorted(a) != sorted(b) or len(a) != 9 or gap > SERVED_TOL or swapped:
+        raise SystemExit(f"rank: the routes disagree (gap {gap:.3e}, swapped {swapped})")
+    return {"cached_s": cached["wall_s"], "pairs_s": pairs["wall_s"],
+            "launches_cached": cached["counts"], "launches_pairs": pairs["counts"], "gap": gap,
+            "pairs_apart": len(apart)}
+
+
 def profile_call(fn, what: str, top: int = 14) -> None:
     """Device time by kernel over one call, from torch.profiler (information for PERF.md):
     the device's busy time is the sum of kernel self times (one stream, no overlap)."""
@@ -2920,6 +3322,7 @@ def main() -> int:
     tiny_surface_phase()
     tiny_baselines = tiny_baselines_phase()
     tiny_train_phase()
+    sam_tiny_phase()
     sd15_out = sd15_phase(card_line)
     sd15 = sd15_out["counts"]
     torch.cuda.empty_cache()
@@ -2938,6 +3341,10 @@ def main() -> int:
         baseline_npz = convert_baselines_phase(tmp)
         baselines = baselines_phase(card_line, registry._load_params(baseline_npz["u2net"]))
         baseline_cli = baseline_cli_phase(tree, baseline_npz["u2net"])
+        sam_h = sam_vit_h_phase(card_line)
+        sam_cli = sam_cli_phase(tree)
+        served = serve_phase(tree, card_line)
+        ranked = rank_phase(tree, card_line)
     converted = convert_phase()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
@@ -2996,7 +3403,13 @@ def main() -> int:
              # the baselines' calls at full width and their CLI runs (asserted: none) and the
              # ensemble CLI run (its diffsim member's forwards)
              "baselines_full_width": NONE,
-             **{f"cli_{what}": run["counts"] for what, run in baseline_cli.items()}}
+             **{f"cli_{what}": run["counts"] for what, run in baseline_cli.items()},
+             # SAM ViT-H's masks (asserted: none), the CLI with SAM masks, a service round of
+             # the concurrent burst and each rank call (both routes)
+             "sam_vit_h_masks": NONE, "cli_sam_masks": sam_cli["counts"],
+             "serve_round": served["launches_round"],
+             "rank_cached_2_calls": ranked["launches_cached"],
+             "rank_pairs_3_calls": ranked["launches_pairs"]}
     for entry in line["kernels"][:4]:
         entry["launches_paths"] = {path: counts[entry["name"]] for path, counts in paths.items()}
     k1_xl = line["kernels"][0]["sdxl"]
@@ -3053,9 +3466,14 @@ def main() -> int:
                          for mode, run in train["runs"].items()}
     line["dit_sample"] = {mode: {k: v for k, v in run.items() if k != "counts"}
                           for mode, run in sampled.items()}
+    line["sam"] = {"vit_h_1024": sam_h, "cli": {k: v for k, v in sam_cli.items()
+                                                   if k != "counts"}}
+    line["serve"] = {k: v for k, v in served.items() if k != "launches_round"}
+    line["rank"] = {k: v for k, v in ranked.items() if not k.startswith("launches")}
     line["dit"] = {"repeat_ms": dit_out["repeat_ms"], "peak_gib": dit_out["peak_gib"],
                    "cached_vs_fresh": dit_out["cached_gap"], "cli": dit_cli,
                    "converter": converted}
+    print(f"  all phases done at {time.perf_counter() - START:.1f} s", flush=True)
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -68,8 +68,8 @@ def arg_parse(argv=None):
                         choices=["diffsim", "diffsim_xl", "clip_i", "clip_cross", "dino",
                                  "dinov1", "dino_cross", "cute", "lpips", "gram", "diffeats",
                                  "clipfeats", "dinofeats", "ensemble", "dit"],
-                        help="diffsim (SD-1.5), diffeats, diffsim_xl (SDXL) and dit are "
-                             "ported; the others raise, naming their ROADMAP item")
+                        help="diffsim (SD-1.5), diffeats, diffsim_xl (SDXL), dit (DiT-XL/2), "
+                             "the baselines, and ensemble (diffsim, clip_i and dino voting)")
     parser.add_argument("--similarity", type=str, choices=["cosine", "mse"], default="mse")
     parser.add_argument("--prompt", type=str, default="High quality image")
     parser.add_argument("--ip_adapter", action="store_true",
@@ -77,7 +77,9 @@ def arg_parse(argv=None):
                              "adapter tokens come from the scored images")
     parser.add_argument("--use_mask", action="store_true",
                         help="Weight the tapped queries by foreground masks (diffsim): from "
-                             "--mask_path when given, else the border-statistics heuristic")
+                             "--mask_path when given, else made at score time: SAM with "
+                             "--sam_weights, U^2-Net saliency with --matting_weights, the "
+                             "border-statistics heuristic otherwise")
     parser.add_argument("--mask_path", type=str, default=None,
                         help="Root of a tree mirroring --image_path with one grayscale mask "
                              "per image (same relative path, or its stem with .png)")
@@ -93,9 +95,13 @@ def arg_parse(argv=None):
     parser.add_argument("--ip_weights", type=str, default=None,
                         help="Converted IP-Adapter .npz (convert_ip_adapter's tree); the image "
                              "encoder stays random, as in the JAX CLI")
-    for flag in ("--matting_weights", "--sam_weights"):
-        parser.add_argument(flag, type=str, default=None,
-                            help="Not ported yet: --use_mask without --mask_path raises with it")
+    parser.add_argument("--matting_weights", type=str, default=None,
+                        help="Converted U^2-Net .npz (cli.convert u2net): the mattes of "
+                             "--metric cute and the masks of --use_mask; the heuristic otherwise")
+    parser.add_argument("--sam_weights", type=str, default=None,
+                        help="Converted SAM .npz (cli.convert sam): --use_mask makes its masks "
+                             "with a centre-point SAM prompt; takes precedence over "
+                             "--matting_weights")
     parser.add_argument("--tokenizer_dir", type=str, default=None,
                         help="Dir with vocab.json + merges.txt")
     parser.add_argument("--allow_hash_tokenizer", action="store_true",

@@ -17,10 +17,12 @@ either package's ``--weights``.
     python -m diffsim_tpu_torch.cli.convert lpips  --model lpips_vgg.pth --vgg vgg16.pth --out ...
     python -m diffsim_tpu_torch.cli.convert u2net  --model u2netp.pth --out u2netp.npz
                                           (lite or full, told apart by a stage1 width)
+    python -m diffsim_tpu_torch.cli.convert sam    --model sam_vit_h.pth --out sam.npz
+                                          (ViT-B, ViT-L or ViT-H, told apart by the
+                                          embedding width)
 
 ``.safetensors`` files are read by ``convert/torch_import.load_safetensors``; anything else by
-``torch.load``, unwrapping ``{"ema": ...}`` and ``{"model": ...}``. The JAX CLI's ``sam`` family
-raises ``NotImplementedError``: SAM comes with ROADMAP Queue 1 item 6.
+``torch.load``, unwrapping ``{"ema": ...}`` and ``{"model": ...}``.
 """
 
 from __future__ import annotations
@@ -33,8 +35,8 @@ from diffsim_tpu_torch.convert import diffusion_import as DI
 from diffsim_tpu_torch.convert import torch_import as TI
 from diffsim_tpu_torch.convert.store import _flatten, save_params
 
-FAMILIES = ("sd15", "sdxl", "dit", "clip", "dinov2", "dinov1", "vgg19", "lpips", "u2net")
-NOT_PORTED = ("sam",)
+FAMILIES = ("sd15", "sdxl", "dit", "clip", "dinov2", "dinov1", "vgg19", "lpips", "u2net",
+            "sam")
 
 
 def _load(path: str) -> dict:
@@ -54,7 +56,7 @@ def _load(path: str) -> dict:
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description="convert torch checkpoints to diffsim-tpu .npz")
-    ap.add_argument("family", choices=[*FAMILIES, *NOT_PORTED])
+    ap.add_argument("family", choices=FAMILIES)
     ap.add_argument("--unet")
     ap.add_argument("--vae")
     ap.add_argument("--text")
@@ -67,9 +69,6 @@ def main(argv=None):
     ap.add_argument("--dtype", default="bfloat16")
     ap.add_argument("--out", required=True)
     args = ap.parse_args(argv)
-    if args.family in NOT_PORTED:
-        raise NotImplementedError(f"convert {args.family}: SAM's converter is not ported to "
-                                  "PyTorch yet (ROADMAP.md, Queue 1 item 6)")
     dtype = args.dtype if args.dtype == "bfloat16" else np.dtype(args.dtype)
 
     from diffsim_tpu_torch.models import clip_text, clip_vision, dinov2, dit, unet, vae, vgg
@@ -113,7 +112,7 @@ def main(argv=None):
         tree = TI.convert_lpips(_load(args.model), vgg.VGG16_CFG)
         if "vgg" not in tree and args.vgg:
             tree["vgg"] = TI.convert_vgg_features(_load(args.vgg), vgg.VGG16_CFG)
-    else:
+    elif args.family == "u2net":
         from diffsim_tpu_torch.convert.u2net_import import convert_u2net
         from diffsim_tpu_torch.models.u2net import U2NetConfig
 
@@ -121,6 +120,15 @@ def main(argv=None):
         # the lite checkpoint (u2netp.pth) has 16-channel mids: told apart by stage1's
         lite = np.asarray(sd["stage1.rebnconv1.conv_s1.weight"]).shape[0] == 16
         tree = convert_u2net(sd, U2NetConfig.u2netp() if lite else U2NetConfig.u2net())
+    else:
+        from diffsim_tpu_torch.convert.sam_import import convert_sam
+        from diffsim_tpu_torch.models.sam import SamConfig
+
+        sd = _load(args.model)
+        # the variant from the encoder width
+        dim = np.asarray(sd["image_encoder.patch_embed.proj.weight"]).shape[0]
+        cfg = {768: SamConfig.vit_b, 1024: SamConfig.vit_l, 1280: SamConfig.vit_h}[dim]()
+        tree = convert_sam(sd, cfg)
 
     tree = DI.cast_tree(tree, dtype)
     save_params(args.out, tree)

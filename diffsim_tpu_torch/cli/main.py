@@ -37,14 +37,19 @@ BENCHMARKS = {
 }
 
 
+def check_one_device(args) -> None:
+    """Multi-GPU scoring is not ported: ``--num_devices`` > 1 raises (the JAX CLI's mesh)."""
+    if args.num_devices not in (None, 1):
+        raise NotImplementedError("--num_devices > 1: multi-GPU scoring is not ported to "
+                                  "PyTorch yet (ROADMAP.md, Queue 1 item 7)")
+
+
 def run_benchmark(benchmark: str, argv=None, *, device=None):
     """Plan ``benchmark`` from the flags ``argv`` and score it; returns (report, the list of
     adapters that scored it: one, or ``--metric ensemble``'s three). ``device`` is the scoring
     device (None: the card; the CPU tests pass "cpu")."""
     args = arg_parse(argv)
-    if args.num_devices not in (None, 1):
-        raise NotImplementedError("--num_devices > 1: multi-GPU scoring is not ported to "
-                                  "PyTorch yet (ROADMAP.md, Queue 1 item 7)")
+    check_one_device(args)
     planner, rule = BENCHMARKS[benchmark]
     comparisons = planner(args)
     if args.shard:
@@ -97,9 +102,9 @@ def run_benchmark(benchmark: str, argv=None, *, device=None):
 
 
 def _mask_fn(args, adapter, device):
-    """``--use_mask``: the masks from the ``--mask_path`` tree, or made at score time by U^2-Net
-    saliency (``--matting_weights``) or the border-statistics heuristic; None without the flag
-    or for a metric without masks."""
+    """``--use_mask``: the masks from the ``--mask_path`` tree, or made at score time by SAM's
+    centre-point prompt (``--sam_weights``), U^2-Net saliency (``--matting_weights``) or the
+    border-statistics heuristic; None without the flag or for a metric without masks."""
     if not args.use_mask:
         return None
     if not adapter.wants_masks:
@@ -110,21 +115,23 @@ def _mask_fn(args, adapter, device):
         from diffsim_tpu_torch.core.image import load_mask, mask_path_for
 
         return lambda path: load_mask(mask_path_for(path, args.image_path, args.mask_path), size)
-    if args.sam_weights:
-        raise NotImplementedError("--use_mask with --sam_weights: SAM masks are not ported to "
-                                  "PyTorch yet (ROADMAP.md, Queue 1 item 6)")
     from diffsim_tpu_torch.core.image import mask_from_matting
     from diffsim_tpu_torch.metrics.ffa import U2NetMatting, heuristic_matting
+    from diffsim_tpu_torch.metrics.registry import _load_params
 
-    if args.matting_weights:
-        from diffsim_tpu_torch.metrics.registry import _load_params
+    if args.sam_weights:
+        from diffsim_tpu_torch.metrics.sam_masking import SamMasking
 
+        matting = SamMasking(_load_params(args.sam_weights), device=device)
+        print("[use_mask] generating masks with SAM (center-point prompt)")
+    elif args.matting_weights:
         matting = U2NetMatting(_load_params(args.matting_weights), device=device)
         print("[use_mask] generating masks with U^2-Net saliency")
     else:
         matting = heuristic_matting
-        print("[use_mask] generating masks with the border-statistics heuristic (pass "
-              "--matting_weights or --mask_path for model-quality masks)")
+        print("[use_mask] generating masks with the border-statistics heuristic "
+              "(pass --sam_weights/--matting_weights or --mask_path for "
+              "model-quality masks)")
     return lambda path: mask_from_matting(matting, path, size)
 
 

@@ -20,7 +20,10 @@ parameters after the same tree paths ('/' -> '.'), with torch's leaf names:
   (``dino``: ``cls_token``, ``position_embedding`` and each layer's LayerScale ``ls1`` / ``ls2``
   as they are), VGG (``vgg``: ``convs``), LPIPS (``lpips``: the VGG-16 trunk and the 1-D ``lins``
   weights as they are) and U^2-Net (``u2net``: each BatchNorm's ``mean`` / ``var`` as they
-  are, its ``scale`` / ``bias`` as a norm's);
+  are, its ``scale`` / ``bias`` as a norm's) and SAM (``sam``: the position, Fourier, token and
+  prompt-role tables as they are, each block's ``rel_pos_h`` / ``rel_pos_w`` as they are, and the
+  decoder's ``convt1`` / ``convt2`` kernels (kh, kw, in, out) in ``nn.ConvTranspose2d``'s
+  (in, out, kh, kw));
 * the IP-Adapter: its projection head (``ip_proj``: the Resampler with its ``latents`` table,
   or the plain ImageProjection) and, in the ``unet`` kind, each attn2's per-adapter
   ``ip/<i>/to_k_ip`` / ``to_v_ip``. The plain head's ``num_tokens`` leaf is configuration, not a
@@ -44,7 +47,7 @@ from torch import nn
 from diffsim_tpu_torch.convert.store import _flatten, as_float32, unflatten
 
 KINDS = ("unet", "vae", "vae_decoder", "text", "text2", "dit", "clip_vision", "ip_proj", "clip",
-         "dino", "vgg", "lpips", "u2net")
+         "dino", "vgg", "lpips", "u2net", "sam")
 # the leaves each kind keeps as they are, by path: embedding and position tables
 _TABLES = {"text": ("token_embedding", "position_embedding"),
            "text2": ("token_embedding", "position_embedding"),
@@ -53,9 +56,18 @@ _TABLES = {"text": ("token_embedding", "position_embedding"),
            "ip_proj": ("latents",),
            "clip": ("vision/class_embedding", "vision/position_embedding",
                     "text/token_embedding", "text/position_embedding"),
-           "dino": ("cls_token", "position_embedding")}
+           "dino": ("cls_token", "position_embedding"),
+           "sam": ("image_encoder/pos_embed", "prompt_encoder/pe_gaussian",
+                   *(f"prompt_encoder/point_embeddings/{i}" for i in range(4)),
+                   "prompt_encoder/not_a_point", "prompt_encoder/no_mask",
+                   "mask_decoder/iou_token", "mask_decoder/mask_tokens")}
 # the 1-D leaves each kind keeps as they are, by name at any depth
 _KEPT = {"dino": ("ls1", "ls2"), "lpips": ("w",), "u2net": ("mean", "var")}
+# the leaves each kind keeps as they are, by name at any depth and of any rank
+_KEPT_TABLES = {"sam": ("rel_pos_h", "rel_pos_w")}
+# the parents, by name, of the transposed-convolution kernels: (kh, kw, in, out) <-> (in, out,
+# kh, kw), the same permutation both ways
+_CONV_T = {"sam": ("convt1", "convt2")}
 
 
 def _num_tokens(proj_rows: int, norm_dim: int) -> int:
@@ -68,8 +80,10 @@ def _convert(path: str, leaf: np.ndarray, kind: str) -> tuple[str, np.ndarray]:
     arr = np.asarray(leaf)
     if path in _TABLES.get(kind, ()):
         return path.replace("/", "."), arr
-    if name in _KEPT.get(kind, ()) and arr.ndim == 1:
+    if name in _KEPT.get(kind, ()) and arr.ndim == 1 or name in _KEPT_TABLES.get(kind, ()):
         return ".".join(prefix + [name]), arr
+    if name == "w" and arr.ndim == 4 and prefix and prefix[-1] in _CONV_T.get(kind, ()):
+        return ".".join(prefix + ["weight"]), arr.transpose(2, 3, 0, 1)
     if name == "w" and arr.ndim == 4:
         return ".".join(prefix + ["weight"]), arr.transpose(3, 2, 0, 1)
     if name == "w" and arr.ndim == 2:
@@ -126,11 +140,14 @@ def to_jax_tree(state, kind: str):
             flat[path] = arr
             continue
         prefix, leaf = name.rsplit(".", 1)
-        if leaf in _KEPT.get(kind, ()) and arr.ndim == 1:
+        if leaf in _KEPT.get(kind, ()) and arr.ndim == 1 or leaf in _KEPT_TABLES.get(kind, ()):
             flat[path] = arr
             continue
         norm = arrays[f"{prefix}.weight"].ndim == 1
-        if leaf == "weight":
+        convt = prefix.rsplit(".", 1)[-1] in _CONV_T.get(kind, ())
+        if leaf == "weight" and arr.ndim == 4 and convt:
+            key, arr = "w", arr.transpose(2, 3, 0, 1)
+        elif leaf == "weight":
             key, arr = ("scale", arr) if norm else (
                 "w", arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T)
         elif leaf == "bias":

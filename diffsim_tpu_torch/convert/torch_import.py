@@ -10,8 +10,8 @@ length, a JSON header, then raw little-endian data), so conversion needs neither
 ``safetensors`` package nor ``ml_dtypes``. :func:`convert_clip_vision` and
 :func:`convert_ip_adapter` convert the IP-Adapter's image encoder and adapter checkpoints;
 :func:`convert_dinov2`, :func:`convert_dino_v1`, :func:`convert_vgg_features` and
-:func:`convert_lpips` the baseline metrics' (``convert/u2net_import.py`` converts U^2-Net). SAM's
-converter comes with ROADMAP Queue 1 item 6.
+:func:`convert_lpips` the baseline metrics' (``convert/u2net_import.py`` converts U^2-Net,
+``convert/sam_import.py`` SAM).
 """
 
 from __future__ import annotations

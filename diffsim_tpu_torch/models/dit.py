@@ -152,8 +152,8 @@ class DiTAttention(nn.Module):
         if capture == QKV:
             return None, {"q": q, "k": k, "v": v}
         if capture is not None:
-            raise NotImplementedError(f"capture {capture!r} is not ported yet (ROADMAP.md, "
-                                      "Queue 1)")
+            raise NotImplementedError(f"capture {capture!r}: DiT's attention taps QKV only, "
+                                      "as the JAX _dit_attention does")
         out = sdpa(q, k, v).transpose(1, 2).reshape(b, n, c)
         return self.proj(out), {}
 

@@ -164,17 +164,16 @@ def test_cli_shard_profile_and_trace(data, tmp_path, capsys):
 
 @pytest.mark.parametrize("command, extra, match", [
     ("cute", ["--num_devices", "2"], "Queue 1 item 7"),
-    ("cute", ["--use_mask", "--sam_weights", "x.npz"], "Queue 1 item 6"),
-    ("convert", ["sam", "--model", "m.pth"], "Queue 1 item 6"),
+    ("serve", ["--num_devices", "2"], "Queue 1 item 7"),
 ])
 def test_unported_options_raise(data, tmp_path, command, extra, match):
-    """What the port still lacks raises naming its ROADMAP item: multi-GPU scoring, SAM masks
-    and SAM's converter (``python -m diffsim_tpu_torch.cli.convert sam``)."""
-    from diffsim_tpu_torch.cli import convert
+    """What the port still lacks raises naming its ROADMAP item: multi-GPU scoring, in the CLI
+    and in the service (``python -m diffsim_tpu_torch.cli.serve``), before any model is built."""
+    from diffsim_tpu_torch.cli import serve
 
     with pytest.raises(NotImplementedError, match=match):
-        if command == "convert":
-            convert.main(extra + ["--out", str(tmp_path / "x.npz")])
+        if command == "serve":
+            serve.main(extra + ["--port", "0"])
         else:
             run_benchmark("cute", _cute_argv(data, *extra), device="cpu")
 

@@ -402,8 +402,3 @@ def test_convert_cli_sd_families_match_jax_and_load_through_weights(tiny_configs
     pix = np.random.default_rng(5).integers(0, 256, (1, 32, 32, 3), dtype=np.uint8)
     assert np.isfinite(adapter.score_pairs(pix, pix[:, ::-1].copy(), ["a cat"])).all()
 
-
-@pytest.mark.parametrize("family", tcli.NOT_PORTED)
-def test_convert_cli_families_outside_the_port_raise(family, tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        tcli.main([family, "--model", "m.pth", "--out", str(tmp_path / "x.npz")])

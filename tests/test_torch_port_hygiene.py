@@ -27,7 +27,9 @@ def test_port_and_chip_smoke_import_no_jax():
                  "metrics.lpips", "metrics.vgg_gram", "models.dinov2", "models.vgg",
                  "models.u2net", "convert.u2net_import", "models.diffusion",
                  "train.dit_trainer", "train.timestep_sampler", "data.imagefolder",
-                 "cli.dit_train", "cli.dit_sample"):
+                 "cli.dit_train", "cli.dit_sample", "models.sam", "convert.sam_import",
+                 "metrics.sam_masking", "cli.serve", "cli.retrieval", "cli.compare_results",
+                 "runtime.viz"):
         assert f"diffsim_tpu_torch.{name}" in modules
     code = (
         "import importlib, sys\n"
@@ -48,7 +50,8 @@ SCORERS = {"DiffSimSD15": "metrics.diffsim_sd15", "DiffSimXL": "metrics.diffsim_
            "DiffSimDiT": "metrics.diffsim_dit", "CLIPScore": "metrics.clip_i",
            "Dinov2Score": "metrics.dino", "DinoScore": "metrics.dino", "LPIPS": "metrics.lpips",
            "VGGGram": "metrics.vgg_gram", "ForegroundFeatureAveraging": "metrics.ffa",
-           "U2NetMatting": "metrics.ffa", "DiTTrainer": "train.dit_trainer"}
+           "U2NetMatting": "metrics.ffa", "DiTTrainer": "train.dit_trainer",
+           "SamMasking": "metrics.sam_masking"}
 
 
 @pytest.mark.parametrize("scorer", sorted(SCORERS))
@@ -58,7 +61,7 @@ def test_scorer_without_a_device_raises_when_cuda_is_absent(monkeypatch, scorer)
     cls = getattr(importlib.import_module(f"diffsim_tpu_torch.{SCORERS[scorer]}"), scorer)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        cls(None) if scorer == "U2NetMatting" else cls()
+        cls(None) if scorer in ("U2NetMatting", "SamMasking") else cls()
 
 
 def test_chip_smoke_refuses_to_run_without_cuda():
