@@ -144,7 +144,24 @@ Phases, each of which fails the run (non-zero exit, no result line) if anything 
    moment cache (10 misses, 16 K1 / 8 K2) and by the pair route (24 / 12), scores within 1e-3
    and the rankings in the same order wherever two scores are further apart (the spread of the
    scores and the number of such pairs printed: with random weights the scores barely depend
-   on the image).
+   on the image);
+31. the CLI under ``torchrun --standalone --nproc_per_node 1`` (an NCCL group of one rank), whose
+   worker is this script with ``--torchrun-cli ARGS``: the CLI's ``main`` on ``cute --preset
+   cute`` over the 36 JPEGs, its results within 1e-3 of the one-process run's, 32 K1 and 16 K2;
+32. the same CLI run on two ranks on cuda:0 (this machine has one card), spawned here and joined
+   in a gloo group: each call's triplets sharded, 30 comparisons a rank, rank 0's results
+   within 1e-3 of the one-process run's and every comparison decided beyond twice the gap
+   decided the same, each rank's launches;
+33. the scoring service on two ranks: rank 0 serves, rank 1 follows its rounds; a warm-up round,
+   then one burst of 3 requests, the scores within 1e-3 of the one-process service's, both
+   ranks scoring rows;
+34. ``dit_train --distributed`` on two ranks at DiT-XL/2 256 px, global batch 32: 3 float32
+   steps whose losses are within 1e-4 relative of the one-process run's (rank 0's checkpoint
+   at step 2 within 4e-4 of its weights), and 1 ``--bf16`` step within 5e-3;
+35. ``dit_sample --ddim`` on two ranks from the training checkpoint: the decoded images within
+   1e-2 of the one-process run's.
+Two ranks on one card show that the sharded paths are right and what they cost, not how they
+scale: a speed-up across cards cannot be measured on one card.
 
 The line before the last is one JSON object ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. A kernel's time (``ms``), its library call's and its v2's are
@@ -176,7 +193,9 @@ import functools
 import gc
 import json
 import os
+import pickle
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -186,6 +205,7 @@ import warnings
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.nn.attention import SDPBackend, sdpa_kernel
 
@@ -233,6 +253,7 @@ from diffsim_tpu_torch.ops.kernels.attention_stream import (
     streaming_self_attention_plain,
 )
 from diffsim_tpu_torch.ops.blocks import IPProjection
+from diffsim_tpu_torch.parallel import mesh
 from diffsim_tpu_torch.ops.kernels.ff import fused_geglu_ff, fused_geglu_ff_plain
 from diffsim_tpu_torch.ops.kernels.readout import (
     cross_self_partials,
@@ -1627,8 +1648,8 @@ def cli_phase(card_line: str, tree: str) -> dict:
             raise SystemExit("the --bf16_softmax CLI run did not take the mode or disagrees")
         del fast_ad
         torch.cuda.empty_cache()
-    return {"counts": counts, "fast_counts": fast_modes, "forwards": calls,
-            "hit_rate": hit_rate, "stats": stats,
+    return {"counts": counts, "fast_counts": fast_modes, "forwards": calls, "step": step,
+            "scores": cached, "hit_rate": hit_rate, "stats": stats,
             "pairs_per_s": {"cached": 120 / wall, "no_device_cache": 120 / fresh_wall,
                             "bf16_softmax": 120 / fast_wall, "all_hit_rescore": 120 / rescore_s},
             "cached_vs_fresh": gap, "fast_vs_exact": fast_gap}
@@ -2641,7 +2662,8 @@ def _train_tree(root: str) -> str:
 @contextlib.contextmanager
 def _watched(cls, method: str):
     """Record every call of ``cls.method`` while the block runs: its wall time in ms, ended by a
-    synchronize, the kernels' launches within it, and what it returned if that is a dict."""
+    synchronize, the kernels' launches within it, and what it returned if that is a dict or an
+    array."""
     calls, orig = [], getattr(cls, method)
 
     def wrapped(self, *args, **kw):
@@ -2652,7 +2674,7 @@ def _watched(cls, method: str):
         torch.cuda.synchronize()
         after = kernels.launch_counts()
         calls.append({"ms": (time.perf_counter() - t0) * 1e3, "out": out if isinstance(
-            out, dict) else None, "counts": {k: after[k] - before[k] for k in after}})
+            out, (dict, np.ndarray)) else None, "counts": {k: after[k] - before[k] for k in after}})
         return out
 
     setattr(cls, method, wrapped)
@@ -2662,18 +2684,55 @@ def _watched(cls, method: str):
         setattr(cls, method, orig)
 
 
+@contextlib.contextmanager
+def _grad_sums():
+    """While the block runs, every ``mesh.all_reduce_sum_`` call (the trainer's gradient sum)
+    is timed between two synchronizes, and the first call's gradients are sampled: the first
+    GRAD_SAMPLE entries of each parameter's, before the sum (this rank's own) and after it."""
+    real, got = mesh.all_reduce_sum_, {"ms": [], "own": None, "summed": None}
+
+    def sample(tensors):
+        return [t.detach().reshape(-1)[:GRAD_SAMPLE].float().cpu() for t in tensors[:-1]]
+
+    def timed(tensors):
+        tensors = list(tensors)  # the parameters' gradients, then the loss sums
+        first = got["own"] is None
+        if first:
+            got["own"] = sample(tensors)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real(tensors)
+        torch.cuda.synchronize()
+        got["ms"].append((time.perf_counter() - t0) * 1e3)
+        if first:
+            got["summed"] = sample(tensors)
+
+    mesh.all_reduce_sum_ = timed
+    try:
+        yield got
+    finally:
+        mesh.all_reduce_sum_ = real
+
+
+def _grad_gap(got: list, want: list) -> float:
+    """max over the leaves of max |got - want| / max |want| (sampled leaves, in order)."""
+    return max(float((a - b).abs().max() / max(float(b.abs().max()), 1e-30))
+               for a, b in zip(got, want, strict=True))
+
+
 def _train_run(mode: str, argv: list, expected: dict, card_line: str,
-               keep: bool = False) -> dict:
+               keep: bool = False, grads: bool = False) -> dict:
     """One ``dit_train.main(argv)`` on the card with the launch counts set to 0 just before it:
     every step's launches held to ``expected``, the losses finite; step time (the median over
     the steps after the first), images/s and peak device memory, with nothing of an earlier
-    run left on the card. ``keep`` returns the trainer under ``"trainer"``."""
+    run left on the card. ``keep`` returns the trainer under ``"trainer"``, ``grads`` the first
+    step's sampled gradients under ``"grads"`` (:func:`_grad_sums`)."""
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    with _watched(DiTTrainer, "train_step") as steps:
+    with _watched(DiTTrainer, "train_step") as steps, _grad_sums() as sums:
         trainer = dit_train.main(argv)
     wall = time.perf_counter() - t0
     counts = kernels.launch_counts()
@@ -2697,6 +2756,8 @@ def _train_run(mode: str, argv: list, expected: dict, card_line: str,
           f"{card_line}", flush=True)
     if keep:
         out["trainer"] = trainer
+    if grads:
+        out["grads"] = sums["summed"]
     return out
 
 
@@ -2721,7 +2782,7 @@ def train_cli_phase(tmp: str, card_line: str) -> dict:
     f32_dir = os.path.join(tmp, "results_f32")
     runs = {"float32": _train_run("float32", base + [
         "--results_dir", f32_dir, "--max_steps", "4", "--ckpt_every", "2",
-        "--vae_weights", vae_npz], TRAIN_STEP, card_line)}
+        "--vae_weights", vae_npz], TRAIN_STEP, card_line, grads=True)}
     ckpt2 = os.path.join(f32_dir, "ckpt_0000002")
     runs["resume"] = _train_run("resume", base + [
         "--results_dir", f32_dir, "--max_steps", "2", "--ckpt_every", "1000",
@@ -2730,7 +2791,6 @@ def train_cli_phase(tmp: str, card_line: str) -> dict:
     if (runs["float32"]["trainer_step"] != 4 or runs["resume"]["trainer_step"] != 4
             or "at step 2" not in log or log.count("(step=0000003)") != 2):
         raise SystemExit("dit_train --resume: the step count did not continue from step 2")
-    shutil.rmtree(ckpt2)
     runs["bf16"] = _train_run("bf16", base + [
         "--results_dir", os.path.join(tmp, "results_bf16"), "--max_steps", "3",
         "--ckpt_every", "1000", "--vae_weights", vae_npz, "--bf16"], TRAIN_STEP, card_line,
@@ -2748,7 +2808,8 @@ def train_cli_phase(tmp: str, card_line: str) -> dict:
         "--ckpt_every", "1000", "--remat"], REMAT_STEP, card_line)
     gc.collect()
     torch.cuda.empty_cache()
-    return {"runs": runs, "ckpt": os.path.join(f32_dir, "ckpt_0000004"), "vae_npz": vae_npz}
+    return {"runs": runs, "ckpt": os.path.join(f32_dir, "ckpt_0000004"), "ckpt2": ckpt2,
+            "vae_npz": vae_npz, "data": data, "base": base}
 
 
 def sample_cli_phase(tmp: str, train: dict, card_line: str) -> dict:
@@ -2791,7 +2852,7 @@ def sample_cli_phase(tmp: str, train: dict, card_line: str) -> dict:
             images = 8
         sample_ms = sum(c["ms"] for c in calls)
         peak = torch.cuda.max_memory_allocated() / 2**30
-        out[mode] = {"calls": len(calls), "counts": counts,
+        out[mode] = {"calls": len(calls), "counts": counts, "images": calls[0]["out"],
                      "ms_per_step": sample_ms / (SAMPLE_STEPS * len(calls)),
                      "images_per_s": images / sample_ms * 1e3, "peak_gib": peak, "wall_s": wall}
         print(f"  {mode}: {len(calls)} sample call(s), launches {counts}; "
@@ -3112,6 +3173,7 @@ def serve_phase(tree: str, card_line: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return {"burst_rounds": [n for n, _ in burst], "launches_round": per_round[0],
+            "burst_scores": results, "paths": paths,
             "latency_ms": latency, "max_gap": max(gaps)}
 
 
@@ -3170,6 +3232,502 @@ def rank_phase(tree: str, card_line: str) -> dict:
     return {"cached_s": cached["wall_s"], "pairs_s": pairs["wall_s"],
             "launches_cached": cached["counts"], "launches_pairs": pairs["counts"], "gap": gap,
             "pairs_apart": len(apart)}
+
+
+# ---------------------------------------------------------------------------
+# several ranks: torchrun at world size 1 (NCCL), and two ranks on the one card over gloo
+# ---------------------------------------------------------------------------
+
+RANKS = 2  # the multi-rank phases' ranks, all on cuda:0: this machine has one card
+RANKS_TOL = 1e-3  # scores on two ranks against one rank's: the service check's limit
+# the gathered scores on two ranks against each rank's block scored again, unsharded, at the
+# call's own shape (through the rank's warm moment cache, or on the leader for the service):
+# the same kernels on the same inputs, so bit for bit is expected. Random weights put every
+# score within about 1.5e-4 of the others, so RANKS_TOL cannot tell a swapped block: each phase
+# also prints the gap of the blocks swapped (its control) and fails unless that exceeds this
+RANKS_REPLAY_TOL = 1e-6
+# the per-step losses of dit_train on two ranks against one rank's at the same global batch:
+# float32 (the ranks' GEMMs and convolutions have half the rows, and sum in another order), and
+# bf16, where every op rounds to 8 bits
+RANKS_LOSS_RTOL = {"float32": 1e-4, "bf16": 5e-3}
+# the first step's summed gradients on two ranks against one process's at the same global
+# batch: max |d| / the leaf's largest entry, over the first GRAD_SAMPLE entries of every leaf.
+# Its control is each rank's own gradient before the sum (what a missing all-reduce would keep)
+RANKS_GRAD_TOL = 1e-3
+GRAD_SAMPLE = 4096
+# rank 0's checkpoint after 2 steps against one process's: the mean |d| over the weights and over
+# the EMA. A max |d| cannot fail: AdamW moves each weight by about lr (1e-4) a step whatever the
+# gradient, so any two runs from one init lie within 2 lr a step. Its control is the one-process
+# checkpoint two steps later (what a checkpoint written at another step would show)
+RANKS_CKPT_MEAN_TOL = {"params": 1e-6, "ema": 1e-10}
+# dit_sample --ddim on two ranks against one: decoded images in [-1, 1] from the same draws
+RANKS_IMAGE_ATOL = 1e-2
+
+
+def _rank_entry(rank: int, size: int, root: str, job, args) -> None:
+    """One rank of a multi-rank phase: a gloo group over a file store, every rank on cuda:0."""
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{root}/store", rank=rank,
+                            world_size=size, timeout=mesh.TIMEOUT)
+    try:
+        result = job(*args)
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(root, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(result, f)
+
+
+def run_ranks(job, *args, size: int = RANKS) -> list:
+    """``job(*args)`` on ``size`` new processes joined in one gloo group on cuda:0; their results
+    in rank order. A rank that raises or dies fails the run (the others are stopped)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as root:
+        torch.multiprocessing.start_processes(_rank_entry, args=(size, root, job, args),
+                                              nprocs=size, join=True, start_method="spawn")
+        out = []
+        for rank in range(size):
+            with open(os.path.join(root, f"rank{rank}.pkl"), "rb") as f:
+                out.append(pickle.load(f))
+    return out
+
+
+def _group_line() -> str:
+    rank, size = mesh.world()
+    return (f"rank {rank} of {size}, backend {dist.get_backend()}, device "
+            f"cuda:{torch.cuda.current_device()}")
+
+
+def _decisions_agree(one: dict, two: dict, gap: float) -> int:
+    """Raise unless every comparison whose margin |s_ab - s_ac| on one rank exceeds twice the
+    largest score gap is decided the same on two ranks; the number of such comparisons."""
+    held = 0
+    for i, (ab, ac) in one.items():
+        if abs(ab - ac) > 2 * gap:
+            held += 1
+            if (ab > ac) != (two[i][0] > two[i][1]):
+                raise SystemExit(f"comparison {i} decided differently on {RANKS} ranks")
+    return held
+
+
+def torchrun_worker(argv: list) -> int:
+    """``chip_smoke.py --torchrun-cli ARGS`` under torchrun: the CLI's ``main`` (what ``python
+    -m diffsim_tpu_torch.cli.main cute ARGS`` runs) with the launch counts set to 0 before it,
+    then one line with the counts, the backend and the world."""
+    from diffsim_tpu_torch.cli import main as cli_main
+
+    kernels.reset_launch_counts()
+    sys.argv = ["diffsim_tpu_torch.cli.main", "cute", *argv]
+    cli_main.main()
+    torch.cuda.synchronize()
+    print("TORCHRUN " + json.dumps({"counts": kernels.launch_counts(), "group": _group_line()}),
+          flush=True)
+    dist.destroy_process_group()
+    return 0
+
+
+def _run_group(cmd: list, timeout: float) -> subprocess.CompletedProcess:
+    """``cmd`` in a session of its own; at the timeout its whole process group is stopped."""
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            cwd=os.path.dirname(os.path.abspath(__file__)),
+                            start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGTERM)
+        try:
+            proc.communicate(timeout=30)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.communicate()
+        raise SystemExit(f"{cmd[:6]} did not end within {timeout:.0f} s")
+    return subprocess.CompletedProcess(cmd, proc.returncode, out, None)
+
+
+def torchrun_cli_phase(tree: str, cli: dict) -> dict:
+    phase("torchrun --standalone --nproc_per_node 1: the 2AFC CLI's main at full SD-1.5 width "
+          "under torchrun (NCCL, world size 1), cute --preset cute through the moment cache; its "
+          f"results against the one-process run's (|d score| <= {RANKS_TOL:g}), 32 K1 and 16 K2")
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "torchrun.jsonl")
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc_per_node", "1", os.path.abspath(__file__), "--torchrun-cli",
+               "--preset", "cute", "--image_path", tree, "--batch_size", str(CLI_BATCH),
+               "--results", out]
+        t0 = time.perf_counter()
+        res = _run_group(cmd, 600)
+        wall = time.perf_counter() - t0
+        tail = res.stdout.strip().splitlines()[-12:]
+        if res.returncode != 0:
+            raise SystemExit("torchrun failed (rc %d):\n%s" % (res.returncode, "\n".join(tail)))
+        info = json.loads(next(line for line in res.stdout.splitlines()
+                               if line.startswith("TORCHRUN "))[len("TORCHRUN "):])
+        with open(out) as f:
+            scores = {r["idx"]: (r["s_ab"], r["s_ac"]) for r in map(json.loads, f)}
+    gap = _scores_gap(cli["scores"], scores)
+    want = {**NONE, "fused_self_attention": 8 * cli["forwards"],
+            "fused_geglu_ff": 4 * cli["forwards"]}
+    print(f"  torchrun: {info['group']}; {len(scores)} comparisons in {wall:.1f} s with the "
+          f"launcher, the process and the scorer's init; launches {info['counts']}; max |d "
+          f"score| against one process {gap:.3e}", flush=True)
+    if sorted(scores) != list(range(60)) or gap > RANKS_TOL or info["counts"] != want:
+        raise SystemExit(f"torchrun: the CLI disagrees with the one-process run (expected "
+                         f"launches {want})")
+    if "backend nccl" not in info["group"] or "rank 0 of 1" not in info["group"]:
+        raise SystemExit(f"torchrun: not an NCCL group of one: {info['group']}")
+    return {"wall_s": wall, "max_gap": gap, "counts": info["counts"]}
+
+
+def _blocks(n: int) -> list:
+    """The rows each rank should score of a call of ``n`` rows: contiguous blocks of ceil(n /
+    RANKS), written out here rather than taken from ``mesh.shard_rows``."""
+    block = -(-n // RANKS)
+    return [range(min(r * block, n), min((r + 1) * block, n)) for r in range(RANKS)]
+
+
+def _replay_gaps(full: np.ndarray, blocks: list) -> tuple[float, float | None]:
+    """max |d| of a gathered call's scores ``full`` against each rank's block scored again
+    (``blocks``, in rank order), and against the blocks swapped between ranks 0 and 1 where
+    both are as long (None where no two are): the check and its control."""
+    local = np.concatenate(blocks)
+    gap = float(np.abs(full - local).max()) if len(full) else 0.0
+    if len(blocks[0]) != len(blocks[1]) or not len(blocks[0]):
+        return gap, None
+    swapped = np.concatenate([blocks[1], blocks[0], *blocks[2:]])
+    return gap, float(np.abs(full - swapped).max())
+
+
+def _cli_job(tree: str, argv: list) -> dict:
+    """The ``cute`` CLI on this rank; then this rank's block of every call scored again by the
+    unsharded call, through the moment cache the run left warm (scores bit for bit as the run's,
+    the CLI phase's all-hit rescore)."""
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    report, (adapter,) = run_benchmark("cute", argv, device="cuda:0")
+    torch.cuda.synchronize()
+    out = {"group": _group_line(), "wall": time.perf_counter() - t0,
+           "report": (report.total, report.correct, report.correct_2x),
+           "counts": kernels.launch_counts(), "rows": adapter.score_triplet_paths.rows,
+           "stats": dict(adapter.scorer._moment_cache.stats)}
+    local = adapter.score_triplet_paths.__wrapped__  # registry.over_ranks keeps the call it wraps
+    plan = benchmarks.cute(tree, 2334)
+    replay = {}
+    for i in range(0, len(plan), CLI_BATCH):
+        rows = _blocks(len(plan[i:i + CLI_BATCH]))[dist.get_rank()]
+        mine = [plan[i + j] for j in rows]
+        if mine:
+            s_ab, s_ac = local(*([getattr(c, r) for c in mine] for r in "abc"),
+                               prompts=[c.prompt for c in mine])
+            replay.update({i + j: (float(x), float(y)) for j, x, y in zip(rows, s_ab, s_ac)})
+    out["replay"] = replay
+    return out
+
+
+def ranks_cli_phase(tree: str, cli: dict) -> dict:
+    phase(f"the 2AFC CLI on {RANKS} ranks on cuda:0 over gloo at full SD-1.5 width: cute "
+          "--preset cute through the moment cache, each call's triplets sharded; rank 0's "
+          f"results against the one-process run's (|d score| <= {RANKS_TOL:g}, the same "
+          "decisions beyond twice the gap) and against each rank's blocks scored again "
+          f"unsharded at their own shape (|d score| <= {RANKS_REPLAY_TOL:g}, and the blocks "
+          "swapped must exceed it), 30 comparisons a rank")
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "ranks.jsonl")
+        argv = ["--preset", "cute", "--image_path", tree, "--batch_size", str(CLI_BATCH),
+                "--results", out]
+        t0 = time.perf_counter()
+        ranks = run_ranks(_cli_job, tree, argv)
+        wall = time.perf_counter() - t0
+        with open(out) as f:
+            lines = f.read().splitlines()
+    scores = {r["idx"]: (r["s_ab"], r["s_ac"]) for r in map(json.loads, lines)}
+    gap = _scores_gap(cli["scores"], scores)
+    held = _decisions_agree(cli["scores"], scores, gap)
+    replay = {i: v for r in ranks for i, v in r["replay"].items()}
+    replay_gap, control = 0.0, 0.0
+    for i in range(0, 60, CLI_BATCH):
+        idx = [[i + j for j in rows] for rows in _blocks(len(range(i, min(i + CLI_BATCH, 60))))]
+        for side in (0, 1):
+            g, c = _replay_gaps(np.array([scores[k][side] for b in idx for k in b]),
+                                [np.array([replay[k][side] for k in b]) for b in idx])
+            replay_gap, control = max(replay_gap, g), max(control, c or 0.0)
+    for r in ranks:
+        # each call's rows are split in blocks of ceil(n / 2): every rank runs one forward a call
+        blocks = [-(-min(CLI_BATCH, 60 - i) // RANKS) for i in range(0, 60, CLI_BATCH)]
+        forwards = sum(-(-b // cli["step"]) for b in blocks)
+        want = {**NONE, "fused_self_attention": 8 * forwards, "fused_geglu_ff": 4 * forwards}
+        print(f"  {r['group']}: {r['rows']} comparisons scored, launches {r['counts']} "
+              f"(expected {want}), moment cache {r['stats']}, report {r['report']}, "
+              f"{r['wall']:.1f} s with the scorer's init", flush=True)
+        if r["rows"] != 60 // RANKS or r["counts"] != want:
+            raise SystemExit("the CLI on two ranks: a rank scored or launched other than "
+                             "expected")
+    print(f"  rank 0's file: {len(lines)} lines; max |d score| against one process {gap:.3e} "
+          f"(limit {RANKS_TOL:g}); {held} of 60 comparisons decided beyond twice the gap, all "
+          f"the same; against the ranks' blocks scored again {replay_gap:.3e} (limit "
+          f"{RANKS_REPLAY_TOL:g}; the blocks swapped: {control:.3e}); {wall:.1f} s with the "
+          "processes' start", flush=True)
+    if len(lines) != 60 or sorted(scores) != list(range(60)) or gap > RANKS_TOL:
+        raise SystemExit("the CLI on two ranks disagrees with one process")
+    if sorted(replay) != list(range(60)) or replay_gap > RANKS_REPLAY_TOL:
+        raise SystemExit("the CLI on two ranks: rank 0's file disagrees with the ranks' blocks")
+    if control <= RANKS_REPLAY_TOL:
+        raise SystemExit("the CLI on two ranks: the blocks' scores are too close to tell a swap")
+    if ranks[0]["report"] != ranks[1]["report"]:
+        raise SystemExit("the ranks report different accuracies")
+    return {"wall_s": wall, "max_gap": gap, "decided": held, "replay_gap": replay_gap,
+            "replay_control": control, "launches": [r["counts"] for r in ranks], "rows": [r["rows"] for r in ranks]}
+
+
+def _serve_job(flags: list, requests: list) -> dict:
+    import threading
+
+    kernels.reset_launch_counts()
+    args = arg_parse(flags)
+    if dist.get_rank() != 0:
+        adapter = serve.follow(args, device="cuda:0")
+        return {"group": _group_line(), "rows": adapter.score_pairs.rows,
+                "counts": kernels.launch_counts()}
+    server, batcher = serve.make_server(args, 0, max_wait_ms=200.0, device="cuda:0")
+    sharded, rounds = batcher._score, []
+
+    def recorded(pix_a, pix_b, prompts):  # each round's inputs and gathered scores, kept
+        scores = sharded(pix_a, pix_b, prompts)
+        rounds.append((pix_a, pix_b, prompts, np.asarray(scores)))
+        return scores
+
+    batcher._score = recorded
+    port = server.server_address[1]
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    results, latency = [None] * len(requests), [None] * len(requests)
+
+    def client(i):
+        t0 = time.perf_counter()
+        results[i] = _post(port, {"pairs": requests[i], "prompt": CUTE["prompt"]})["scores"]
+        latency[i] = (time.perf_counter() - t0) * 1e3
+
+    try:
+        # a warm-up round of two pairs, one a rank, then the burst
+        _post(port, {"pairs": requests[2], "prompt": CUTE["prompt"]})
+        clients = [threading.Thread(target=client, args=(i,)) for i in range(len(requests))]
+        for t in clients:
+            t.start()
+        for t in clients:
+            t.join(timeout=600)
+        rows = sharded.rows
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+        batcher.close()
+    counts = kernels.launch_counts()
+    # every round's blocks scored again here by the unsharded call, at the shape each rank had
+    local, replay = sharded.__wrapped__, []
+    for pix_a, pix_b, prompts, scores in rounds:
+        blocks = [np.asarray(local(pix_a[b.start:b.stop], pix_b[b.start:b.stop],
+                                   prompts[b.start:b.stop]), np.float32) if len(b) else
+                  np.zeros(0, np.float32) for b in _blocks(len(prompts))]
+        replay.append((len(prompts), *_replay_gaps(scores, blocks)))
+    return {"group": _group_line(), "rows": rows, "counts": counts, "results": results,
+            "latency_ms": latency, "replay": replay}
+
+
+def ranks_serve_phase(served: dict) -> dict:
+    phase(f"the scoring service on {RANKS} ranks on cuda:0 over gloo at full SD-1.5 width: rank 0 "
+          "serves (make_server, max_wait_ms 200), rank 1 follows its rounds; a warm-up round of "
+          "two pairs, then one burst of 3 concurrent requests (4 pairs); the scores within "
+          f"{RANKS_TOL:g} of the one-process service's, and every round's within "
+          f"{RANKS_REPLAY_TOL:g} of its blocks scored again unsharded on the leader (the blocks "
+          "swapped must exceed it), both ranks scoring rows")
+    p = served["paths"]
+    requests = [[[p[0], p[1]]], [[p[2], p[3]]], [[p[4], p[5]], [p[1], p[4]]]]
+    flags = SERVE_FLAGS + ["--batch_size", str(SERVE_BATCH)]
+    t0 = time.perf_counter()
+    leader, follower = run_ranks(_serve_job, flags, requests)
+    wall = time.perf_counter() - t0
+    gap = max(float(np.abs(np.asarray(a) - np.asarray(b)).max())
+              for a, b in zip(leader["results"], served["burst_scores"]))
+    for r in (leader, follower):
+        k1, k2 = r["counts"]["fused_self_attention"], r["counts"]["fused_geglu_ff"]
+        print(f"  {r['group']}: {r['rows']} pairs scored, launches {r['counts']}", flush=True)
+        if r["rows"] < 1 or k1 < 8 or r["counts"] != {**NONE, "fused_self_attention": k1,
+                                                      "fused_geglu_ff": k1 // 2} or k1 % 8:
+            raise SystemExit("the service on two ranks: a rank scored no rows or launched "
+                             "other than 8 K1 and 4 K2 a forward")
+    replay_gap = max(g for _, g, _ in leader["replay"])
+    control = max((c for _, _, c in leader["replay"] if c is not None), default=0.0)
+    print(f"  served: the burst's request latency {[f'{x:.1f}' for x in leader['latency_ms']]} "
+          f"ms (information); max |d score| against the one-process service {gap:.3e} (limit "
+          f"{RANKS_TOL:g}); rounds of {[n for n, _, _ in leader['replay']]} pairs, against "
+          f"their blocks scored again {replay_gap:.3e} (limit {RANKS_REPLAY_TOL:g}; the blocks "
+          f"swapped: {control:.3e}); {wall:.1f} s with the processes' start", flush=True)
+    if leader["rows"] + follower["rows"] != 2 + 4 or gap > RANKS_TOL:
+        raise SystemExit("the service on two ranks disagrees with one process")
+    if sum(n for n, _, _ in leader["replay"]) != 2 + 4 or replay_gap > RANKS_REPLAY_TOL:
+        raise SystemExit("the service on two ranks: a round disagrees with its ranks' blocks")
+    if control <= RANKS_REPLAY_TOL:
+        raise SystemExit("the service on two ranks: the blocks' scores are too close to tell a "
+                         "swap")
+    for scores in leader["results"]:
+        _check_scores("serve on two ranks", np.asarray(scores))
+    return {"wall_s": wall, "max_gap": gap, "replay_gap": replay_gap, "replay_control": control,
+            "rows": [leader["rows"], follower["rows"]],
+            "latency_ms": leader["latency_ms"],
+            "launches": [leader["counts"], follower["counts"]]}
+
+
+def _train_job(argvs: dict) -> dict:
+    """Each ``dit_train.main`` run of ``argvs`` in turn, in this rank's one process."""
+    out = {}
+    for mode, argv in argvs.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with _watched(DiTTrainer, "train_step") as steps, _grad_sums() as sums:
+            trainer = dit_train.main(argv, device="cuda:0")
+        out[mode] = {"group": _group_line(), "wall": time.perf_counter() - t0,
+                     "step": trainer.step, "losses": [s["out"]["loss"] for s in steps],
+                     "step_ms": [s["ms"] for s in steps], "counts": [s["counts"] for s in steps],
+                     "sum_ms": sums["ms"], "grads_own": sums["own"],
+                     "grads_summed": sums["summed"],
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        del trainer
+    return out
+
+
+def _load_state(ckpt_dir: str, mmap: bool = False) -> dict:
+    return torch.load(os.path.join(ckpt_dir, "trainer_state.pt"), map_location="cpu",
+                      weights_only=True, mmap=mmap)
+
+
+def _mean_gap(a: dict, b: dict) -> float:
+    """The mean |a - b| over every entry of two state dicts' tensors."""
+    total = sum(float((a[k].double() - v.double()).abs().sum()) for k, v in b.items())
+    return total / sum(v.numel() for v in b.values())
+
+
+def ranks_train_phase(tmp: str, train: dict) -> dict:
+    phase(f"dit_train --distributed on {RANKS} ranks on cuda:0 over gloo: DiT-XL/2 at 256 px, "
+          f"global batch {TRAIN_BATCH} ({TRAIN_BATCH // RANKS} a rank), float32 for 3 steps "
+          "(checkpoint at step 2) and --bf16 for 1; the per-step losses against the one-process "
+          f"runs' (relative {RANKS_LOSS_RTOL}), the first step's summed gradients against one "
+          f"process's (max |d| / the leaf's largest entry {RANKS_GRAD_TOL:g}; each rank's own "
+          "gradient must exceed it), rank 0's checkpoint against the one-process one (mean |d| "
+          f"{RANKS_CKPT_MEAN_TOL}; the one-process checkpoint two steps later must exceed it); "
+          "the gradient sum timed in every step")
+    base = train["base"] + ["--vae_weights", train["vae_npz"], "--distributed"]
+    one_ckpt = _load_state(train["ckpt2"])  # held on the host: 2 checkpoints on disk at most
+    shutil.rmtree(train["ckpt2"])
+    runs = {"float32": (["--ckpt_every", "2"], 3), "bf16": (["--ckpt_every", "1000", "--bf16"], 1)}
+    t0 = time.perf_counter()
+    every = run_ranks(_train_job, {
+        mode: base + ["--results_dir", os.path.join(tmp, f"ranks_{mode}"), "--max_steps",
+                      str(steps), *extra] for mode, (extra, steps) in runs.items()})
+    wall = time.perf_counter() - t0
+    print(f"  both runs on {RANKS} ranks: {wall:.1f} s with the processes' start", flush=True)
+    out = {"wall_s": wall}
+    for mode, (_, steps) in runs.items():
+        results = os.path.join(tmp, f"ranks_{mode}")
+        ranks = [r[mode] for r in every]
+        one = train["runs"][mode]["losses"][:steps]
+        gaps = [abs(a / b - 1) for a, b in zip(ranks[0]["losses"], one)]
+        for r in ranks:
+            print(f"  {mode}, {r['group']}: losses {r['losses']}, step ms "
+                  f"{[round(x, 1) for x in r['step_ms']]}, of which the gradient sum "
+                  f"{[round(x, 1) for x in r['sum_ms']]}, launches a step {r['counts']}, "
+                  f"peak {r['peak_gib']:.2f} GiB", flush=True)
+            if r["losses"] != ranks[0]["losses"] or r["step"] != steps:
+                raise SystemExit(f"dit_train --distributed {mode}: the ranks disagree")
+            if any(c != TRAIN_STEP for c in r["counts"]):
+                raise SystemExit(f"dit_train --distributed {mode}: launches a step {r['counts']}"
+                                 f", expected {TRAIN_STEP}")
+        print(f"  {mode}: one process's losses {one}; relative gaps {gaps} (limit "
+              f"{RANKS_LOSS_RTOL[mode]:g}); the run {ranks[0]['wall']:.1f} s with the trainer's "
+              "init", flush=True)
+        if max(gaps) > RANKS_LOSS_RTOL[mode]:
+            raise SystemExit(f"dit_train --distributed {mode}: the losses disagree with one "
+                             "process")
+        out[mode] = {"losses": ranks[0]["losses"], "loss_gaps": gaps, "wall_s": ranks[0]["wall"],
+                     "step_ms": [r["step_ms"] for r in ranks],
+                     "sum_ms": [r["sum_ms"] for r in ranks],
+                     "peak_gib": [r["peak_gib"] for r in ranks]}
+        if mode == "float32":
+            want = train["runs"][mode].pop("grads")
+            grad_gap = max(_grad_gap(r["grads_summed"], want) for r in ranks)
+            grad_control = min(_grad_gap(r["grads_own"], want) for r in ranks)
+            print(f"  {mode}: the first step's summed gradients against one process's within "
+                  f"{grad_gap:.3e} of each leaf's largest entry (limit {RANKS_GRAD_TOL:g}; a "
+                  f"rank's own gradient, before the sum: {grad_control:.3e}), "
+                  f"{len(want)} leaves, {GRAD_SAMPLE} entries each at most", flush=True)
+            if grad_gap > RANKS_GRAD_TOL or grad_control <= RANKS_GRAD_TOL:
+                raise SystemExit("dit_train --distributed: the summed gradients disagree with "
+                                 "one process's, or the check cannot tell a missing sum")
+            out[mode].update(grad_gap=grad_gap, grad_control=grad_control)
+            files = sorted(os.listdir(results))
+            if files != ["ckpt_0000002", "log.txt"]:
+                raise SystemExit(f"dit_train --distributed wrote {files}")
+            t0 = time.perf_counter()
+            two = _load_state(os.path.join(results, "ckpt_0000002"), mmap=True)
+            later = _load_state(train["ckpt"], mmap=True)  # the one-process run's step 4
+            gaps = {key: _mean_gap(two[key], one_ckpt[key]) for key in ("params", "ema")}
+            controls = {key: _mean_gap(later[key], one_ckpt[key]) for key in ("params", "ema")}
+            top = max((two["params"][k] - v).abs().max().item()
+                      for k, v in one_ckpt["params"].items())
+            print(f"  rank 0's checkpoint at step {two['step']}: mean |d| weights "
+                  f"{gaps['params']:.3e}, EMA {gaps['ema']:.3e} against the one-process "
+                  f"checkpoint (limits {RANKS_CKPT_MEAN_TOL}; the one-process step 4 against its "
+                  f"step 2: {controls['params']:.3e}, {controls['ema']:.3e}); max |d| weights "
+                  f"{top:.3e} (information); compared in {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+            if two["step"] != 2 or any(gaps[k] > RANKS_CKPT_MEAN_TOL[k]
+                                       or controls[k] <= RANKS_CKPT_MEAN_TOL[k] for k in gaps):
+                raise SystemExit("dit_train --distributed: the checkpoint disagrees with one "
+                                 "process's, or the check cannot tell a checkpoint two steps off")
+            out[mode].update(ckpt_mean_gaps=gaps, ckpt_controls=controls, ckpt_max_gap=top)
+            del two, one_ckpt, later
+        shutil.rmtree(results)
+    return out
+
+
+def _sample_job(argv: list) -> dict:
+    kernels.reset_launch_counts()
+    with _watched(DiTTrainer, "sample") as calls:
+        dit_sample.main(argv, device="cuda:0")
+    return {"group": _group_line(), "images": calls[0]["out"], "ms": calls[0]["ms"],
+            "counts": calls[0]["counts"]}
+
+
+def ranks_sample_phase(tmp: str, train: dict, sampled: dict) -> dict:
+    phase(f"dit_sample on {RANKS} ranks on cuda:0 over gloo: DiT-XL/2 at 256 px from the "
+          f"training checkpoint, --ddim, CFG 4.0, {SAMPLE_STEPS} steps, the 8 default labels "
+          f"4 a rank; the decoded images against the one-process run's (within "
+          f"{RANKS_IMAGE_ATOL:g} in [-1, 1])")
+    target = os.path.join(tmp, "grid_ddim_ranks.png")
+    argv = ["--ckpt", train["ckpt"], "--vae_weights", train["vae_npz"], "--model", "DiT-XL/2",
+            "--image_size", str(TRAIN_SIZE), "--cfg_scale", "4.0", "--num_sampling_steps",
+            str(SAMPLE_STEPS), "--ddim", "--out", target]
+    t0 = time.perf_counter()
+    ranks = run_ranks(_sample_job, argv)
+    wall = time.perf_counter() - t0
+    one = sampled["ddim"]["images"]
+    gap = float(np.abs(ranks[0]["images"] - one).max())
+    for r in ranks:
+        want = {**NONE, "fused_self_attention": 28 * SAMPLE_STEPS}
+        print(f"  {r['group']}: the sample call {r['ms']:.0f} ms, launches {r['counts']}",
+              flush=True)
+        if r["counts"] != want or not np.array_equal(r["images"], ranks[0]["images"]):
+            raise SystemExit(f"dit_sample on two ranks: launches {r['counts']} (expected "
+                             f"{want}) or the ranks' images differ")
+    print(f"  max |d image| against one process {gap:.3e} (limit {RANKS_IMAGE_ATOL:g}); the grid "
+          f"written once ({os.path.exists(target)}); {wall:.1f} s with the processes' start",
+          flush=True)
+    if ranks[0]["images"].shape != one.shape or gap > RANKS_IMAGE_ATOL or not os.path.exists(
+            target):
+        raise SystemExit("dit_sample on two ranks disagrees with one process")
+    return {"wall_s": wall, "max_gap": gap, "sample_ms": [r["ms"] for r in ranks]}
 
 
 def profile_call(fn, what: str, top: int = 14) -> None:
@@ -3296,6 +3854,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--torchrun-cli"]:  # the worker of torchrun_cli_phase
+        return torchrun_worker(sys.argv[2:])
     phase("card")
     card_line = card()
     phase("build")
@@ -3345,11 +3905,16 @@ def main() -> int:
         sam_cli = sam_cli_phase(tree)
         served = serve_phase(tree, card_line)
         ranked = rank_phase(tree, card_line)
+        torchrun_cli = torchrun_cli_phase(tree, cli)
+        ranks_cli = ranks_cli_phase(tree, cli)
+        ranks_served = ranks_serve_phase(served)
     converted = convert_phase()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         train = train_cli_phase(tmp, card_line)
         sampled = sample_cli_phase(tmp, train, card_line)
+        ranks_train = ranks_train_phase(tmp, train)
+        ranks_sampled = ranks_sample_phase(tmp, train, sampled)
 
     def on_sd15(kernel):
         return sd15[kernel], "launches_sd15_forward", SD15_PER
@@ -3409,7 +3974,12 @@ def main() -> int:
              "sam_vit_h_masks": NONE, "cli_sam_masks": sam_cli["counts"],
              "serve_round": served["launches_round"],
              "rank_cached_2_calls": ranked["launches_cached"],
-             "rank_pairs_3_calls": ranked["launches_pairs"]}
+             "rank_pairs_3_calls": ranked["launches_pairs"],
+             # several ranks: the CLI under torchrun (one NCCL rank), and each of two ranks on the
+             # one card over gloo: the CLI run and the service's burst
+             "torchrun_cli": torchrun_cli["counts"],
+             **{f"ranks_cli_rank{r}": c for r, c in enumerate(ranks_cli["launches"])},
+             **{f"ranks_serve_rank{r}": c for r, c in enumerate(ranks_served["launches"])}}
     for entry in line["kernels"][:4]:
         entry["launches_paths"] = {path: counts[entry["name"]] for path, counts in paths.items()}
     k1_xl = line["kernels"][0]["sdxl"]
@@ -3454,7 +4024,7 @@ def main() -> int:
             raise SystemExit(f"{guard['name']}: the device-memory guard's constants are below "
                              f"what the card measured: {guard}")
     line["hbm_guard"] = [sd15_out["guard"], xl_out["guard"], dit_out["guard"]]
-    line["cli"] = {k: v for k, v in cli.items() if k not in ("counts", "fast_counts")}
+    line["cli"] = {k: v for k, v in cli.items() if k not in ("counts", "fast_counts", "scores")}
     line["ip_adapter"] = {
         name: {k: out["ip"][k] for k in ("call_ms", "no_ip_call_ms", "peak_gib")}
         for name, out in (("sd15_512", sd15_out), ("sdxl_1024", xl_out))}
@@ -3464,12 +4034,19 @@ def main() -> int:
                                  for what, run in baseline_cli.items()}}
     line["dit_train"] = {mode: {k: v for k, v in run.items() if k != "counts"}
                          for mode, run in train["runs"].items()}
-    line["dit_sample"] = {mode: {k: v for k, v in run.items() if k != "counts"}
+    line["dit_sample"] = {mode: {k: v for k, v in run.items() if k not in ("counts", "images")}
                           for mode, run in sampled.items()}
     line["sam"] = {"vit_h_1024": sam_h, "cli": {k: v for k, v in sam_cli.items()
                                                    if k != "counts"}}
-    line["serve"] = {k: v for k, v in served.items() if k != "launches_round"}
+    line["serve"] = {k: v for k, v in served.items()
+                     if k not in ("launches_round", "burst_scores", "paths")}
     line["rank"] = {k: v for k, v in ranked.items() if not k.startswith("launches")}
+    # several ranks: torchrun at world size 1 over NCCL, two ranks on the one card
+    # over gloo; the ranks' launches are in each entry's launches_paths
+    line["ranks"] = {"torchrun_cli": {k: v for k, v in torchrun_cli.items() if k != "counts"},
+                     "cli": {k: v for k, v in ranks_cli.items() if k != "launches"},
+                     "serve": {k: v for k, v in ranks_served.items() if k != "launches"},
+                     "dit_train": ranks_train, "dit_sample": ranks_sampled}
     line["dit"] = {"repeat_ms": dit_out["repeat_ms"], "peak_gib": dit_out["peak_gib"],
                    "cached_vs_fresh": dit_out["cached_gap"], "cli": dit_cli,
                    "converter": converted}

@@ -9,8 +9,10 @@ class-conditional samples, or mass sampling packed into an ``arr_0`` ``.npz`` of
 
 ``--ckpt`` is a ``.npz`` with a ``dit`` tree (and a ``vae_decoder`` tree where it has one) or a
 checkpoint directory of the port's trainer; ``--vae_weights`` a ``.npz`` with a ``vae_decoder``
-tree. Without a decoder the grid shows the latents. One card: more than one visible CUDA device
-raises (ROADMAP Queue 1 item 7). ``main`` takes ``device`` as a keyword (None: the card).
+tree. Without a decoder the grid shows the latents. On N cards (``torchrun --nproc_per_node N
+-m diffsim_tpu_torch.cli.dit_sample ...``) each batch's samples shard over the ranks, every draw
+taken at the whole batch's shape, so the images equal one card's; rank 0 writes them. ``main``
+takes ``device`` as a keyword (None: this rank's card).
 """
 
 from __future__ import annotations
@@ -20,9 +22,9 @@ import argparse
 import numpy as np
 import torch
 
-from diffsim_tpu_torch.cli.dit_train import require_one_device
 from diffsim_tpu_torch.convert.store import load_params
 from diffsim_tpu_torch.models import dit
+from diffsim_tpu_torch.parallel import mesh
 from diffsim_tpu_torch.train.dit_trainer import DiTTrainer, TrainConfig
 
 
@@ -45,7 +47,8 @@ def main(argv=None, *, device=None):
     ap.add_argument("--model_scale", choices=["full", "tiny"], default="full")
     ap.add_argument("--out", default="sample.png")
     args = ap.parse_args(argv)
-    require_one_device(device)
+    mesh.init_from_env(device)
+    mesh.run_hint("diffsim_tpu_torch.cli.dit_sample")
 
     cfg = TrainConfig(image_size=args.image_size, model=args.model)
     dit_cfg = vae_cfg = None
@@ -84,14 +87,18 @@ def main(argv=None, *, device=None):
             imgs = np.clip((np.asarray(out, np.float32) + 1) * 127.5, 0, 255).astype(np.uint8)
             all_imgs.append(imgs[:n])
             done += n
-            print(f"sampled {done}/{args.num_fid_samples}")
+            mesh.leader_print(f"sampled {done}/{args.num_fid_samples}")
         arr = np.concatenate(all_imgs)
-        np.savez(args.out, arr_0=arr)
-        print(f"saved {arr.shape} to {args.out}")
+        if mesh.is_leader():
+            np.savez(args.out, arr_0=arr)
+        mesh.leader_print(f"saved {arr.shape} to {args.out}")
     else:
         out = trainer.sample(np.asarray(args.class_labels), generator, **kw)
-        _save_grid(out, args.out, decoded=decoder is not None)
-        print(f"saved {args.out}")
+        if mesh.is_leader():
+            _save_grid(out, args.out, decoded=decoder is not None)
+        mesh.leader_print(f"saved {args.out}")
+    mesh.barrier()
+
 
 
 def _save_grid(images: np.ndarray, path: str, decoded: bool, cols: int = 4):

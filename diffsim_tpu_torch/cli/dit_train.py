@@ -4,10 +4,14 @@ CLI's flags and defaults:
     python -m diffsim_tpu_torch.cli.dit_train --data_path imagenet/train --results_dir results \
         --model DiT-XL/2 --image_size 256 --global_batch_size 256 --epochs 1400
 
-One process on one card: ``--distributed``, or more than one visible CUDA device, raises (data
-parallelism is ROADMAP Queue 1 item 7). ``main`` takes ``device`` as a keyword (None: the card;
-the CPU tests pass "cpu"). Checkpoints are named by the trainer's step, which a ``--resume``
-continues; ``--max_steps`` counts the steps of this run.
+Data parallel on N cards: ``torchrun --nproc_per_node N -m diffsim_tpu_torch.cli.dit_train
+--distributed ...``: each rank decodes and steps on its block of every global batch
+(``--global_batch_size`` is the batch of all ranks together), the gradients are summed over the
+ranks, and rank 0 writes the checkpoints and ``log.txt``. ``--distributed`` without a process
+group raises; without it, a process that sees several cards runs on one and says how to use
+them all. ``main`` takes ``device`` as a keyword (None: this rank's card; the CPU tests pass
+"cpu"). Checkpoints are named by the trainer's step, which a ``--resume`` continues;
+``--max_steps`` counts the steps of this run.
 """
 
 from __future__ import annotations
@@ -19,39 +23,35 @@ import sys
 import time
 
 import numpy as np
-import torch
 
 from diffsim_tpu_torch.data.imagefolder import ImageFolderDataset
 from diffsim_tpu_torch.models import dit
+from diffsim_tpu_torch.parallel import mesh
 from diffsim_tpu_torch.train.dit_trainer import DiTTrainer, TrainConfig
+
+MODULE = "diffsim_tpu_torch.cli.dit_train"
 
 
 def create_logger(results_dir: str) -> logging.Logger:
-    """The rank-0 logger of the published trainer: the one process logs to
-    ``results_dir/log.txt`` and to stdout. The handlers are the logger's own, set anew on each
-    call, so runs in one process each write their own log."""
-    os.makedirs(results_dir, exist_ok=True)
+    """The logger of the published trainer: rank 0 (the one process on one card) logs to
+    ``results_dir/log.txt`` and to stdout, the other ranks nowhere. The handlers are the
+    logger's own, set anew on each call, so runs in one process each write their own log."""
     logger = logging.getLogger(__name__)
     for handler in list(logger.handlers):
         logger.removeHandler(handler)
         handler.close()
-    fmt = logging.Formatter("[%(asctime)s] %(message)s", datefmt="%Y-%m-%d %H:%M:%S")
-    for handler in (logging.StreamHandler(sys.stdout),
-                    logging.FileHandler(os.path.join(results_dir, "log.txt"))):
-        handler.setFormatter(fmt)
-        logger.addHandler(handler)
+    if mesh.is_leader():
+        os.makedirs(results_dir, exist_ok=True)
+        fmt = logging.Formatter("[%(asctime)s] %(message)s", datefmt="%Y-%m-%d %H:%M:%S")
+        for handler in (logging.StreamHandler(sys.stdout),
+                        logging.FileHandler(os.path.join(results_dir, "log.txt"))):
+            handler.setFormatter(fmt)
+            logger.addHandler(handler)
+    else:
+        logger.addHandler(logging.NullHandler())
     logger.setLevel(logging.INFO)
     logger.propagate = False
     return logger
-
-
-def require_one_device(device) -> None:
-    """Raise where the JAX CLIs would build a mesh: the port trains and samples on one card."""
-    if device is None and torch.cuda.is_available() and torch.cuda.device_count() > 1:
-        raise NotImplementedError(
-            f"{torch.cuda.device_count()} CUDA devices: multi-GPU training and sampling are not "
-            "ported to PyTorch yet (ROADMAP.md, Queue 1 item 7); expose one card "
-            "(CUDA_VISIBLE_DEVICES)")
 
 
 def main(argv=None, *, device=None):
@@ -75,12 +75,14 @@ def main(argv=None, *, device=None):
     ap.add_argument("--bf16", action="store_true",
                     help="bfloat16 model compute with float32 master weights/optimizer/EMA")
     ap.add_argument("--distributed", action="store_true",
-                    help="multi-process training: not ported (ROADMAP.md, Queue 1 item 7)")
+                    help="data parallel over the ranks of a torchrun process group (required "
+                         "there; it raises without one)")
     args = ap.parse_args(argv)
-    if args.distributed:
-        raise NotImplementedError("--distributed: multi-GPU training is not ported to PyTorch "
-                                  "yet (ROADMAP.md, Queue 1 item 7)")
-    require_one_device(device)
+    if not mesh.init_from_env(device) and args.distributed:
+        raise RuntimeError(f"--distributed runs one process a card in a process group: launch "
+                           f"torchrun --nproc_per_node N -m {MODULE} --distributed ...")
+    mesh.run_hint(f"{MODULE} --distributed")
+    rank, size = mesh.world()
 
     logger = create_logger(args.results_dir)
     cfg = TrainConfig(image_size=args.image_size, model=args.model, seed=args.global_seed,
@@ -110,7 +112,8 @@ def main(argv=None, *, device=None):
     running = []
     for epoch in range(args.epochs):
         logger.info(f"beginning epoch {epoch}")
-        for pixels, labels in data.epoch_batches(args.global_batch_size):
+        for pixels, labels in data.epoch_batches(args.global_batch_size,
+                                                 process_slice=(rank, size)):
             metrics = trainer.train_step(pixels, labels)
             running.append(metrics["loss"])
             steps += 1

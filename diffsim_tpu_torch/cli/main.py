@@ -3,9 +3,10 @@
 
 One executable for the reference's six 2AFC scripts (CUTE, Sref / InstantStyle, NIGHTS,
 TID2013, IPref, DreamBench++) with the same flags, decision arithmetic and printout, batched on
-the card. For example, CUTE with the reference's settings:
+the card. For example, CUTE with the reference's settings, on one card and on N:
 
     python -m diffsim_tpu_torch.cli.main cute --preset cute --image_path DIR
+    torchrun --nproc_per_node N -m diffsim_tpu_torch.cli.main cute --preset cute --image_path DIR
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from diffsim_tpu_torch.cli.args import arg_parse
 from diffsim_tpu_torch.core.image import ImageLoader
 from diffsim_tpu_torch.data import benchmarks
 from diffsim_tpu_torch.metrics.registry import build_metric
+from diffsim_tpu_torch.parallel import mesh
 from diffsim_tpu_torch.runtime import runner
 from diffsim_tpu_torch.runtime.profiling import StageTimer, trace
 
@@ -37,19 +39,24 @@ BENCHMARKS = {
 }
 
 
-def check_one_device(args) -> None:
-    """Multi-GPU scoring is not ported: ``--num_devices`` > 1 raises (the JAX CLI's mesh)."""
-    if args.num_devices not in (None, 1):
-        raise NotImplementedError("--num_devices > 1: multi-GPU scoring is not ported to "
-                                  "PyTorch yet (ROADMAP.md, Queue 1 item 7)")
+def join_world(args, device, module: str) -> None:
+    """Join the process group (``torchrun``'s, or the caller's) and hold ``--num_devices`` to
+    its size, before any model is built; outside a group, say how to use several cards."""
+    mesh.init_from_env(device)
+    mesh.check_world_size(args.num_devices, module)
+    mesh.run_hint(module)
 
 
 def run_benchmark(benchmark: str, argv=None, *, device=None):
     """Plan ``benchmark`` from the flags ``argv`` and score it; returns (report, the list of
     adapters that scored it: one, or ``--metric ensemble``'s three). ``device`` is the scoring
-    device (None: the card; the CPU tests pass "cpu")."""
+    device (None: this rank's card; the CPU tests pass "cpu").
+
+    In a process group (``torchrun --nproc_per_node N -m diffsim_tpu_torch.cli.main ...``) each
+    call's comparisons shard over the ranks; every rank returns the same report, and only the
+    leader writes ``--results`` and prints."""
     args = arg_parse(argv)
-    check_one_device(args)
+    join_world(args, device, "diffsim_tpu_torch.cli.main")
     planner, rule = BENCHMARKS[benchmark]
     comparisons = planner(args)
     if args.shard:
@@ -60,9 +67,9 @@ def run_benchmark(benchmark: str, argv=None, *, device=None):
         comparisons = comparisons[i::n]
         if args.results:
             args.results = f"{args.results}.s{i}-{n}"
-        print(f"shard {i}/{n}: {len(comparisons)} comparisons")
-    print(f"=========seed {args.seed}=========")
-    print(f"Experiment on {args.target_block}, layer {args.target_layer}, "
+        mesh.leader_print(f"shard {i}/{n}: {len(comparisons)} comparisons")
+    mesh.leader_print(f"=========seed {args.seed}=========")
+    mesh.leader_print(f"Experiment on {args.target_block}, layer {args.target_layer}, "
           f"timestep {args.target_step}:")
     timer = StageTimer() if args.profile else None
     ctx = trace(args.profile_trace) if args.profile_trace else contextlib.nullcontext()
@@ -74,8 +81,8 @@ def run_benchmark(benchmark: str, argv=None, *, device=None):
             report = runner.run_2afc_ensemble(
                 comparisons, adapters, vote_based=rule in (runner.VOTE, runner.VOTE_GREATER),
                 img_size=args.image_size, batch=args.batch_size, out_path=args.results,
-                timer=timer)
-        if timer is not None:
+                print_fn=mesh.leader_print, timer=timer)
+        if timer is not None and mesh.is_leader():
             timer.report()
         return report, adapters
 
@@ -89,16 +96,17 @@ def run_benchmark(benchmark: str, argv=None, *, device=None):
                 comparisons, adapter.score_pairs, score_triplets=adapter.score_triplets,
                 score_triplet_paths=adapter.score_triplet_paths, prewarm=adapter.prewarm,
                 rule=rule, lower_better=adapter.lower_better, img_size=args.image_size,
-                batch=args.batch_size, out_path=args.results, loader=loader, timer=timer,
-                mask_fn=mask_fn)
+                batch=args.batch_size, out_path=args.results, loader=loader,
+                print_fn=mesh.leader_print, timer=timer, mask_fn=mask_fn)
     finally:
         loader.close()
     cache = getattr(adapter.scorer, "_moment_cache", None)
     if cache is not None:
-        print(f"[moment cache] {cache.stats}")
-    if timer is not None:
+        mesh.leader_print(f"[moment cache] {cache.stats}")
+    if timer is not None and mesh.is_leader():
         timer.report()
     return report, [adapter]
+
 
 
 def _mask_fn(args, adapter, device):

@@ -11,7 +11,9 @@
 
 A ranking .txt holds one "<name> <score>" line per gallery image, best first (the reference's
 reader format). ``rank`` scores on ``cuda`` unless it is given ``device``; without a CUDA
-device it raises. matplotlib is imported only inside ``grid``.
+device it raises. On N cards (``torchrun --nproc_per_node N -m diffsim_tpu_torch.cli.retrieval
+rank ...``) each call's pairs shard over the ranks and rank 0 writes the rankings. matplotlib
+is imported only inside ``grid``.
 """
 
 from __future__ import annotations
@@ -40,8 +42,9 @@ def rank(argv, *, device=None):
     """Rank the gallery against each query and write ``<out_path>/<query>.txt``. A metric with
     the moment-cache path ranks through it (:func:`_rank_cached`); any other scores pairs in
     ``--batch_size`` calls."""
-    from diffsim_tpu_torch.cli.main import check_one_device
+    from diffsim_tpu_torch.cli.main import join_world
     from diffsim_tpu_torch.metrics.registry import build_metric
+    from diffsim_tpu_torch.parallel import mesh
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--query_path", required=True)
@@ -50,14 +53,16 @@ def rank(argv, *, device=None):
     ap.add_argument("--top_k", type=int, default=0, help="0 = write full ranking")
     ns, rest = ap.parse_known_args(argv)
     args = arg_parse(rest + ["--image_path", ns.gallery_path, "--out_path", ns.out_path])
-    check_one_device(args)
+    join_world(args, device, "diffsim_tpu_torch.cli.retrieval rank")
+    leader = mesh.is_leader()
 
     adapter = build_metric(args, device)
     loader = ImageLoader(args.image_size, preprocess=adapter.preprocess,
                          fast_decode=args.fast_decode)
     queries = _list_images(ns.query_path) if os.path.isdir(ns.query_path) else [ns.query_path]
     gallery = _list_images(ns.gallery_path)
-    os.makedirs(ns.out_path, exist_ok=True)
+    if leader:
+        os.makedirs(ns.out_path, exist_ok=True)
     try:
         if adapter.score_triplet_paths is None:
             gal_pix = loader.load_batch(gallery)
@@ -77,6 +82,8 @@ def rank(argv, *, device=None):
                 order = order[::-1]
             if ns.top_k:
                 order = order[: ns.top_k]
+            if not leader:
+                continue
             name = os.path.splitext(os.path.basename(q))[0]
             out_file = os.path.join(ns.out_path, f"{name}.txt")
             with open(out_file, "w") as f:

@@ -428,7 +428,8 @@ struct WgmmaRS<160> {
 // ---------------------------------------------------------------------------
 
 // The current device's SMs: one block each for a persistent kernel (132 on an H100 SXM if the
-// query fails).
+// query fails). The static keeps the first device's count: the port runs one process a card,
+// each process on one device, so that count is this process's.
 inline int sm_count() {
   static int n = 0;
   if (n == 0) {

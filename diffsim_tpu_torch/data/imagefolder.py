@@ -4,7 +4,9 @@ The port's own copy of ``diffsim_tpu/data/imagefolder.py``: one global shuffled 
 ahead on host threads. Preprocessing follows the published DiT recipe: progressive BOX
 downsampling, a bicubic resize, a centre crop, a random horizontal flip, uint8 transport. The
 shuffle and the flips come from separate seeded streams, so every process of a multi-process run
-derives the same epoch order (``process_slice``).
+derives the same epoch order (``process_slice``). Unlike the JAX copy, a process draws the flips
+of the whole global batch and keeps its slice's, so the slices of N processes are the batch of
+one process, flips and all.
 """
 
 from __future__ import annotations
@@ -69,9 +71,9 @@ class ImageFolderDataset:
                       process_slice: tuple[int, int] | None = None):
         """Yield (pixels_u8 (B,H,W,3), labels (B,)) with threaded decode-ahead.
 
-        ``process_slice=(proc, nproc)``: every process derives the same global epoch order
-        (shared seed, per-epoch stream) but decodes only its contiguous batch/nproc slice of
-        each global batch, as a DistributedSampler does."""
+        ``process_slice=(proc, nproc)``: every process derives the same global epoch order and
+        flips (shared seed, per-epoch stream) but decodes only its contiguous batch/nproc slice
+        of each global batch, as a DistributedSampler does."""
         order_rng = random.Random(f"{self.seed}-order-{self._epoch}")
         self._epoch += 1
         order = list(range(len(self.samples)))
@@ -79,22 +81,20 @@ class ImageFolderDataset:
         if drop_last:
             order = order[: len(order) - len(order) % batch]
         chunks = [order[i : i + batch] for i in range(0, len(order), batch)]
+        keep = slice(None)
         if process_slice is not None:
             proc, nproc = process_slice
-            assert batch % nproc == 0, (
-                f"global batch {batch} must divide by process count {nproc}: "
-                f"a remainder would silently drop samples from every batch"
-            )
+            if batch % nproc:
+                raise ValueError(f"global batch {batch} must divide by process count {nproc}: "
+                                 "a remainder would silently drop samples from every batch")
             local = batch // nproc
-            chunks = [c[proc * local : (proc + 1) * local] for c in chunks]
+            keep = slice(proc * local, (proc + 1) * local)
 
         def submit(chunk):
-            futs = [
-                self._pool.submit(self._load, self.samples[i][0],
-                                  self.hflip and self._flip_rng.random() < 0.5)
-                for i in chunk
-            ]
-            labels = np.asarray([self.samples[i][1] for i in chunk], np.int32)
+            flips = [self.hflip and self._flip_rng.random() < 0.5 for _ in chunk]
+            mine = list(zip(chunk, flips))[keep]
+            futs = [self._pool.submit(self._load, self.samples[i][0], flip) for i, flip in mine]
+            labels = np.asarray([self.samples[i][1] for i, _ in mine], np.int32)
             return futs, labels
 
         inflight = []

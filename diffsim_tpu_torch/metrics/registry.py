@@ -19,9 +19,13 @@ from typing import Callable
 import numpy as np
 import torch
 
+from diffsim_tpu_torch.parallel import mesh
+
 DIFFUSION = ("diffsim", "diffeats", "diffsim_xl", "dit")
 BASELINES = ("clip_i", "clip_cross", "clipfeats", "dino", "dinov1", "dino_cross", "dinofeats",
              "cute", "lpips", "gram")
+# the keyword arguments of a scoring call that hold one entry a row (``over_ranks``)
+ROW_KEYS = ("prompt", "prompts", "mask_a", "mask_b", "pix_a", "pix_b", "pix_c")
 
 
 @dataclasses.dataclass
@@ -147,10 +151,82 @@ def _tiny_configs(name: str, image_size: int = 32) -> dict:
 def build_metric(args, device=None) -> MetricAdapter:
     """The adapter for ``args.metric``. ``args`` carries the CLI surface (image_size,
     target_block/layer/step, similarity, seed, ...); ``device`` is the scoring device (None:
-    the card)."""
+    this rank's card). In a process group of several ranks every rank must hold the same
+    weights (checked here), and each call's pairs or triplets shard over the ranks
+    (:func:`_over_ranks`)."""
+    adapter = _baseline(args, device) if args.metric in BASELINES else _diffusion(args, device)
+    if mesh.world()[1] == 1:
+        return adapter
+    mesh.check_same_weights(adapter.scorer, f"--metric {args.metric}")
+    return _over_ranks(adapter)
+
+
+def _over_ranks(adapter: MetricAdapter) -> MetricAdapter:
+    """The adapter with every scoring path run on this rank's rows of each call and the scores
+    all-gathered (:func:`over_ranks`); ``prewarm`` decodes only this rank's rows'
+    misses. A pair's score does not depend on the rank that scores it: each call seeds one
+    generator and shares every draw across the batch (``core/prng.py``)."""
+
+    def sharded(fn, parts):
+        return None if fn is None else over_ranks(fn, parts)
+
+    prewarm = None
+    if adapter.prewarm is not None:
+        def prewarm(paths_roles, loader):
+            sl = mesh.shard_rows(len(paths_roles[0]))
+            adapter.prewarm([role[sl] for role in paths_roles], loader)
+
+    return dataclasses.replace(
+        adapter, score_pairs=sharded(adapter.score_pairs, 1),
+        score_triplets=sharded(adapter.score_triplets, 2),
+        score_triplet_paths=sharded(adapter.score_triplet_paths, 2), prewarm=prewarm)
+
+
+def over_ranks(fn, parts: int = 1):
+    """``fn(*rows, blocking=True, **kw)`` run on this rank's rows of every call
+    (``mesh.shard_rows``), its scores all-gathered back into the call's order
+    (``mesh.gather_rows``). Every positional argument, and each keyword in ``ROW_KEYS``, holds
+    one entry a row (None and a single prompt string are shared by every row); ``fn`` returns
+    ``parts`` (N,) score arrays (one array, or a tuple of two), or with ``blocking=False`` a
+    zero-argument fetch of them. With ``blocking=False`` the wrapper returns a fetch too, and
+    the gather runs inside it, so a caller's one batch in flight still overlaps the next batch's
+    host work. A rank whose block is empty calls nothing and joins the gather. Every rank must
+    make the same calls in the same order.
+
+    ``wrapped.rows`` counts the rows this rank scored."""
+
+    def rows_of(value, sl):
+        return value if value is None or isinstance(value, str) else value[sl]
+
+    @functools.wraps(fn)
+    def wrapped(*args, blocking=True, **kw):
+        n = len(args[0])
+        sl = mesh.shard_rows(n)
+        local = None
+        if sl.stop > sl.start:
+            local = fn(*(rows_of(a, sl) for a in args), blocking=False,
+                       **{k: rows_of(v, sl) if k in ROW_KEYS else v for k, v in kw.items()})
+            wrapped.rows += sl.stop - sl.start
+
+        def fetch():
+            got = local() if callable(local) else local
+            if got is None:
+                got = (np.zeros(0, np.float32),) * parts
+            elif parts == 1:
+                got = (got,)
+            full = [mesh.gather_rows(torch.from_numpy(np.ascontiguousarray(g, np.float32)), n)
+                    .numpy() for g in got]
+            return full[0] if parts == 1 else tuple(full)
+
+        return fetch() if blocking else fetch
+
+    wrapped.rows = 0
+    return wrapped
+
+
+def _diffusion(args, device) -> MetricAdapter:
+    """The adapter of a DiffSim metric (SD-1.5, SDXL, DiT) or ``diffeats``."""
     name = args.metric
-    if name in BASELINES:
-        return _baseline(args, device)
     if name not in DIFFUSION:
         raise ValueError(f"unknown metric: {name}")
     similarity = args.similarity

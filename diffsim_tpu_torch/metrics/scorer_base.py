@@ -26,6 +26,7 @@ from diffsim_tpu_torch.models.ip_adapter import (
     insert_ip_into_unet,
 )
 from diffsim_tpu_torch.ops.blocks import IPProjection
+from diffsim_tpu_torch.parallel import mesh
 from diffsim_tpu_torch.runtime.device_cache import (
     ensure_image_slots,
     make_moment_cache,
@@ -34,13 +35,12 @@ from diffsim_tpu_torch.runtime.device_cache import (
 
 
 def resolve_device(device) -> torch.device:
-    """The scoring device: ``cuda`` unless the caller names one. Without a CUDA device and
-    without an explicit ``device``, raise: the port never quietly scores on the CPU."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device: pass device='cpu' to score on the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
+    """The scoring device: this rank's card, ``cuda:LOCAL_RANK`` (``cuda:0`` outside torchrun),
+    unless the caller names one. Without a CUDA device and without an explicit ``device``,
+    raise: the port never quietly scores on the CPU."""
+    if device is None and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to score on the CPU")
+    return mesh.local_device(device)
 
 
 def fetchable(scores: torch.Tensor, blocking: bool):

@@ -111,10 +111,10 @@ class Diffusion:
 
     # ---- sampling ----
 
-    def _start(self, shape, generator, noise):
+    def _start(self, shape, generator, noise, rows):
         if noise is not None:
-            return noise.float()
-        return torch.randn(shape, generator=generator, device=generator.device)
+            return noise.float()[rows]
+        return torch.randn(shape, generator=generator, device=generator.device)[rows]
 
     def _steps(self, x):
         for i in range(self.num_steps):
@@ -122,23 +122,27 @@ class Diffusion:
             yield step, torch.full((x.shape[0],), step, dtype=torch.long, device=x.device)
 
     def p_sample_loop(self, model_fn, shape, generator: torch.Generator | None = None,
-                      clip_denoised: bool = True, noise: torch.Tensor | None = None):
+                      clip_denoised: bool = True, noise: torch.Tensor | None = None,
+                      rows: slice = slice(None)):
         """Ancestral sampling over every step; returns the x0 samples. Each step but the last
-        draws its noise from ``generator``."""
-        x = self._start(shape, generator, noise)
+        draws its noise from ``generator``. Every draw (and ``noise``) has the batch's whole
+        ``shape``, and only its ``rows`` are sampled: a process group's ranks each take their
+        block, as one card would draw it."""
+        x = self._start(shape, generator, noise, rows)
         for step, t in self._steps(x):
             out = self.p_mean_variance(model_fn, x, t, clip_denoised)
             x = out["mean"]
             if step > 0:
-                z = torch.randn(shape, generator=generator, device=x.device)
+                z = torch.randn(shape, generator=generator, device=x.device)[rows]
                 x = x + torch.exp(0.5 * out["log_var"]) * z
         return x
 
     def ddim_sample_loop(self, model_fn, shape, generator: torch.Generator | None = None,
                          eta: float = 0.0, clip_denoised: bool = True,
-                         noise: torch.Tensor | None = None):
-        """DDIM sampling; with ``eta > 0`` each step but the last draws from ``generator``."""
-        x = self._start(shape, generator, noise)
+                         noise: torch.Tensor | None = None, rows: slice = slice(None)):
+        """DDIM sampling; with ``eta > 0`` each step but the last draws from ``generator``.
+        ``rows`` as in :meth:`p_sample_loop`."""
+        x = self._start(shape, generator, noise, rows)
         n = len(shape)
         for step, t in self._steps(x):
             out = self.p_mean_variance(model_fn, x, t, clip_denoised)
@@ -148,7 +152,7 @@ class Diffusion:
             sigma = eta * torch.sqrt((1 - ac_prev) / (1 - ac)) * torch.sqrt(1 - ac / ac_prev)
             x = out["x0"] * torch.sqrt(ac_prev) + torch.sqrt(1 - ac_prev - sigma**2) * eps
             if eta > 0 and step > 0:
-                x = x + sigma * torch.randn(shape, generator=generator, device=x.device)
+                x = x + sigma * torch.randn(shape, generator=generator, device=x.device)[rows]
         return x
 
     # ---- training ----

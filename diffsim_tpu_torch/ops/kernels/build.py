@@ -79,6 +79,26 @@ def build(names=SOURCES) -> dict[str, str]:
     return reports
 
 
+def build_on_local_leader() -> None:
+    """``build`` once a host in a process group: local rank 0 compiles while the host's other
+    ranks wait at a barrier, so N fresh ranks do not run N copies of nvcc. Every rank raises if
+    the leader's build failed."""
+    import torch.distributed as dist
+
+    error = None
+    if int(os.environ.get("LOCAL_RANK", dist.get_rank())) == 0:
+        try:
+            build()
+        except RuntimeError as e:
+            error = e
+    ok = [None] * dist.get_world_size()
+    dist.all_gather_object(ok, error is None)
+    if error is not None:
+        raise error
+    if not all(ok):
+        raise RuntimeError("CUDA kernel build failed on another rank's host leader")
+
+
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed."""
     with _lock:

@@ -2,7 +2,8 @@
 ``diffsim_tpu/runtime/results.py``).
 
 Every scored comparison is appended to a JSONL file as it completes; re-running with the same
-path skips the completed indices.
+path skips the completed indices. In a process group every rank reads the file and only the
+leader writes it (``write=False`` elsewhere).
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ import os
 
 
 class ResultLog:
-    def __init__(self, path: str | None):
+    def __init__(self, path: str | None, write: bool = True):
         self.path = path
         self._done: dict[int, dict] = {}
         if path and os.path.exists(path):
@@ -23,7 +24,7 @@ class ResultLog:
                         continue
                     rec = json.loads(line)
                     self._done[rec["idx"]] = rec
-        self._fh = open(path, "a") if path else None
+        self._fh = open(path, "a") if path and write else None
 
     @property
     def done(self) -> dict[int, dict]:

@@ -6,6 +6,11 @@ card scores the previous batch, logs every comparison to JSONL (resumable), and 
 reference script's accuracy arithmetic: TID2013 and DreamBench++ compare with ``>`` whatever the
 similarity, CUTE / Sref / IPref flip for mse, NIGHTS and DreamBench++ compare against human
 votes. :func:`run_2afc_ensemble` is the reference's 2-of-3 vote of three metrics.
+
+In a process group the adapters shard each call's rows over the ranks (``metrics/registry``):
+every rank plans the same chunks and makes the same calls, so it decodes every image of the
+pixel routes (the cached route decodes only its own rows' misses) and logs every score, and
+only the leader writes the JSONL.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ import numpy as np
 
 from diffsim_tpu_torch.core.image import ImageLoader, load_image, process_image, process_image_u8
 from diffsim_tpu_torch.data.benchmarks import Comparison
+from diffsim_tpu_torch.parallel import mesh
 from diffsim_tpu_torch.runtime.profiling import StageTimer
 from diffsim_tpu_torch.runtime.results import ResultLog
 
@@ -43,6 +49,15 @@ class Report:
     @property
     def accuracy_2x(self) -> float:
         return self.correct_2x / self.total * 100 if self.total else 0.0
+
+
+def _result_log(path: str | None) -> ResultLog:
+    """The run's log: every rank of a process group reads what is done, and only the leader
+    appends, after the barrier (so no rank plans its chunks from a file the leader has begun to
+    write)."""
+    log = ResultLog(path, write=mesh.is_leader())
+    mesh.barrier()
+    return log
 
 
 def judge(rule: str, s_ab: float, s_ac: float, vote, lower_better: bool) -> tuple[bool, bool]:
@@ -93,7 +108,7 @@ def run_2afc(
     ``mask_fn(image_path) -> (1, H, W)`` turns on mask-weighted scoring (``--use_mask``): the
     masks are decoded beside the images and passed to ``score_pairs(mask_a=, mask_b=)``, which
     bypasses the triplet and cached paths (they take no masks)."""
-    log = ResultLog(out_path)
+    log = _result_log(out_path)
     report = Report()
     pending = [i for i in range(len(comparisons)) if i not in log.done]
     chunks = [pending[i:i + batch] for i in range(0, len(pending), batch)]
@@ -222,7 +237,8 @@ def run_2afc_ensemble(
     a comparison is correct when the majority prefers B."""
     timer = timer or StageTimer()
     preps = [ad.preprocess or (lambda img: process_image(img, img_size)) for ad in adapters]
-    logs = [ResultLog(f"{out_path}.m{idx}" if out_path else None) for idx in range(len(adapters))]
+    logs = [_result_log(f"{out_path}.m{idx}" if out_path else None)
+            for idx in range(len(adapters))]
     done = set.intersection(*(set(log.done) for log in logs)) if logs else set()
     pending = [i for i in range(len(comparisons)) if i not in done]
     chunks = [pending[i:i + batch] for i in range(0, len(pending), batch)]

@@ -1,7 +1,7 @@
 """DiT training and class-conditional sampling on PyTorch and CUDA.
 
-Counterpart of ``diffsim_tpu/train/dit_trainer.py``, on one process and one card (data
-parallelism over several cards is ROADMAP Queue 1 item 7). Each step mirrors the JAX step:
+Counterpart of ``diffsim_tpu/train/dit_trainer.py``, on one card or data parallel over the
+ranks of a process group (one card a rank). Each step mirrors the JAX step:
 
 * the frozen VAE encoder and ``sample_latents`` at ``vae_scaling``, uint8 pixels mapped to
   [-1, 1] as ``u8 / 127.5 - 1``;
@@ -24,8 +24,15 @@ dropout are drawn, in that order, from a ``torch.Generator`` on the device seede
 ``fold_in(key, step)`` does. ``train_step`` takes them injected instead (``latent_noise``,
 ``noise``, ``t``, ``drop``), which is how the tests hold it to the JAX step.
 
+Data parallel (``parallel/mesh.py``): each rank steps on its contiguous block of the global
+batch, takes every draw at the global batch from the same generators and keeps its own rows,
+and scales its loss by the global batch, so the gradients summed over the ranks
+(``mesh.all_reduce_sum_`` after the backward, in both compute dtypes) are one card's at the same
+global batch; the AdamW state, the EMA and ``step`` stay identical on every rank. Sampling
+shards the sample batch the same way and gathers the images.
+
 Checkpoints hold ``{params, ema, opt, step}``, what the JAX trainer's orbax tree holds, as one
-``torch.save`` file in a directory (:data:`STATE_FILE`).
+``torch.save`` file in a directory (:data:`STATE_FILE`), written by rank 0.
 """
 
 from __future__ import annotations
@@ -43,6 +50,7 @@ from diffsim_tpu_torch.metrics.scorer_base import build_module, resolve_device, 
 from diffsim_tpu_torch.models.diffusion import create_diffusion
 from diffsim_tpu_torch.models.dit import MODELS, DiT
 from diffsim_tpu_torch.models.vae import Decoder, Encoder, VAEConfig, sample_latents
+from diffsim_tpu_torch.parallel import mesh
 from diffsim_tpu_torch.train.timestep_sampler import UniformSampler
 
 STATE_FILE = "trainer_state.pt"
@@ -68,8 +76,9 @@ def _nchw(arr, device) -> torch.Tensor:
 class DiTTrainer:
     """DiT training state on one device: the model (float32 master weights), its EMA, AdamW and
     the frozen VAE encoder. ``vae_params`` is the JAX package's ``vae`` encoder tree; without
-    it the encoder is random, as in the JAX trainer. Runs on ``cuda`` unless ``device`` is given;
-    without a CUDA device and without ``device`` it raises."""
+    it the encoder is random, as in the JAX trainer. Runs on this rank's card unless ``device``
+    is given; without a CUDA device and without ``device`` it raises. In a process group of
+    several ranks every rank must build the same weights (checked here)."""
 
     def __init__(self, cfg: TrainConfig | None = None, dit_cfg=None, vae_params=None,
                  vae_cfg: VAEConfig | None = None, timestep_sampler=None, device=None):
@@ -94,6 +103,7 @@ class DiTTrainer:
         self.step = 0
         self.timestep_sampler = timestep_sampler or UniformSampler(self.diffusion.num_steps)
         self._t_rng = np.random.default_rng((cfg.seed, 0))
+        mesh.check_same_weights(self, "DiTTrainer")
 
     # ------------------------------------------------------------------
     # training
@@ -117,11 +127,15 @@ class DiTTrainer:
 
     def train_step(self, pixels, labels, *, latent_noise=None, noise=None, t=None,
                    drop=None) -> dict:
-        """One step on a batch of NHWC pixels (uint8, or float in [-1, 1]) and (B,) labels.
-        Returns the weighted mean loss and the mean MSE as floats. ``latent_noise`` and ``noise``
-        (NHWC, the latents' shape), ``t`` ((B,) ints, weights then one) and ``drop`` ((B,)
-        booleans) replace the step's draws."""
-        device, b = self.device, len(labels)
+        """One step on this rank's block of NHWC pixels (uint8, or float in [-1, 1]) and its
+        labels: the whole batch on one card, 1 / size of the global batch on each rank of a
+        group. Returns the global batch's weighted mean loss and mean MSE as floats.
+        ``latent_noise`` and ``noise`` (NHWC, the latents' shape), ``t`` ((B,) ints, weights
+        then one) and ``drop`` ((B,) booleans) replace the step's draws; they are given at the
+        global batch B, as the draws are taken."""
+        device, size = self.device, mesh.world()[1]
+        b = len(labels) * size
+        rows = mesh.shard_rows(b)
         if t is None:
             t_host, w_host = self.timestep_sampler.sample(self._t_rng, b)
         else:
@@ -129,33 +143,38 @@ class DiTTrainer:
         gen = self._step_generator()
         with torch.no_grad():
             moments = self.vae(to_device_pixels([pixels], device, torch.float32))
-            mean_shape = moments[:, :self.vae_cfg.latent_channels].shape
+            mean_shape = (b, self.vae_cfg.latent_channels) + moments.shape[2:]
             eps_vae = (torch.randn(mean_shape, generator=gen, device=device)
-                       if latent_noise is None else _nchw(latent_noise, device))
+                       if latent_noise is None else _nchw(latent_noise, device))[rows]
             latents = sample_latents(moments, self.cfg.vae_scaling, eps_vae)
-        noise = (torch.randn(latents.shape, generator=gen, device=device) if noise is None
-                 else _nchw(noise, device))
+        noise = (torch.randn(mean_shape, generator=gen, device=device) if noise is None
+                 else _nchw(noise, device))[rows]
         p_drop = self.dit_cfg.class_dropout_prob
         if drop is None and p_drop > 0:
-            drop = torch.rand(b, generator=gen, device=device) < p_drop
+            drop = (torch.rand(b, generator=gen, device=device) < p_drop)[rows]
         elif drop is not None:
-            drop = torch.as_tensor(np.asarray(drop, bool), device=device)
+            drop = torch.as_tensor(np.asarray(drop, bool)[rows], device=device)
         labels = torch.as_tensor(np.asarray(labels, np.int64), device=device)
-        t_dev = torch.as_tensor(t_host, dtype=torch.long, device=device)
-        weights = torch.as_tensor(w_host, dtype=torch.float32, device=device)
+        t_dev = torch.as_tensor(t_host[rows], dtype=torch.long, device=device)
+        weights = torch.as_tensor(w_host[rows], dtype=torch.float32, device=device)
 
         def model_fn(x, model_t):
             return self._forward(x, model_t, labels, drop).float()
 
         self.optimizer.zero_grad(set_to_none=True)
         losses = self.diffusion.training_losses(model_fn, latents, t_dev, noise)
-        loss = (losses["loss"] * weights).mean()
+        # this rank's share of the global batch's mean: the ranks' gradients sum to one card's
+        loss = (losses["loss"] * weights).sum() / b
         loss.backward()
+        sums = torch.stack([loss.detach(), losses["mse"].detach().sum() / b])
+        mesh.all_reduce_sum_([p.grad for p in self.model.parameters()] + [sums])
         self.optimizer.step()
         self._update_ema()
         self.step += 1
-        self.timestep_sampler.update(t_host, losses["loss"].detach().cpu().numpy())
-        return {"loss": loss.item(), "mse": losses["mse"].mean().item()}
+        per_example = mesh.gather_rows(losses["loss"].detach(), b)
+        self.timestep_sampler.update(t_host, per_example.cpu().numpy())
+        loss, mse = sums.tolist()
+        return {"loss": loss, "mse": mse}
 
     @torch.no_grad()
     def _update_ema(self) -> None:
@@ -182,10 +201,13 @@ class DiTTrainer:
                             torch.float32, None)
 
     def save(self, ckpt_dir: str) -> None:
-        os.makedirs(ckpt_dir, exist_ok=True)
-        torch.save({"params": self.model.state_dict(), "ema": self.ema.state_dict(),
-                    "opt": self.optimizer.state_dict(), "step": self.step},
-                   os.path.join(ckpt_dir, STATE_FILE))
+        """Rank 0 writes; every rank returns once the file is complete."""
+        if mesh.is_leader():
+            os.makedirs(ckpt_dir, exist_ok=True)
+            torch.save({"params": self.model.state_dict(), "ema": self.ema.state_dict(),
+                        "opt": self.optimizer.state_dict(), "step": self.step},
+                       os.path.join(ckpt_dir, STATE_FILE))
+        mesh.barrier()
 
     def restore(self, ckpt_dir: str) -> None:
         path = os.path.join(ckpt_dir, STATE_FILE)
@@ -212,11 +234,18 @@ class DiTTrainer:
         """Class-conditional sampling: ``num_steps`` respaced steps, ancestral or DDIM, with
         classifier-free guidance at ``cfg_scale`` on the first three eps channels (the
         published DiT quirk) when it is given, through the EMA weights. Returns NHWC latents,
-        or images in about [-1, 1] when a decoder is given."""
+        or images in about [-1, 1] when a decoder is given. In a process group each rank
+        samples its block of the labels, every draw taken at the whole batch's shape, and every
+        rank returns all the images: the ranks' ``generator`` states stay equal."""
         model = self.ema
-        dcfg, n = self.dit_cfg, len(labels)
+        dcfg, total = self.dit_cfg, len(labels)
+        rows = mesh.shard_rows(total)
+        if total < mesh.world()[1]:
+            raise ValueError(f"{total} samples on {mesh.world()[1]} ranks: sample at least one "
+                             "image a rank")
         diffusion = create_diffusion(str(int(num_steps)), learn_sigma=dcfg.learn_sigma)
-        labels = torch.as_tensor(np.asarray(labels, np.int64), device=self.device)
+        labels = torch.as_tensor(np.asarray(labels, np.int64)[rows], device=self.device)
+        n = len(labels)
         if cfg_scale is not None:
             y = torch.cat([labels, torch.full_like(labels, dcfg.num_classes)])
 
@@ -230,8 +259,8 @@ class DiTTrainer:
                 return model(x, model_t, labels)[0]
 
         loop = diffusion.ddim_sample_loop if ddim else diffusion.p_sample_loop
-        shape = (n, dcfg.in_channels, dcfg.input_size, dcfg.input_size)
-        out = loop(model_fn, shape, generator)
+        shape = (total, dcfg.in_channels, dcfg.input_size, dcfg.input_size)
+        out = loop(model_fn, shape, generator, rows=rows)
         if vae_decoder is not None:
             out = vae_decoder(out / self.cfg.vae_scaling)
-        return out.permute(0, 2, 3, 1).float().cpu().numpy()
+        return mesh.gather_rows(out.permute(0, 2, 3, 1).float().contiguous(), total).cpu().numpy()

@@ -163,15 +163,22 @@ def test_cli_shard_profile_and_trace(data, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("command, extra, match", [
-    ("cute", ["--num_devices", "2"], "Queue 1 item 7"),
-    ("serve", ["--num_devices", "2"], "Queue 1 item 7"),
+    ("cute", ["--num_devices", "2"], "torchrun --nproc_per_node 2 -m diffsim_tpu_torch.cli.main"),
+    ("serve", ["--num_devices", "2"],
+     "torchrun --nproc_per_node 2 -m diffsim_tpu_torch.cli.serve"),
 ])
-def test_unported_options_raise(data, tmp_path, command, extra, match):
-    """What the port still lacks raises naming its ROADMAP item: multi-GPU scoring, in the CLI
-    and in the service (``python -m diffsim_tpu_torch.cli.serve``), before any model is built."""
+def test_unported_options_raise(data, tmp_path, command, extra, match, monkeypatch):
+    """``--num_devices`` other than the process group's size (1 outside torchrun) raises in the
+    CLI and in the service (``python -m diffsim_tpu_torch.cli.serve``), naming the torchrun
+    command that would run it, before any model is built."""
     from diffsim_tpu_torch.cli import serve
+    from diffsim_tpu_torch.metrics import registry
 
-    with pytest.raises(NotImplementedError, match=match):
+    def no_model(*args, **kwargs):
+        raise AssertionError("a model was built before the check")
+
+    monkeypatch.setattr(registry, "_diffusion", no_model)
+    with pytest.raises(ValueError, match=match):
         if command == "serve":
             serve.main(extra + ["--port", "0"])
         else:

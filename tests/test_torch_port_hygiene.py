@@ -29,7 +29,7 @@ def test_port_and_chip_smoke_import_no_jax():
                  "train.dit_trainer", "train.timestep_sampler", "data.imagefolder",
                  "cli.dit_train", "cli.dit_sample", "models.sam", "convert.sam_import",
                  "metrics.sam_masking", "cli.serve", "cli.retrieval", "cli.compare_results",
-                 "runtime.viz"):
+                 "runtime.viz", "parallel.mesh"):
         assert f"diffsim_tpu_torch.{name}" in modules
     code = (
         "import importlib, sys\n"

@@ -119,8 +119,17 @@ def test_rank_through_the_moment_cache_matches_the_pair_route(images, tmp_path):
     np.testing.assert_allclose(c_scores, p_scores, atol=2e-5)
 
 
-def test_rank_with_two_devices_raises(images, tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+def test_rank_with_two_devices_raises(images, tmp_path, monkeypatch):
+    """``--num_devices 2`` outside a process group of two raises, naming the torchrun command,
+    before a model is built."""
+    from diffsim_tpu_torch.metrics import registry
+
+    def no_model(*args, **kwargs):
+        raise AssertionError("a model was built before the check")
+
+    monkeypatch.setattr(registry, "_baseline", no_model)
+    with pytest.raises(ValueError,
+                       match="torchrun --nproc_per_node 2 -m diffsim_tpu_torch.cli.retrieval"):
         tretrieval.rank(_rank_argv(images, tmp_path / "r", "--metric", "clip_i",
                                    "--num_devices", "2"), device="cpu")
 

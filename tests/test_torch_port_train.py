@@ -556,8 +556,11 @@ def image_tree(tmp_path_factory):
 
 
 def test_imagefolder_batches_match_jax(image_tree):
-    """The classes, the centre crop and two epochs of shuffled, flipped batches, whole and as
-    the two halves of a two-process run, equal to the JAX package's."""
+    """The classes, the centre crop and two epochs of shuffled, flipped batches equal to the JAX
+    package's; the two halves of a two-process run equal the halves of the JAX package's whole
+    batches, flips included (each process draws the whole batch's flips and keeps its own, so
+    N processes step on one process's batch; the JAX copy's processes draw flips for their own
+    slice alone)."""
     ours = imagefolder.ImageFolderDataset(image_tree, 16, seed=3)
     ref = jimagefolder.ImageFolderDataset(image_tree, 16, seed=3)
     assert ours.classes == ref.classes and ours.samples == ref.samples
@@ -569,14 +572,14 @@ def test_imagefolder_batches_match_jax(image_tree):
             np.testing.assert_array_equal(p, pr)
             np.testing.assert_array_equal(l, lr)
             assert p.dtype == np.uint8 and l.dtype == lr.dtype
+    whole = list(jimagefolder.ImageFolderDataset(image_tree, 16, seed=1).epoch_batches(4))
     for proc in range(2):
         got = list(imagefolder.ImageFolderDataset(image_tree, 16, seed=1).epoch_batches(
             4, process_slice=(proc, 2)))
-        want = list(jimagefolder.ImageFolderDataset(image_tree, 16, seed=1).epoch_batches(
-            4, process_slice=(proc, 2)))
-        for (p, l), (pr, lr) in zip(got, want):
-            np.testing.assert_array_equal(p, pr)
-            np.testing.assert_array_equal(l, lr)
+        assert len(got) == len(whole) == 2
+        for (p, l), (pr, lr) in zip(got, whole):
+            np.testing.assert_array_equal(p, pr[2 * proc:2 * proc + 2])
+            np.testing.assert_array_equal(l, lr[2 * proc:2 * proc + 2])
     with Image.open(ours.samples[0][0]) as img:
         np.testing.assert_array_equal(imagefolder.center_crop_arr(img, 12),
                                       jimagefolder.center_crop_arr(img, 12))

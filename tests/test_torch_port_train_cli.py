@@ -2,7 +2,8 @@
 keyword of their ``main``): ``dit_train`` writes its log and checkpoints and ``--resume``
 continues the step count; ``dit_sample`` reads that checkpoint, or a ``.npz`` holding ``dit``
 and ``vae_decoder`` trees written by the port's ``save_params``, and writes a grid PNG and an
-``arr_0`` ``.npz`` of uint8 images; multi-device runs raise, naming ROADMAP Queue 1 item 7."""
+``arr_0`` ``.npz`` of uint8 images; ``--distributed`` outside a process group raises, naming
+torchrun, and a process that sees several cards says how to use them all."""
 
 import os
 
@@ -118,12 +119,23 @@ def test_dit_sample_from_an_npz_with_a_decoder(trained, tmp_path):
             assert f["arr_0"].shape == (5, SIZE, SIZE, 3) and f["arr_0"].dtype == np.uint8
 
 
-def test_multi_device_runs_raise_naming_item_7(data_path, tmp_path, monkeypatch):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        dit_train.main(_train_args(data_path, str(tmp_path), "--distributed"), device="cpu")
+def test_multi_device_runs_raise_naming_item_7(data_path, tmp_path, monkeypatch, capsys):
+    """``--distributed`` outside a process group raises, naming torchrun, before a model is
+    built. Outside a group, a process that sees several cards runs on one and prints how to use
+    them all (here on the CPU, with two cards pretended)."""
+    with monkeypatch.context() as m:
+        m.setattr(dit_train, "DiTTrainer", None)  # building a model would fail here
+        with pytest.raises(RuntimeError,
+                           match="torchrun --nproc_per_node N -m diffsim_tpu_torch.cli.dit_train "
+                                 "--distributed"):
+            dit_train.main(_train_args(data_path, str(tmp_path), "--distributed"), device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        dit_train.main(_train_args(data_path, str(tmp_path)))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        dit_sample.main(_sample_args(str(tmp_path / "x.png")))
+    trainer = dit_train.main(_train_args(data_path, str(tmp_path / "one")), device="cpu")
+    assert trainer.device == torch.device("cpu") and trainer.step == 2
+    assert ("torchrun --nproc_per_node 2 -m diffsim_tpu_torch.cli.dit_train --distributed"
+            in capsys.readouterr().out)
+    dit_sample.main(_sample_args(str(tmp_path / "x.png")), device="cpu")
+    assert os.path.exists(tmp_path / "x.png")
+    assert ("torchrun --nproc_per_node 2 -m diffsim_tpu_torch.cli.dit_sample"
+            in capsys.readouterr().out)
