@@ -28,7 +28,9 @@ Phases, each of which fails the run (non-zero exit, no result line) if anything 
    reduction;
 6. K4 ``streaming_self_attention`` at the 1024 px VAE mid attention (2, 1, 16384, 512) in
    float32 (the SDXL main path) and bf16, and at a ragged S = 8448, with SDPA as its library
-   time and, in float32, its previous design (v2) beside it;
+   time and its previous design (v2) beside it; in bf16 also at (4, 1, 16384, 512), at the
+   768 px (2, 1, 9216, 512) and over D 168-512 at S = 8192 (atol 2e-3, rtol 1e-2), and on sharp
+   logits (atol = rtol = 1e-2) beside a control, one 32-key slice left out, that must fail it;
 7. end-to-end correctness, card vs CPU from one seeded numpy weight tree and one
    ``noise_override``, in float32 with TF32 off: a tiny ``DiffSimSD15`` at 32 px (K1, K2), a
    tiny ``DiffSimXL`` at 256 px (all four kernels) and a tiny ``DiffSimDiT`` at 128 px whose tap
@@ -43,7 +45,10 @@ Phases, each of which fails the run (non-zero exit, no result line) if anything 
    launch counts of all four kernels, a profile of one triplet call, and the share of the
    call that its float32 VAE encode takes; then ``score_triplet_paths`` on the same two
    triplets written to disk, through the device moment cache (within 1e-2 of the fresh path,
-   and an all-hit rescore bit for bit);
+   and an all-hit rescore bit for bit); then SDXL with ``--xl_vae_bf16`` built through
+   ``cli.args`` and ``metrics.registry`` (2 bf16 K4 a triplet call), its VAE moments and scores
+   held to the same call with the plain K4 (the moments' limit failed by a control, V in place
+   of the mid attention), its cached path, and its VAE encode's share of the call;
 10. the bf16_probs mode (``--bf16_softmax``) of K1 at its SD-1.5 and SDXL shapes and in float32,
    and of K4 at the 1024 px VAE shape in both dtypes and at the 768 px SD-1.5 VAE shape,
    against their plain versions (atol = rtol = 1e-2), then on inputs with exact logits and
@@ -288,7 +293,10 @@ K3_MAIN = (XL_T * 2 * 20, 1024, 64)  # (P * B * heads, tokens, head dim) at the 
 K3_DIT = (DIT_T * 2 * 16, 1024, 72)  # the same at the DiT-XL/2 tap, 512 px
 K4_MAIN = (2, 1, 16384, 512)  # one VAE chunk of two 1024 px images
 K4_768 = (2, 1, 9216, 512)  # the VAE mid attention of one SD-1.5 pair at 768 px
-# K4's key tiles, whose row sums its bf16_probs mode rounds (csrc/streaming_attention.cu)
+# the keys whose row sums K4's bf16_probs mode rounds (csrc/streaming_attention.cu): a float32
+# tile, and in bf16 one consumer warpgroup's 32 keys of a 64-key tile. Its truncating
+# tensor-core steps are check_rounding's default: in bf16 one accumulator takes every tile's
+# P V (S / 16 k16 steps), in float32 each 8-key chunk's products are a fresh sum
 K4_SUM_TILE = {torch.float32: 64, torch.bfloat16: 32}
 # K1 float32's truncating tensor-core steps in one P V sum in its bf16_probs mode: a fresh sum
 # per 64-key tile, 8 k8 steps of 2 TF32 products (csrc/fused_attention.cu)
@@ -307,6 +315,11 @@ XL_FORWARD = {"fused_self_attention": 45, "fused_geglu_ff": 4}
 XL_TRIPLET_CALL = {**XL_FORWARD, "cross_self_partials": 4, "streaming_self_attention": 3}
 XL_PAIRS_CALL = {**XL_FORWARD, "cross_self_partials": 2, "streaming_self_attention": 2}
 XL_ONE_PAIR_CALL = {**XL_FORWARD, "cross_self_partials": 2, "streaming_self_attention": 1}
+# with --xl_vae_bf16 the VAE encodes 4 bf16 images a slice at 1024 px (models/vae.default_chunk:
+# 8 MiB of input pixels), so a triplet call's six images take two K4 launches, at
+# (4, 1, 16384, 512) and (2, 1, 16384, 512)
+XL_BF16_TRIPLET_CALL = {**XL_TRIPLET_CALL, "streaming_self_attention": 2}
+K4_XL_BF16 = ((4, 1, 16384, 512), K4_MAIN)
 TINY_SD15_CALL = {**NONE, "fused_self_attention": 3, "fused_geglu_ff": 3}  # K1: 2 UNet, 1 VAE
 TINY_XL_CALL = {"fused_self_attention": 7, "fused_geglu_ff": 7, "cross_self_partials": 2,
                 "streaming_self_attention": 1}
@@ -523,11 +536,20 @@ def planted_qkv(shape, dtype, gen):
     return q.to(dtype), k.to(dtype), v.to(dtype)
 
 
+def mode_probs(centred: torch.Tensor, scale_bf16: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """The bf16_probs mode's probabilities of float32 centred logits s - m as the CUDA kernels
+    take them (attention_common.cuh prob_bf16x2): s - m rounded to bf16, its product with the
+    bf16 scale rounded to bf16, exp2 of that times log2 e in float32 (``p32``), and ``p32``
+    rounded to bf16 (``p``)."""
+    p32 = torch.exp2(round_bf16(round_bf16(centred) * scale_bf16) * LOG2E)
+    return p32, round_bf16(p32)
+
+
 def rounded_probs_reference(q, k, v, sum_tile: int | None = None, tc_steps: int = 0
                             ) -> tuple[torch.Tensor, torch.Tensor]:
     """The bf16_probs mode as the CUDA kernels round it, on :func:`planted_qkv` inputs, in
-    float64: p = bf16(exp2(bf16(bf16(s - m) * bf16(scale)) * log2 e)) with exp2 in float32 as
-    the kernels take it, and out = (P V) / l. K1 (``sum_tile`` None) rounds the row sum l of the
+    float64: p from :func:`mode_probs` (bf16(exp2(bf16(bf16(s - m) * bf16(scale)) * log2 e))
+    with exp2 in float32 as the kernels take it), and out = (P V) / l. K1 (``sum_tile`` None) rounds the row sum l of the
     rounded p to bf16 once; K4 rounds the sum of each of its ``sum_tile``-key tiles to bf16 and
     adds those in float32, leaving l unrounded. Also returns, per element, what roundings the
     kernel may take the other way contribute at most: a probability within 8 float32 ulp of a
@@ -551,11 +573,8 @@ def rounded_probs_reference(q, k, v, sum_tile: int | None = None, tc_steps: int 
             m = logits.amax(-1, keepdim=True)
             if not torch.equal(m, logits[:, :1]):
                 raise SystemExit("planted_qkv: a row's largest logit is not at key 0")
-            x = round_bf16(round_bf16(logits - m) * scale_bf16)
+            p32, p = mode_probs(logits - m, scale_bf16)
             del logits
-            p32 = torch.exp2(x * LOG2E)
-            del x
-            p = round_bf16(p32)
             amb = flips(p32, 2.0**-21)
             del p32
             pd = p.double()
@@ -693,6 +712,7 @@ YARDSTICKS = {
     "fused_attention_v2_fwd": ("attention_v2", [_P] * 4 + [_I] * 3 + [_F, _P]),
     "fused_attention_f32_v1_fwd": ("attention_v2", [_P] * 4 + [_I] * 3 + [_F, _I, _P]),
     "streaming_attention_v2_fwd": ("attention_v2", [_P] * 4 + [_I] * 3 + [_F, _P]),
+    "streaming_attention_bf16_v2_fwd": ("attention_v2", [_P] * 4 + [_I] * 3 + [_F, _I, _P]),
     "geglu_ff_v2_fwd": ("geglu_ff_v2", [_P] * 7 + [_I, _I, _P]),
     "fused_readout_v2_fwd": ("fused_readout_v2", [_P] * 6 + [_I] * 3 + [_F, _I, _P]),
 }
@@ -707,12 +727,13 @@ def _yardstick(name: str, *args) -> None:
     build.check(lib, fn(*args, torch.cuda.current_stream().cuda_stream), name)
 
 
-def v2_kernel(name: str, q, k, v):
-    """The previous design of K1 (bf16) or K4 (float32) on the same inputs."""
+def v2_kernel(name: str, q, k, v, *mode):
+    """The previous design of K1 (bf16) or K4 (float32, or bf16 with its ``bf16_probs`` flag
+    in ``mode``) on the same inputs."""
     b, h, s, d = q.shape
     out = torch.empty_like(v)
     _yardstick(name, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h, s, d,
-               float(d**-0.5))
+               float(d**-0.5), *mode)
     return out
 
 
@@ -933,29 +954,81 @@ def k3_phase(gen) -> dict:
     return {"rows": rows, "max_abs_err": main_err}
 
 
+K4_BF16_SWEEP = (168, 256, 384, 504, 512)  # head dims of the bf16 sweep at S = 8192
+# bf16 on N(0, 1) inputs: at S >= 8192 the outputs are means over thousands of keys, |out| of
+# about 1e-2, and the kernel and the plain version differ by a bf16 ulp of the largest ones
+# (4.883e-4 on an H100); the limit is about four of those
+K4_BF16_TOL = (2e-3, 1e-2)
+# bf16 on sharp logits (q scaled by K4_SHARP_Q: logits N(0, 16), each row led by a few keys), so
+# that the outputs are O(1) and a lost key slice moves them by O(1): within atol = rtol = 1e-2.
+# Its control, the plain version with keys K4_DROP (the second consumer's slice of the first
+# tile) left out, must exceed that limit.
+K4_SHARP_Q = 4.0
+K4_SHARP_TOL = (1e-2, 1e-2)
+K4_DROP = (32, 64)
+
+
+def k4_sharp_check(shape, gen) -> dict:
+    """K4's bf16 exact mode on sharp logits against the plain version, and the control that a
+    kernel dropping one 32-key slice of P V would give, which must fail the same limit."""
+    q = (torch.randn(shape, generator=gen, device="cuda") * K4_SHARP_Q).to(torch.bfloat16)
+    k, v = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16) for _ in range(2))
+    out = streaming_self_attention(q, k, v)
+    torch.cuda.synchronize()
+    ref = streaming_self_attention_plain(q, k, v)
+    err = check_close(f"K4 {shape} bf16, sharp logits", out, ref, *K4_SHARP_TOL)
+    keep = torch.cat([torch.arange(K4_DROP[0]), torch.arange(K4_DROP[1], shape[2])]).cuda()
+    kd, vd = k[:, :, keep], v[:, :, keep]
+    ctl = torch.cat([fused_self_attention_plain(q[:, :, i:i + 2048], kd, vd).float()
+                     for i in range(0, shape[2], 2048)], dim=2)
+    del kd, vd
+    ref = ref.float()
+    lim = K4_SHARP_TOL[0] + K4_SHARP_TOL[1] * ref.abs()
+    share, ctl_share = (((x.float() - ref).abs() / lim).max().item() for x in (out, ctl))
+    ctl_err = (ctl - ref).abs().max().item()
+    print(f"  largest |kernel - plain| / limit {share:.3f}; control, keys [{K4_DROP[0]}, "
+          f"{K4_DROP[1]}) left out: max|control - plain| = {ctl_err:.3e}, / limit {ctl_share:.3f} "
+          f"({'fails the limit: ok' if ctl_share > 1 else 'within the limit: FAIL'}); mean "
+          f"|plain| {ref.abs().mean().item():.3e}", flush=True)
+    if not ctl_share > 1:
+        raise SystemExit(f"K4 {shape} bf16, sharp logits: the control passes the limit")
+    return {"shape": list(shape), "max_abs_err": err, "limit_share": share,
+            "control_max_abs_err": ctl_err, "control_limit_share": ctl_share}
+
+
 def k4_phase(gen) -> dict:
-    phase("K4 streaming_self_attention vs plain (float32 atol 1e-5, bf16 atol=rtol=1e-2)")
+    phase(f"K4 streaming_self_attention vs plain (float32 atol 1e-5; bf16 atol {K4_BF16_TOL[0]}, "
+          f"rtol {K4_BF16_TOL[1]}, and atol=rtol=1e-2 on sharp logits with a control that must "
+          "fail it); bf16 timed beside its first design, which is held to the plain version too")
     shapes = [(K4_MAIN, torch.float32), (K4_MAIN, torch.bfloat16),
-              ((1, 1, 8448, 512), torch.float32), ((1, 1, 8448, 512), torch.bfloat16)]
-    rows, main_err = [], 0.0
+              (K4_XL_BF16[0], torch.bfloat16), ((1, 1, 8448, 512), torch.float32),
+              ((1, 1, 8448, 512), torch.bfloat16), (K4_768, torch.bfloat16)]
+    rows, main_err, bf16_err = [], 0.0, 0.0
     for shape, dtype in shapes:
         q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(3))
         out = streaming_self_attention(q, k, v)
         torch.cuda.synchronize()
         ref = streaming_self_attention_plain(q, k, v)
-        tol = (1e-5, 0.0) if dtype == torch.float32 else (1e-2, 1e-2)
+        tol = (1e-5, 0.0) if dtype == torch.float32 else K4_BF16_TOL
         err = check_close(f"K4 {shape} {dtype}", out, ref, *tol)
         del out
         row = {"shape": list(shape), "dtype": str(dtype).replace("torch.", ""),
                "max_abs_err": err}
-        if shape == K4_MAIN:
-            b, h, s, d = shape
-            v2 = None
-            if dtype == torch.float32:
-                main_err = err
-                row["launches_sdxl_call"] = 3
-                v2 = lambda: v2_kernel("streaming_attention_v2_fwd", q, k, v)  # noqa: E731
-                check_close(f"K4 v2 {shape} {dtype}", v2(), ref, *tol, quiet=True)
+        b, h, s, d = shape
+        v2 = None
+        if dtype == torch.float32 and shape == K4_MAIN:
+            main_err = err
+            row["launches_sdxl_call"] = 3
+            v2 = lambda: v2_kernel("streaming_attention_v2_fwd", q, k, v)  # noqa: E731
+        elif dtype == torch.bfloat16:
+            bf16_err = max(bf16_err, err)
+            if shape in K4_XL_BF16:
+                row["launches_sdxl_bf16_call"] = 1  # SDXL with --xl_vae_bf16
+            if shape == K4_768:
+                row["launches_sd15_768_pair"] = 1
+            v2 = lambda: v2_kernel("streaming_attention_bf16_v2_fwd", q, k, v, 0)  # noqa: E731
+        if v2 is not None:
+            check_close(f"K4 v2 {shape} {dtype}", v2(), ref, *tol, quiet=True)
             _timed(row, lambda: streaming_self_attention(q, k, v),
                    lambda: streaming_self_attention_plain(q, k, v),
                    4 * b * h * s * s * d, 4 * b * h * s * d * q.element_size(),
@@ -966,7 +1039,19 @@ def k4_phase(gen) -> dict:
         rows.append(row)
         del q, k, v
         torch.cuda.empty_cache()
-    return {"rows": rows, "max_abs_err": main_err}
+    for d in K4_BF16_SWEEP:  # widths past 160 that the bf16 route admits, zero-filled to 512
+        shape = (1, 1, 8192, d)
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+                   for _ in range(3))
+        out = streaming_self_attention(q, k, v)
+        torch.cuda.synchronize()
+        bf16_err = max(bf16_err, check_close(f"K4 {shape} bf16 (sweep)", out,
+                                             streaming_self_attention_plain(q, k, v),
+                                             *K4_BF16_TOL))
+        del q, k, v, out
+    sharp = [k4_sharp_check(shape, gen) for shape in (K4_MAIN, K4_768)]
+    torch.cuda.empty_cache()
+    return {"rows": rows, "max_abs_err": main_err, "bf16_max_abs_err": bf16_err, "sharp": sharp}
 
 
 def _random_tree(factory, kind: str, rng, scale: float = 0.1) -> dict:
@@ -1145,9 +1230,9 @@ def tiny_surface_phase() -> None:
                      TINY_SD15_K3_CALL)
 
 
-def _checked_call(name: str, fn, expected: dict):
+def _checked_call(name: str, fn, expected: dict, none_in_mode: bool = False):
     """Run one scoring call with the launch counts at zero; fail unless it launched exactly the
-    ``expected`` kernels."""
+    ``expected`` kernels and, with ``none_in_mode``, none in the bf16_probs mode."""
     kernels.reset_launch_counts()
     out = fn()
     torch.cuda.synchronize()
@@ -1155,6 +1240,9 @@ def _checked_call(name: str, fn, expected: dict):
     print(f"  {name}: launches {counts}", flush=True)
     if counts != {**NONE, **expected}:
         raise SystemExit(f"{name}: expected launches {expected}")
+    fast = kernels.bf16_probs_launch_counts()
+    if none_in_mode and any(fast.values()):
+        raise SystemExit(f"{name}: launches in the bf16_probs mode {fast}")
     return out, counts
 
 
@@ -1327,6 +1415,8 @@ def sdxl_phase(card_line: str) -> dict:
     print(f"  layers of one SDXL triplet call: VAE encode {vae_ms:.1f} ms of {call_ms:.1f} ms "
           f"({100 * vae_ms / call_ms:.1f} %), text cache, UNet to the tap and readout the rest",
           flush=True)
+    out["vae_split"] = {"vae_ms": vae_ms, "call_ms": call_ms}
+    out["pix"] = pix
     phase("SDXL through the device moment cache: score_triplet_paths on the same two triplets")
     # six images in one miss slab: three 2-image VAE slices
     out["cached_gap"] = cached_path("SDXL", scorer, pix, *out["scores"], XL_ARGS,
@@ -1337,6 +1427,89 @@ def sdxl_phase(card_line: str) -> dict:
           "Resampler, random weights on the card; tap up (0, 1, 1) attn2, t = 900")
     out["ip"] = ip_drive("SDXL", scorer, pix[0], pix[1], XL_ARGS, XL_IP_PAIRS_CALL, card_line)
     return out
+
+
+# The SDXL --xl_vae_bf16 call with K4 against the same call with the VAE's mid attention by
+# streaming_self_attention_plain: both in bf16, the kernel's online softmax against the plain
+# version's whole-row one. With random weights the scores hardly depend on the images: the
+# control, the same call with the mid attention's output replaced by V, moves them by less than
+# the kernel does (7.689e-06 against 8.583e-06 on an H100), so the scores' limit is a sanity
+# bound only. The VAE's moments (the encode's output), as |d| / |plain| over all of them, carry
+# the comparison: their limit lies between the sound call's reading (3.676e-03) and the
+# control's (9.060e-02), and the control must exceed it.
+XL_BF16_VAE_TOL = 1e-3  # scores, max |d|
+XL_BF16_MOMENTS_TOL = 1e-2  # moments, relative
+
+
+def sdxl_bf16_vae_phase(card_line: str, pix, f32_split: dict) -> dict:
+    phase("main path: SDXL at full width, 1024 px, with the bf16 VAE: --metric diffsim_xl "
+          "--xl_vae_bf16 through cli.args and metrics.registry (K4's bf16 path, 2 a triplet call)")
+    t0 = time.perf_counter()
+    args = arg_parse(["--metric", "diffsim_xl", "--xl_vae_bf16", "--image_size", "1024"])
+    scorer = registry.build_metric(args).scorer  # cuda, bf16, random weights from a seed
+    torch.cuda.synchronize()
+    if scorer.enc_dtype != torch.bfloat16:
+        raise SystemExit(f"--xl_vae_bf16 gave the scorer a {scorer.enc_dtype} VAE")
+    print(f"  init {time.perf_counter() - t0:.2f} s", flush=True)
+
+    (s_ab, s_ac), counts = _checked_call(
+        f"score_triplet_batch ({XL_T} triplets)",
+        lambda: scorer.score_triplet_batch(*pix, **XL_ARGS), XL_BF16_TRIPLET_CALL, True)
+    _check_scores("score_triplet_batch, bf16 VAE", s_ab, s_ac)
+    print(f"  s_ab {s_ab}\n  s_ac {s_ac}", flush=True)
+    # the same call with the VAE's mid attention taken by the plain version, and by the control
+    # (this script only)
+    from diffsim_tpu_torch.ops import attention as ops_attention
+
+    x = to_device_pixels(pix, scorer.device, scorer.enc_dtype)
+
+    def moments() -> torch.Tensor:
+        with torch.inference_mode():
+            return encode_chunked(scorer.vae, x).float()
+
+    z = moments()
+    kernel = ops_attention.streaming_self_attention
+    gaps = {}
+    for what, attn in (
+            ("streaming_self_attention_plain",
+             lambda q, k, v, bf16_probs=False: streaming_self_attention_plain(q, k, v, bf16_probs)),
+            ("the control, V", lambda q, k, v, bf16_probs=False: v)):
+        ops_attention.streaming_self_attention = attn
+        try:
+            (p_ab, p_ac), _ = _checked_call(
+                f"score_triplet_batch, K4 by {what}",
+                lambda: scorer.score_triplet_batch(*pix, **XL_ARGS),
+                {**XL_BF16_TRIPLET_CALL, "streaming_self_attention": 0})
+            zp = moments()
+        finally:
+            ops_attention.streaming_self_attention = kernel
+        gaps[what] = (float(max(np.abs(s_ab - p_ab).max(), np.abs(s_ac - p_ac).max())),
+                      ((z - zp).norm() / zp.norm()).item())
+        print(f"  K4 by {what}: scores {p_ab} {p_ac}, max |d| = {gaps[what][0]:.3e} (limit "
+              f"{XL_BF16_VAE_TOL}); moments |d| / |plain| = {gaps[what][1]:.3e} (limit "
+              f"{XL_BF16_MOMENTS_TOL})", flush=True)
+    (gap, z_gap), (ctl_gap, ctl_z_gap) = gaps.values()
+    del z, zp
+    if not (gap <= XL_BF16_VAE_TOL and z_gap <= XL_BF16_MOMENTS_TOL):
+        raise SystemExit("SDXL --xl_vae_bf16: the K4 call disagrees with the plain K4's")
+    if not ctl_z_gap > XL_BF16_MOMENTS_TOL:
+        raise SystemExit("SDXL --xl_vae_bf16: the control does not exceed the moments' limit")
+    hit_calls = {**XL_FORWARD, "cross_self_partials": 4}
+    cached_gap = cached_path("SDXL bf16 VAE", scorer, pix, s_ab, s_ac, XL_ARGS,
+                             XL_BF16_TRIPLET_CALL, hit_calls, True)
+    with torch.inference_mode():
+        vae_ms = time_ms(lambda: encode_chunked(scorer.vae, x), reps=3, warmup=1)
+    call_ms = time_ms(lambda: scorer.score_triplet_batch(*pix, **XL_ARGS), reps=3, warmup=1)
+    print(f"  layers of one SDXL triplet call on {card_line}: bf16 VAE encode {vae_ms:.1f} ms of "
+          f"{call_ms:.1f} ms ({100 * vae_ms / call_ms:.1f} %); the float32 VAE's "
+          f"{f32_split['vae_ms']:.1f} ms of {f32_split['call_ms']:.1f} ms "
+          f"({100 * f32_split['vae_ms'] / f32_split['call_ms']:.1f} %) (CUDA events, medians of 3)",
+          flush=True)
+    del x, scorer
+    torch.cuda.empty_cache()
+    return {"counts": counts, "plain_k4_gap": gap, "plain_k4_moments_gap": z_gap,
+            "control_gap": ctl_gap, "control_moments_gap": ctl_z_gap, "cached_gap": cached_gap,
+            "vae_ms": vae_ms, "call_ms": call_ms}
 
 
 def tiny_dit_phase() -> None:
@@ -1434,6 +1607,9 @@ def k1_fast_phase(gen) -> dict:
                       exact=(q, k, v), dtype=dtype, exps=b * h * s * s,
                       tf32_passes=2.5 if f32 else 0.0,
                       v2=v2_f32_attention(q, k, v, (1e-2, 1e-2), True) if f32 else None)
+            row["ratio_to_exact"] = row["ms"] / row["exact_ms"]
+            print(f"    {(b, h, s, d)} {dtype}: the mode {row['ratio_to_exact']:.3f}x the exact "
+                  "mode's device time", flush=True)
         rows.append(row)
         del q, k, v
         torch.cuda.empty_cache()
@@ -2447,7 +2623,8 @@ def sd15_fast_768_phase() -> dict:
     return {"counts": counts, "fast_counts": fast}
 
 
-def cached_path(name, scorer, pix, s_ab, s_ac, args, miss_calls, hit_calls) -> float:
+def cached_path(name, scorer, pix, s_ab, s_ac, args, miss_calls, hit_calls,
+                none_in_mode: bool = False) -> float:
     """``score_triplet_paths`` on a main-path phase's triplets written to disk as PNGs, with
     exact launch counts: within 1e-2 of ``score_triplet_batch`` (the miss slab and the fresh
     batch may encode different numbers of images at once, and cuDNN picks its algorithms per
@@ -2463,10 +2640,10 @@ def cached_path(name, scorer, pix, s_ab, s_ac, args, miss_calls, hit_calls) -> f
                 Image.fromarray(img).save(path)
         (c_ab, c_ac), _ = _checked_call(f"score_triplet_paths ({t} triplets, all misses)",
                                         lambda: scorer.score_triplet_paths(*roles, **args),
-                                        miss_calls)
+                                        miss_calls, none_in_mode)
         (h_ab, h_ac), _ = _checked_call(f"score_triplet_paths ({t} triplets, all hits)",
                                         lambda: scorer.score_triplet_paths(*roles, **args),
-                                        hit_calls)
+                                        hit_calls, none_in_mode)
     gap = max(np.abs(c_ab - s_ab).max(), np.abs(c_ac - s_ac).max())
     print(f"  cached {c_ab} {c_ac} vs fresh: max |d| = {gap:.3e} (limit 1e-2); cache "
           f"{scorer._moment_cache.stats}", flush=True)
@@ -3780,6 +3957,11 @@ K2_DESIGN = ("two persistent wgmma+TMA GEMMs, 2 ping-ponged consumer warpgroups 
 K3_DESIGN = ("K1's wgmma+TMA pipeline, cross then self pass per 128-row q block, "
              "2 ping-ponged consumer warpgroups (bf16)")
 K4_DESIGN = "3xTF32 mma.sync (float32)"
+K4_BF16_DESIGN = ("wgmma+TMA, 64-row q blocks, 2 consumer warpgroups splitting the keys of Q K^T "
+                  "and the 512 output columns, K/V chunks through a 16 KB-slot mbarrier ring, "
+                  "P V from shared memory under the next softmax (bf16)")
+XL_BF16_PER = (f"one SDXL score_triplet_batch call with --xl_vae_bf16 ({XL_T} triplets, 1024 px), "
+               "the sum over its launches")
 K1_F32_DESIGN = ("3xTF32 mma.sync, 4 warps of 16 q rows, scores and probabilities in registers, "
                  "K/V double-buffered by cp.async (float32)")
 XL_PER = f"one SDXL score_triplet_batch call ({XL_T} triplets, 1024 px), the sum over its launches"
@@ -3894,6 +4076,7 @@ def main() -> int:
         xl_out = sdxl_phase(card_line)
         xl = xl_out["counts"]
         torch.cuda.empty_cache()
+        xl_bf16 = sdxl_bf16_vae_phase(card_line, xl_out.pop("pix"), xl_out["vae_split"])
         dit_out = dit_phase(card_line)
         dit_counts = dit_out["counts"]
         torch.cuda.empty_cache()
@@ -3936,7 +4119,7 @@ def main() -> int:
     fast_k1["launches_cli"] = fast_cli  # the whole --bf16_softmax CLI run
     fast_k4 = kernel_entry(
         "streaming_self_attention (bf16_probs)", "diffsim_tpu_torch/csrc/streaming_attention.cu",
-        "diffsim_tpu/ops/pallas/attention_stream.py:62", "mma.sync (bf16), bf16_probs "
+        "diffsim_tpu/ops/pallas/attention_stream.py:62", K4_BF16_DESIGN + ", bf16_probs "
         "instantiation; float32: 3xTF32 Q K^T, 2 TF32 products for P V", k4_fast,
         (fast768["fast_counts"]["streaming_self_attention"], "launches_sd15_768_pair",
          "one SD-1.5 score_batch pair in fast mode at 768 px"))
@@ -3955,10 +4138,18 @@ def main() -> int:
         kernel_entry("streaming_self_attention", "diffsim_tpu_torch/csrc/streaming_attention.cu",
                      "diffsim_tpu/ops/pallas/attention_stream.py:94", K4_DESIGN, k4,
                      on_xl("streaming_self_attention")),
+        kernel_entry("streaming_self_attention (bf16)",
+                     "diffsim_tpu_torch/csrc/streaming_attention.cu",
+                     "diffsim_tpu/ops/pallas/attention_stream.py:94", K4_BF16_DESIGN,
+                     {"rows": k4["rows"], "max_abs_err": k4["bf16_max_abs_err"]},
+                     (xl_bf16["counts"]["streaming_self_attention"], "launches_sdxl_bf16_call",
+                      XL_BF16_PER)),
         fast_k1,
         fast_k4,
         *train_entries(k1_grad, train["runs"], sampled),
     ]}
+    next(e for e in line["kernels"]
+         if e["name"] == "streaming_self_attention (bf16)")["sharp_logits"] = k4["sharp"]
     for entry in line["kernels"][:2]:  # K1 and K2 on this slice's main path, the CLI run
         entry["launches_cli"] = cli["counts"][entry["name"]]
     # the IP-Adapter, mask, diffeats and tap_values paths: each call's launches
@@ -3986,6 +4177,7 @@ def main() -> int:
     k2_sd, k2_xl = line["kernels"][1], line["kernels"][1]["sdxl"]
     k3_xl = line["kernels"][2]
     k4_row = next(r for r in k4["rows"] if r.get("launches_sdxl_call"))
+    k4_bf16 = {tuple(r["shape"]): r for r in k4["rows"] if r["dtype"] == "bfloat16" and "ms" in r}
     epilogue = (f"{k3_xl['epilogue_ms']:.3f} on the device" if "epilogue_ms" in k3_xl
                 else "not measured apart")
     print(f"  kernel times on {card_line}, device times by {TIMING['method']}:\n"
@@ -3997,6 +4189,15 @@ def main() -> int:
           f"{k3_xl['v2_ms']:.3f}; the wrapper's torch epilogue {epilogue}, the whole calls "
           f"{k3_xl['call_ms']:.3f} by CUDA events); K4 float32 per launch {k4_row['ms']:.3f} "
           f"ms (v2 {k4_row['v2_ms']:.3f}, SDPA {k4_row['library_ms']:.3f})", flush=True)
+    for shape, row in k4_bf16.items():
+        print(f"  K4 bf16 {shape} per launch {row['ms']:.3f} ms (v2 {row['v2_ms']:.3f}, SDPA "
+              f"{row['library_ms']:.3f}, bound {row['bound_ms']:.3f}, "
+              f"{100 * row['bound_ms'] / row['ms']:.1f} %)", flush=True)
+    print(f"  SDXL --xl_vae_bf16 triplet call {xl_bf16['call_ms']:.1f} ms, VAE encode "
+          f"{xl_bf16['vae_ms']:.1f} ms; against the plain K4's call, scores within "
+          f"{xl_bf16['plain_k4_gap']:.3e} and moments {xl_bf16['plain_k4_moments_gap']:.3e} "
+          f"(control {xl_bf16['control_gap']:.3e} and {xl_bf16['control_moments_gap']:.3e})",
+          flush=True)
     print(f"  bf16_probs mode: K1 per SD-1.5 forward {fast_k1['ms']:.3f} ms (exact "
           f"{fast_k1['exact_ms']:.3f}); K4 at {K4_768} bf16 {fast_k4['ms']:.3f} ms (exact "
           f"{fast_k4['exact_ms']:.3f}). CLI: hit rate {cli['hit_rate']:.4f}, pairs/s "
@@ -4047,6 +4248,7 @@ def main() -> int:
                      "cli": {k: v for k, v in ranks_cli.items() if k != "launches"},
                      "serve": {k: v for k, v in ranks_served.items() if k != "launches"},
                      "dit_train": ranks_train, "dit_sample": ranks_sampled}
+    line["sdxl_bf16_vae"] = {k: v for k, v in xl_bf16.items() if k != "counts"}
     line["dit"] = {"repeat_ms": dit_out["repeat_ms"], "peak_gib": dit_out["peak_gib"],
                    "cached_vs_fresh": dit_out["cached_gap"], "cli": dit_cli,
                    "converter": converted}

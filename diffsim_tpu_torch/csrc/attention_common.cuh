@@ -21,6 +21,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper_common.cuh"
+
 using bf16 = __nv_bfloat16;
 
 namespace attn {
@@ -141,11 +143,32 @@ __host__ __device__ inline float round_bf16(float x) {
 #endif
 }
 
-// The bf16_probs mode's probability of logit s under the f32 row max m, rounded where the TPU
-// kernels round (ops/pallas/attention.py:51-55, attention_stream.py:62-69): the centred logit
-// s - m to bf16, its product with the bf16 scale to bf16, the exponential to bf16.
-__device__ __forceinline__ float prob_bf16(float s, float m, float scale_bf16) {
-  return round_bf16(exp2f(round_bf16(round_bf16(s - m) * scale_bf16) * LOG2E));
+// The two halves of a bf16x2 pair as float32 (exact): the low half, then the high half.
+__device__ __forceinline__ float bf16_lo(uint32_t u) { return __uint_as_float(u << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t u) { return __uint_as_float(u & 0xFFFF0000u); }
+
+// The bf16_probs mode's probabilities of two logits s0, s1 of one row under the row's f32 max m,
+// packed as a bf16x2 pair (s0's in the low half). The TPU kernels (ops/pallas/attention.py:51-55,
+// attention_stream.py:62-69) round the centred logit to bf16, multiply it by the scale (a weakly
+// typed constant, so a bf16 value) in bf16 and take exp in bf16; this is the same sequence on the
+// card's own conversions, two values at a time:
+//   * s - m in float32, both rounded to bf16 by one cvt.rn.bf16x2.f32;
+//   * their products with the bf16 scale by one packed bf16 multiply (__hmul2, to nearest): the
+//     exact product of two bf16 values fits in float32, so its one rounding gives what rounding
+//     the float32 product to bf16 gives, bit for bit;
+//   * exp2 of each product times log2(e) in float32 on the special-function unit (ex2.approx,
+//     within a few float32 ulps of an exact exp2: chip_smoke.py's rounded_probs_reference allows
+//     for that near a bf16 rounding midpoint);
+//   * one cvt.rn.bf16x2.f32 that rounds both probabilities and packs them for P V. The caller
+//     takes the row sum from the packed values (bf16_lo, bf16_hi).
+// Per pair: two subtractions, three conversions and bf16 multiplies, four shifts or masks, two
+// multiplies and two exponentials, where the earlier scalar form rounded three times with four
+// or five integer operations each and took a full-range exp2f.
+__device__ __forceinline__ uint32_t prob_bf16x2(float s0, float s1, float m,
+                                                __nv_bfloat162 scale2) {
+  const __nv_bfloat162 x = __hmul2(__floats2bfloat162_rn(s0 - m, s1 - m), scale2);
+  const uint32_t xb = *reinterpret_cast<const uint32_t*>(&x);
+  return pack_bf16(hopper::ex2(bf16_lo(xb) * LOG2E), hopper::ex2(bf16_hi(xb) * LOG2E));
 }
 
 // ---------------------------------------------------------------------------
@@ -365,7 +388,7 @@ __device__ inline void load_tile_f32(float* dst, int ld, const float* __restrict
 // One online-softmax pass of the block's 64 q rows (already in Qs) over all s_len keys of one
 // head, into the accumulator Os with running max Ms and sum Ls (all in shared memory). The
 // caller applies 1 / Ls after a __syncthreads(). `bf16_probs` (K1's fast mode) rounds the
-// probabilities as prob_bf16 does; the row sum adds the rounded values, the rescaling stays f32.
+// probabilities as prob_bf16x2 does; the row sum adds the rounded values, the rescaling stays f32.
 __device__ inline void attend_f32(const LayoutF32& L, unsigned char* smem, int out,
                                   const float* __restrict__ k, const float* __restrict__ v,
                                   int s_len, int d, float scale, bool bf16_probs = false,
@@ -415,11 +438,21 @@ __device__ inline void attend_f32(const LayoutF32& L, unsigned char* smem, int o
       const float m_new = fmaxf(m_old, mt);
       const float corr = expf((m_old - m_new) * scale);  // 0 on the first tile
       float sum = 0.0f;
-      for (int c = 0; c < BKV / 2; ++c) {
-        const float p = bf16_probs ? prob_bf16(srow[c], m_new, scale_bf16)
-                                   : expf((srow[c] - m_new) * scale);
-        srow[c] = p;
-        sum += p;
+      const __nv_bfloat162 scale2 = __float2bfloat162_rn(scale_bf16);
+      for (int c = 0; c < BKV / 2; c += 2) {
+        float p0, p1;
+        if (bf16_probs) {
+          const uint32_t pp = prob_bf16x2(srow[c], srow[c + 1], m_new, scale2);
+          p0 = bf16_lo(pp);
+          p1 = bf16_hi(pp);
+        } else {
+          p0 = expf((srow[c] - m_new) * scale);
+          p1 = expf((srow[c + 1] - m_new) * scale);
+        }
+        srow[c] = p0;
+        srow[c + 1] = p1;
+        sum += p0;
+        sum += p1;
       }
       sum += __shfl_xor_sync(0xffffffffu, sum, 1);
       float* orow = Os + r * L.ld_o;

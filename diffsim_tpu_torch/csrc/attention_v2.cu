@@ -1,6 +1,6 @@
-// The previous (v2) designs of K1's bf16 and float32 paths and K4's float32 path, kept only as a
-// yardstick: chip_smoke.py times each redesigned kernel against its v2 in the same run, on the
-// same inputs. No path of the port calls them. Their designs, as PERF.md describes them:
+// The previous (v2) designs of K1's bf16 and float32 paths and K4's float32 and bf16 paths, kept
+// only as yardsticks: chip_smoke.py times each redesigned kernel against its v2 in the same run,
+// on the same inputs. No path of the port calls them. Their designs, as PERF.md describes them:
 //   * K1 v2 (fused_attention_v2_fwd): one block of 4 warps per 64-row q tile, mma.sync.m16n8k16
 //     with register-resident S, P and O, K/V tiles double-buffered with cp.async
 //     (attention_common.cuh's tile loop, which K3 still uses);
@@ -10,6 +10,13 @@
 //     still uses);
 //   * K4 v2 (streaming_attention_v2_fwd): CUDA-core FMAs, no TF32, a 64-row q tile with Q in
 //     shared memory, K in 64 x 64 chunks and V in 8-key chunks through a 4-buffer cp.async ring.
+//   * K4 bf16 v2, the first design of K4's bf16 path (streaming_attention_bf16_v2_fwd,
+//     both modes): a block of 8 warps per 32-row q tile over 32-key K/V tiles, one Q, K and V
+//     tile in shared memory (D padded to 512), single-buffered by cp.async; mma.sync.m16n8k16,
+//     each warp one 16 x 8 score tile over all of D, the scores through shared memory to a
+//     softmax of 8 threads a row, then P V with each warp owning D / 8 output columns of all
+//     32 rows; two __syncthreads a tile. Each block streams its head's whole K and V, so a
+//     (2, 1, 16384, 512) launch moves 34.4 GB from L2 to the SMs.
 //
 // C interface (loaded with ctypes): every entry point returns cudaGetLastError().
 
@@ -412,6 +419,223 @@ cudaError_t launch_f32_q64(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace k4v2
 
+namespace k4bf16v2 {
+
+constexpr int THREADS = 256;  // 8 warps
+using attn::align128;
+
+constexpr int BQB = 32, BKB = 32;  // q rows and keys per tile
+constexpr int DP = 512;            // head dim, padded with zero columns
+constexpr int LDS = BKB + 1;       // score tile, f32
+constexpr int LDPB = BKB + 8;      // probability tile, bf16 (16-byte row pad for ldmatrix)
+
+__host__ __device__ constexpr size_t bf16_smem_bytes() {
+  return align128(size_t(BQB + 2 * BKB) * (DP + 8) * 2) + align128(size_t(BQB) * LDS * 4) +
+         align128(size_t(BQB) * LDPB * 2) + 3 * align128(BQB * 4);
+}
+
+template <int LD>
+__device__ inline void load_rows_bf16(bf16* dst, const bf16* src, int rows, int d) {
+  const int cpr = d / 8;
+  for (int i = threadIdx.x; i < rows * cpr; i += THREADS) {
+    const int r = i / cpr, c = (i % cpr) * 8;
+    attn::cp_async16(dst + r * LD + c, src + size_t(r) * d + c);
+  }
+}
+
+template <bool BF16P>
+__global__ void __launch_bounds__(THREADS)
+stream_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+            bf16* __restrict__ o, int s_len, int d, float scale_log2, float scale_bf16) {
+  constexpr int LD = DP + 8;
+  constexpr int CW = DP / 8;   // output columns per warp
+  constexpr int NTW = CW / 8;  // n8 tiles per warp
+  constexpr int TPR = THREADS / BQB, KPT = BKB / TPR;
+  static_assert(CW % 16 == 0, "a warp's columns are whole k16 steps of ldmatrix.trans");
+
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* Ks = Qs + BQB * LD;
+  bf16* Vs = Ks + BKB * LD;
+  size_t off = align128(size_t(BQB + 2 * BKB) * LD * 2);
+  float* Ss = reinterpret_cast<float*>(smem + off);
+  off += align128(size_t(BQB) * LDS * 4);
+  bf16* Ps = reinterpret_cast<bf16*>(smem + off);
+  off += align128(size_t(BQB) * LDPB * 2);
+  float* Ms = reinterpret_cast<float*>(smem + off);
+  float* Ls = Ms + align128(BQB * 4) / 4;
+  float* Cs = Ls + align128(BQB * 4) / 4;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const size_t head = size_t(blockIdx.y) * s_len * d;
+  const int q0 = blockIdx.x * BQB;
+  const int n_tiles = s_len / BKB;
+  const bf16* kh = k + head;
+  const bf16* vh = v + head;
+
+  if (d < DP) {  // zero the padding columns of Q, K, V once; copies write only columns < d
+    const bf16 zero = __float2bfloat16(0.0f);
+    for (int i = tid; i < (BQB + 2 * BKB) * (DP - d); i += THREADS) {
+      const int r = i / (DP - d), c = d + i % (DP - d);
+      Qs[r * LD + c] = zero;
+    }
+  }
+  for (int i = tid; i < BQB; i += THREADS) {
+    Ms[i] = -INFINITY;
+    Ls[i] = 0.0f;
+  }
+  load_rows_bf16<LD>(Qs, q + head + size_t(q0) * d, BQB, d);
+  load_rows_bf16<LD>(Ks, kh, BKB, d);
+  attn::cp_async_commit();
+  load_rows_bf16<LD>(Vs, vh, BKB, d);
+  attn::cp_async_commit();
+
+  const int sm = warp / 4, sn = warp % 4;  // this warp's 16 x 8 score tile
+  const int rs = tid / TPR, kp = (tid % TPR) * KPT;
+  const int col0 = warp * CW;
+  float acc[2][NTW][4];
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int n = 0; n < NTW; ++n) acc[m][n][0] = acc[m][n][1] = acc[m][n][2] = acc[m][n][3] = 0.f;
+
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    attn::cp_async_wait_all_but_one();  // Q and this K tile have landed
+    __syncthreads();
+
+    // S[16 sm.., 8 sn..] = Q K^T over all of DP, two k16 steps per ldmatrix of K
+    float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll 4
+    for (int kc = 0; kc < DP / 16; kc += 2) {
+      unsigned a0[4], a1[4], b[4];
+      attn::ldmatrix_x4(a0, Qs + (16 * sm + lane % 16) * LD + kc * 16 + (lane / 16) * 8);
+      attn::ldmatrix_x4(a1, Qs + (16 * sm + lane % 16) * LD + (kc + 1) * 16 + (lane / 16) * 8);
+      attn::ldmatrix_x4(b, Ks + (8 * sn + lane % 8) * LD + kc * 16 + (lane / 8) * 8);
+      attn::mma_bf16(s, a0, b[0], b[1]);
+      attn::mma_bf16(s, a1, b[2], b[3]);
+    }
+    Ss[(16 * sm + g) * LDS + 8 * sn + 2 * t4] = s[0];
+    Ss[(16 * sm + g) * LDS + 8 * sn + 2 * t4 + 1] = s[1];
+    Ss[(16 * sm + g + 8) * LDS + 8 * sn + 2 * t4] = s[2];
+    Ss[(16 * sm + g + 8) * LDS + 8 * sn + 2 * t4 + 1] = s[3];
+    __syncthreads();  // K is free, the scores are complete
+
+    if (tile + 1 < n_tiles) load_rows_bf16<LD>(Ks, kh + size_t(tile + 1) * BKB * d, BKB, d);
+    attn::cp_async_commit();
+
+    {
+      float x[KPT];
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < KPT; ++j) {
+        x[j] = Ss[rs * LDS + kp + j];
+        mx = fmaxf(mx, x[j]);
+      }
+#pragma unroll
+      for (int off = 1; off < TPR; off *= 2) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_old = Ms[rs];
+      const float m_new = fmaxf(m_old, mx);
+      const float corr = exp2f((m_old - m_new) * scale_log2);
+      float sum = 0.0f;
+      const __nv_bfloat162 scale2 = __float2bfloat162_rn(scale_bf16);
+#pragma unroll
+      for (int j = 0; j < KPT; j += 2) {
+        float p0, p1;
+        if (BF16P) {
+          const uint32_t pp = attn::prob_bf16x2(x[j], x[j + 1], m_new, scale2);
+          p0 = attn::bf16_lo(pp);
+          p1 = attn::bf16_hi(pp);
+        } else {
+          p0 = exp2f((x[j] - m_new) * scale_log2);
+          p1 = exp2f((x[j + 1] - m_new) * scale_log2);
+        }
+        Ps[rs * LDPB + kp + j] = __float2bfloat16(p0);
+        Ps[rs * LDPB + kp + j + 1] = __float2bfloat16(p1);
+        sum += p0;  // the row sum is taken before the cast, as the TPU kernel does
+        sum += p1;
+      }
+#pragma unroll
+      for (int off = 1; off < TPR; off *= 2) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      if (BF16P) sum = attn::round_bf16(sum);
+      if (tid % TPR == 0) {
+        Ms[rs] = m_new;
+        Ls[rs] = Ls[rs] * corr + sum;
+        Cs[rs] = corr;
+      }
+    }
+    attn::cp_async_wait_all_but_one();  // this V tile has landed
+    __syncthreads();
+
+    // O[32 rows, warp columns] = O * corr + P V
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      const float c_lo = Cs[16 * m + g], c_hi = Cs[16 * m + g + 8];
+#pragma unroll
+      for (int n = 0; n < NTW; ++n) {
+        acc[m][n][0] *= c_lo;
+        acc[m][n][1] *= c_lo;
+        acc[m][n][2] *= c_hi;
+        acc[m][n][3] *= c_hi;
+      }
+    }
+#pragma unroll
+    for (int kc = 0; kc < BKB / 16; ++kc) {
+      unsigned a[2][4];
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+        attn::ldmatrix_x4(a[m], Ps + (16 * m + lane % 16) * LDPB + kc * 16 + (lane / 16) * 8);
+#pragma unroll
+      for (int np = 0; np < NTW / 2; ++np) {
+        unsigned b[4];
+        attn::ldmatrix_x4_trans(b, Vs + (kc * 16 + lane % 8 + ((lane / 8) % 2) * 8) * LD + col0 +
+                                       np * 16 + (lane / 16) * 8);
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+          attn::mma_bf16(acc[m][2 * np], a[m], b[0], b[1]);
+          attn::mma_bf16(acc[m][2 * np + 1], a[m], b[2], b[3]);
+        }
+      }
+    }
+    __syncthreads();  // V and the probabilities are free
+    if (tile + 1 < n_tiles) load_rows_bf16<LD>(Vs, vh + size_t(tile + 1) * BKB * d, BKB, d);
+    attn::cp_async_commit();
+  }
+
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = 16 * m + g + 8 * i;
+      const float inv = 1.0f / Ls[row];
+      bf16* orow = o + head + size_t(q0 + row) * d;
+#pragma unroll
+      for (int n = 0; n < NTW; ++n) {
+        const int col = col0 + n * 8 + 2 * t4;
+        if (col < d)
+          *reinterpret_cast<__nv_bfloat162*>(orow + col) =
+              __floats2bfloat162_rn(acc[m][n][2 * i] * inv, acc[m][n][2 * i + 1] * inv);
+      }
+    }
+  }
+}
+
+template <bool BF16P>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, int bh, int s,
+                        int d, float scale, cudaStream_t stream) {
+  constexpr size_t bytes = bf16_smem_bytes();
+  cudaError_t err = cudaFuncSetAttribute(stream_bf16<BF16P>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  stream_bf16<BF16P><<<dim3(s / BQB, bh), THREADS, bytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(o), s, d, scale * attn::LOG2E, attn::round_bf16(scale));
+  return cudaGetLastError();
+}
+
+}  // namespace k4bf16v2
+
 extern "C" {
 
 // q, k, v, o: contiguous (bh, s, d) bfloat16; s % 64 == 0, d % 8 == 0, 0 < d <= 160.
@@ -441,6 +665,19 @@ int streaming_attention_v2_fwd(const void* q, const void* k, const void* v, void
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(
       k4v2::launch_f32_q64(q, k, v, o, bh, s, d, scale, static_cast<cudaStream_t>(stream)));
+}
+
+// q, k, v, o: contiguous (bh, s, d) bfloat16; s % 32 == 0, d % 8 == 0, d <= 512;
+// bf16_probs 0 or 1.
+int streaming_attention_bf16_v2_fwd(const void* q, const void* k, const void* v, void* o, int bh,
+                                    int s, int d, float scale, int bf16_probs, void* stream) {
+  if (bh <= 0 || bh > 65535 || s <= 0 || s % k4bf16v2::BQB != 0 || d <= 0 ||
+      d > k4bf16v2::DP || d % 8 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      bf16_probs ? k4bf16v2::launch_bf16<true>(q, k, v, o, bh, s, d, scale, st)
+                 : k4bf16v2::launch_bf16<false>(q, k, v, o, bh, s, d, scale, st));
 }
 
 const char* kernel_error_string(int code) {

@@ -23,8 +23,9 @@
 // UNSCALED logits with scale * log2(e) folded into exp2's operand, the f32 row sum taken before
 // the probabilities are cast to bf16 unnormalised, f32 accumulation; the caller applies 1 / l.
 // The bf16_probs mode (BF16P, K1's --bf16_softmax) rounds as the TPU kernel's fast mode does
-// (prob_bf16: the centred logit, its product with the bf16 scale and the exponential each to
-// bf16) and sums the rounded probabilities; the rescaling factor stays f32.
+// (attention_common.cuh prob_bf16x2: the centred logit, its product with the bf16 scale and the
+// exponential each to bf16, two at a time on the card's bf16x2 conversions) and sums the rounded
+// probabilities; the rescaling factor stays f32.
 
 #pragma once
 
@@ -142,15 +143,100 @@ __device__ __forceinline__ void open_turns(int c) {
   if (c == NWG - 1) hopper::named_arrive(BAR_TURN, TURN_THREADS);
 }
 
-// Online softmax of one 64 x BN score tile held in wgmma accumulator registers: rows r (i = 0)
-// and r + 8 (i = 1) of this thread, a row spread over one lane quad. Keys at or past `valid`
-// are masked (zero-filled by TMA past S). Leaves the probabilities in s, updates m and l, and
-// returns in corr the factor that rescales the accumulator (0 on the first tile).
+// The score tiles below are wgmma (or mma.sync) accumulator registers: s[4 n + 2 i + e] is row
+// r (i = 0) or r + 8 (i = 1) of this thread, column 8 n + 2 t + e, a row spread over one lane
+// quad (t = lane % 4).
+
+// The maxima of this thread's two rows of a score tile, over the lane quad.
+template <int NS>
+__device__ __forceinline__ void tile_max(const float (&s)[NS], float (&mx)[2]) {
+  // both rows at once, each max in four partial chains: a consumer warp shares its scheduler
+  // with others, so short dependency chains are what keeps the exp unit fed
+  float part[2][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) part[i][c] = -INFINITY;
+#pragma unroll
+  for (int n = 0; n < NS / 4; ++n)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      part[i][n % 4] = fmaxf(part[i][n % 4], fmaxf(s[4 * n + 2 * i], s[4 * n + 2 * i + 1]));
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float m = fmaxf(fmaxf(part[i][0], part[i][1]), fmaxf(part[i][2], part[i][3]));
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+    mx[i] = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+  }
+}
+
+// The online max step of this thread's two rows: m_run takes the tile's maxima mx, corr the
+// factor that rescales the earlier tiles (0 on the first), and mb the operand tile_probs takes.
+template <bool BF16P>
+__device__ __forceinline__ void update_max(float (&m_run)[2], const float (&mx)[2],
+                                           float (&corr)[2], float (&mb)[2], float scale_log2) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float m_new = fmaxf(m_run[i], mx[i]);
+    corr[i] = hopper::ex2((m_run[i] - m_new) * scale_log2);  // 0 on the first tile
+    m_run[i] = m_new;
+    mb[i] = BF16P ? m_new : m_new * scale_log2;
+  }
+}
+
+// The probabilities of a score tile in place, and this thread's shares of their two row sums.
+// Exact mode: p = exp2(s * scale log2 e - mb), one FMA and one ex2 each, summed in f32 before
+// the cast to bf16, as the TPU kernel does. bf16_probs mode: prob_bf16x2 on each pair, which
+// rounds the probabilities where they are packed for P V: both s[4 n + 2 i] and s[4 n + 2 i + 1]
+// then hold the pair's packed bf16x2 bits (p_pair reads the first); the sums add the rounded
+// values. The second copy is not read, but a score register left holding the Q K^T product's
+// output makes ptxas serialise every wgmma of the pipeline (its C7511 report).
+template <bool BF16P, int NS>
+__device__ __forceinline__ void tile_probs(float (&s)[NS], const float (&mb)[2], float scale_log2,
+                                           float scale_bf16, float (&row_sum)[2]) {
+  using hopper::ex2;
+  const __nv_bfloat162 scale2 = __float2bfloat162_rn(scale_bf16);
+  float sum[2][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) sum[i][c] = 0.0f;
+#pragma unroll
+  for (int n = 0; n < NS / 4; ++n)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float& s0 = s[4 * n + 2 * i];
+      float& s1 = s[4 * n + 2 * i + 1];
+      if constexpr (BF16P) {
+        const uint32_t pp = prob_bf16x2(s0, s1, mb[i], scale2);
+        sum[i][n % 4] += bf16_lo(pp) + bf16_hi(pp);
+        s0 = s1 = __uint_as_float(pp);
+      } else {
+        s0 = ex2(fmaf(s0, scale_log2, -mb[i]));
+        s1 = ex2(fmaf(s1, scale_log2, -mb[i]));
+        sum[i][n % 4] += s0;
+        sum[i][n % 4] += s1;
+      }
+    }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) row_sum[i] = (sum[i][0] + sum[i][1]) + (sum[i][2] + sum[i][3]);
+}
+
+// The bf16x2 pair of probabilities at s[k], s[k + 1] (k even) after tile_probs: packed here in
+// the exact mode, already packed in s[k] in the bf16_probs mode.
+template <bool BF16P, int NS>
+__device__ __forceinline__ uint32_t p_pair(const float (&s)[NS], int k) {
+  return BF16P ? __float_as_uint(s[k]) : pack_bf16(s[k], s[k + 1]);
+}
+
+// Online softmax of one 64 x BN score tile held in wgmma accumulator registers. Keys at or past
+// `valid` are masked (zero-filled by TMA past S). Leaves the probabilities in s (tile_probs),
+// updates m and l (this thread's share of the row sums), and returns in corr the factor that
+// rescales the accumulator (0 on the first tile).
 template <bool BF16P, int NS>
 __device__ __forceinline__ void softmax_tile(float (&s)[NS], float (&m_run)[2], float (&l_run)[2],
                                              float (&corr)[2], float scale_log2, float scale_bf16,
                                              int valid, int t) {
-  using hopper::ex2;
   if (valid < 2 * NS) {
 #pragma unroll
     for (int n = 0; n < NS / 4; ++n)
@@ -158,56 +244,22 @@ __device__ __forceinline__ void softmax_tile(float (&s)[NS], float (&m_run)[2], 
       for (int e = 0; e < 2; ++e)
         if (8 * n + 2 * t + e >= valid) s[4 * n + e] = s[4 * n + 2 + e] = -INFINITY;
   }
-  // both rows at once, each max and sum in four partial chains: a consumer warp shares its
-  // scheduler with others, so short dependency chains are what keeps the exp unit fed
-  float mx[2][4], sum[2][4];
+  float mx[2], mb[2], sum[2];
+  tile_max(s, mx);
+  update_max<BF16P>(m_run, mx, corr, mb, scale_log2);
+  tile_probs<BF16P>(s, mb, scale_log2, scale_bf16, sum);
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      mx[i][c] = -INFINITY;
-      sum[i][c] = 0.0f;
-    }
-#pragma unroll
-  for (int n = 0; n < NS / 4; ++n)
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-      mx[i][n % 4] = fmaxf(mx[i][n % 4], fmaxf(s[4 * n + 2 * i], s[4 * n + 2 * i + 1]));
-  float mb[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    float m = fmaxf(fmaxf(mx[i][0], mx[i][1]), fmaxf(mx[i][2], mx[i][3]));
-    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
-    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
-    const float m_new = fmaxf(m_run[i], m);
-    corr[i] = ex2((m_run[i] - m_new) * scale_log2);  // 0 on the first tile
-    m_run[i] = m_new;
-    mb[i] = BF16P ? m_new : m_new * scale_log2;
-  }
-#pragma unroll
-  for (int n = 0; n < NS / 4; ++n)
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float pe = BF16P ? prob_bf16(s[4 * n + 2 * i + e], mb[i], scale_bf16)
-                               : ex2(fmaf(s[4 * n + 2 * i + e], scale_log2, -mb[i]));
-        s[4 * n + 2 * i + e] = pe;
-        sum[i][n % 4] += pe;  // taken before the cast to bf16, as the TPU kernel does
-      }
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-    l_run[i] = l_run[i] * corr[i] + ((sum[i][0] + sum[i][1]) + (sum[i][2] + sum[i][3]));
+  for (int i = 0; i < 2; ++i) l_run[i] = l_run[i] * corr[i] + sum[i];
 }
 
 // The probabilities as bf16 A fragments of the P V wgmma: k16 step kk is accumulator columns
 // [16 kk, 16 kk + 16), which is exactly the register A layout.
-template <int KP>
+template <bool BF16P, int KP>
 __device__ __forceinline__ void pack_p(uint32_t (&p)[KP][4], const float (&s)[KP * 8]) {
 #pragma unroll
   for (int kk = 0; kk < KP; ++kk)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) p[kk][e] = pack_bf16(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1]);
+    for (int e = 0; e < 4; ++e) p[kk][e] = p_pair<BF16P>(s, 8 * kk + 2 * e);
 }
 
 // Consumer c's online-softmax pass of its 64 q rows (q_base, from wait_q) over the s_len keys
@@ -270,7 +322,7 @@ __device__ __forceinline__ void attend_pass(Pipeline<C>& pipe, float (&acc)[DP /
   softmax_tile<BF16P>(s, m_run, l_run, corr, scale_log2, scale_bf16, s_len, t);
 #pragma unroll
   for (int i = 0; i < DP / 2; ++i) acc[i] = 0.0f;
-  pack_p(p, s);
+  pack_p<BF16P>(p, s);
 
   // tile j: S_j = Q K_j^T issued together with O += P_{j-1} V_{j-1}; the softmax of S_j runs
   // while that P V is in flight
@@ -305,7 +357,7 @@ __device__ __forceinline__ void attend_pass(Pipeline<C>& pipe, float (&acc)[DP /
       acc[4 * n + 2] *= corr[1];
       acc[4 * n + 3] *= corr[1];
     }
-    pack_p(p, s);
+    pack_p<BF16P>(p, s);
   }
 
   // the last tile's P V, outside the turns: it overlaps the other consumers' products

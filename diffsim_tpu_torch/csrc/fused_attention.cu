@@ -9,7 +9,8 @@
 // The TPU kernel's bf16_probs mode (--bf16_softmax, attention.py:51-55) is a second
 // instantiation of both paths (BF16P / bf16_probs): the centred logit, its product with the
 // bf16-rounded scale and the exponential are each rounded to bf16 (attention_common.cuh
-// prob_bf16), the row sum adds the rounded probabilities and is itself rounded to bf16 before
+// prob_bf16x2, two at a time on the card's bf16x2 conversions and multiply, the exponential by
+// ex2.approx), the row sum adds the rounded probabilities and is itself rounded to bf16 before
 // 1 / rowsum, as the TPU kernel's bf16 jnp.sum is. The TPU kernel takes its max over the whole
 // row; this kernel's running max rounds s - m against the max of the keys seen so far, and the
 // f32 factor that rescales the earlier tiles makes up the difference up to rounding.
@@ -319,11 +320,15 @@ attention_tf32(const float* __restrict__ q, const float* __restrict__ k,
     for (int kk = 0; kk < NS; ++kk) {
       // A fragment (g, 2t), (g + 8, 2t), (g, 2t + 1), (g + 8, 2t + 1) = C elements 0, 2, 1, 3
       uint32_t ph[4], pl[4];
-      if constexpr (BF16P) {  // bf16-exact, so exact in tf32: no low part
-        ph[0] = __float_as_uint(s[4 * kk]);
-        ph[1] = __float_as_uint(s[4 * kk + 2]);
-        ph[2] = __float_as_uint(s[4 * kk + 1]);
-        ph[3] = __float_as_uint(s[4 * kk + 3]);
+      if constexpr (BF16P) {  // bf16, so exact in tf32: no low part. s[4 kk] and s[4 kk + 2]
+        // hold the packed pairs of rows g and g + 8 (tile_probs); a bf16 value's float32 bits
+        // are its 16 bits shifted up
+        const uint32_t lo_row = __float_as_uint(s[4 * kk]);
+        const uint32_t hi_row = __float_as_uint(s[4 * kk + 2]);
+        ph[0] = lo_row << 16;
+        ph[1] = hi_row << 16;
+        ph[2] = lo_row & 0xFFFF0000u;
+        ph[3] = hi_row & 0xFFFF0000u;
       } else {
         split_tf32(s[4 * kk], ph[0], pl[0]);
         split_tf32(s[4 * kk + 2], ph[1], pl[1]);

@@ -2,7 +2,9 @@
 
 Replaces the TPU kernel ``diffsim_tpu/ops/pallas/attention_stream.py:streaming_self_attention``,
 both its exact mode and its ``bf16_probs`` fast mode. The CUDA kernel is
-``csrc/streaming_attention.cu`` (design and bound in its header). On a CPU tensor the wrapper
+``csrc/streaming_attention.cu`` (design and bound in its header): float32 as three TF32 products
+(3xTF32) on ``mma.sync``, bf16 on ``wgmma`` + TMA with a 64-row q block whose two consumer
+warpgroups split the keys of Q K^T and the output columns of P V. On a CPU tensor the wrapper
 runs :func:`streaming_self_attention_plain`; on a CUDA tensor it launches the kernel or raises.
 """
 
@@ -89,8 +91,8 @@ def streaming_self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """(B, H, S, D) self-attention, softmax scale 1/sqrt(D), output in V's dtype;
     ``bf16_probs`` selects the fast mode.
 
-    CUDA: contiguous tensors of one shape, D <= 512; float32 with S % 64 == 0 and D % 64 == 0,
-    bf16 with S % 32 == 0 and D % 8 == 0 (the SDXL VAE's mid attention is (B, 1, 16384, 512)).
+    CUDA: contiguous tensors of one shape, S % 64 == 0, D <= 512; float32 with D % 64 == 0,
+    bf16 with D % 8 == 0 (the SDXL VAE's mid attention is (B, 1, 16384, 512)).
     Counts one launch in ``streaming_self_attention.launches`` and, in the fast mode, one in
     ``streaming_self_attention.launches_bf16_probs``. Not differentiable, as the TPU kernel is
     not: under grad, on inputs that require it, the call raises."""
@@ -114,10 +116,10 @@ def streaming_self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError("streaming_self_attention: q/k/v must be contiguous and 16-byte "
                              "aligned")
     b, h, s, d = q.shape
-    s_step, d_step = (64, 64) if q.dtype == torch.float32 else (32, 8)
-    if s % s_step or d % d_step or d > 512 or b * h > 65535:
+    d_step = 64 if q.dtype == torch.float32 else 8
+    if s % 64 or d % d_step or d > 512 or b * h > 65535:
         raise ValueError(f"streaming_self_attention: shape {tuple(q.shape)} {q.dtype} not "
-                         f"supported by the kernel (S % {s_step} == 0, D % {d_step} == 0, "
+                         f"supported by the kernel (S % 64 == 0, D % {d_step} == 0, "
                          "D <= 512, B*H <= 65535)")
     out = torch.empty_like(v)
     lib = _lib()
