@@ -17,15 +17,18 @@ Phases, each of which fails the run (non-zero exit, no result line) if anything 
 4. K2 ``fused_geglu_ff`` at its main-path shapes, the same way, beside its previous design
    (v2, ``csrc/geglu_ff_v2.cu``) and, as information, cuBLAS's two projections with PyTorch's
    elementwise GEGLU between them (no single PyTorch call computes GEGLU-FF, so K2 has no
-   library time), and at ragged row counts and other widths in both dtypes;
+   library time); at the same shapes in float32 (3xTF32, atol = rtol = 1e-4) beside its first,
+   FMA design (``geglu_ff_f32_v1_fwd``) and cuBLAS's float32 path with TF32 off; and at ragged
+   row counts and other widths in both dtypes;
 5. K3 ``cross_self_partials`` (the fused readout) at the SDXL tap, (80, 1024, 64) bf16, in
    both similarities, at the SD-1.5 up-block-2/3 taps, at the DiT-XL/2 tap of its main path,
-   (256, 1024, 72), and in float32,
-   scores against its plain version and its previous design (v2, ``csrc/fused_readout_v2.cu``);
+   (256, 1024, 72), and in float32 (3xTF32, ``csrc/fused_readout_f32.cu``) at the taps of the
+   float32 scoring calls (DiT-XL/2's, SDXL's and SD-1.5's up-block-2 (64, 1024, 80)),
+   scores against its plain version and its previous design (bf16: v2,
+   ``csrc/fused_readout_v2.cu``; float32: the first, FMA design, ``fused_readout_f32_v1_fwd``);
    the kernel timed apart from the wrapper's per-pair torch epilogue (by CUPTI only), beside
-   v2 and, as
-   information, two 4-D ``scaled_dot_product_attention`` calls on the flash backend plus the
-   reduction;
+   that design and, as information, two 4-D ``scaled_dot_product_attention`` calls (flash in
+   bf16, the memory-efficient backend in float32) plus the reduction;
 6. K4 ``streaming_self_attention`` at the 1024 px VAE mid attention (2, 1, 16384, 512) in
    float32 (the SDXL main path) and bf16, and at a ragged S = 8448, with SDPA as its library
    time and its previous design (v2) beside it; in bf16 also at (4, 1, 16384, 512), at the
@@ -71,6 +74,14 @@ Phases, each of which fails the run (non-zero exit, no result line) if anything 
    ``diffsim_score`` on two PNG paths, a profile and the VAE encode's share of the call,
    ``score_triplet_paths`` through the moment cache (all misses, then all hits bit for bit) and
    the device-memory guard's slope for ``DiffSimDiT.hbm_scale``;
+12b. the float32 scorers at full width (``dtype=torch.float32``, random weights): SD-1.5 at 512
+   px on 4 triplets at the canonical tap (8 K1, 4 K2) and at the up-block-2 tap (11 K1, 6 K2, 4
+   K3), SDXL at 1024 px on 2 triplets (45 K1, 4 K2, 4 K3, 3 K4) and DiT-XL/2 at 512 px on 8
+   triplets (13 K1, 4 K3), every launch on float32 tensors; each call's scores held to the same
+   call with K2's and K3's plain versions within 1e-5 + 1e-5 of the distance, beside a control
+   (GEMM2's first 32-column k panel and keys [32, 64) of every 64-key tile left out) that must
+   fail that limit; a repeat bit for bit, its time and peak memory beside the bf16 scorer's
+   time; each cached path; the device-memory guard's slope for the float32 SD-1.5 scorer;
 13. the CLI with ``--metric dit`` (``cute --preset cute``, the same 36 JPEGs, through the moment
    cache: one miss per image);
 14. the checkpoint converter on this machine, which has neither ``safetensors`` nor
@@ -714,7 +725,9 @@ YARDSTICKS = {
     "streaming_attention_v2_fwd": ("attention_v2", [_P] * 4 + [_I] * 3 + [_F, _P]),
     "streaming_attention_bf16_v2_fwd": ("attention_v2", [_P] * 4 + [_I] * 3 + [_F, _I, _P]),
     "geglu_ff_v2_fwd": ("geglu_ff_v2", [_P] * 7 + [_I, _I, _P]),
+    "geglu_ff_f32_v1_fwd": ("geglu_ff_v2", [_P] * 7 + [_I, _I, _P]),
     "fused_readout_v2_fwd": ("fused_readout_v2", [_P] * 6 + [_I] * 3 + [_F, _I, _P]),
+    "fused_readout_f32_v1_fwd": ("fused_readout_v2", [_P] * 6 + [_I] * 3 + [_F, _I, _P]),
 }
 
 
@@ -757,11 +770,12 @@ def v2_f32_attention(q, k, v, tol, bf16_probs: bool = False):
 
 
 def v2_geglu_ff(x, w1, b1, w2, b2):
-    """The previous design of K2 (bf16) on the same inputs."""
+    """The previous design of K2 on the same inputs: bf16's v2, or float32's first (FMA)."""
     n, c = x.shape
     y = torch.empty((n, 4 * c), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
-    _yardstick("geglu_ff_v2_fwd", *(t.data_ptr() for t in (x, w1, b1, w2, b2, y, out)), n, c)
+    name = "geglu_ff_f32_v1_fwd" if x.dtype == torch.float32 else "geglu_ff_v2_fwd"
+    _yardstick(name, *(t.data_ptr() for t in (x, w1, b1, w2, b2, y, out)), n, c)
     return out
 
 
@@ -845,30 +859,44 @@ def k1_phase(gen) -> dict:
 
 def k2_phase(gen) -> dict:
     phase("K2 fused_geglu_ff vs plain (bf16 atol=rtol=1e-2, float32 atol=rtol=1e-4)")
-    rows, main_err = [], 0.0
+    rows, f32_rows, main_err, f32_err = [], [], 0.0, 0.0
 
     def rand(shape, scale, dtype=torch.bfloat16):
         return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
 
-    for (n, c), launches in K2_SITES.items():
-        x = rand((n, c), 1.0)
-        w1, b1 = rand((8 * c, c), c**-0.5), rand((8 * c,), 0.1)
-        w2, b2 = rand((c, 4 * c), (4 * c) ** -0.5), rand((c,), 0.1)
-        args = (x, w1, b1, w2, b2)
-        out = fused_geglu_ff(*args)
-        torch.cuda.synchronize()
-        err = check_close(f"K2 {(n, c)} bf16", out, fused_geglu_ff_plain(*args), 1e-2, 1e-2)
-        main_err = max(main_err, err)
-        check_close(f"K2 v2 {(n, c)}", v2_geglu_ff(*args), out, 1e-2, 1e-2, quiet=True)
-        row = {"shape": [n, c], "dtype": "bfloat16", "max_abs_err": err,
-               "launches_sd15_forward": launches[0], "launches_sdxl_call": launches[1]}
-        _timed(row, lambda: fused_geglu_ff(*args), lambda: fused_geglu_ff_plain(*args),
-               24 * n * c * c, (2 * n * c + 12 * c * c + 9 * c) * 2,
-               v2=lambda: v2_geglu_ff(*args),
-               info={"cublas_path_ms": lambda: _cublas_geglu_ff(*args)})
-        rows.append(row)
-        del x, w1, b1, w2, b2, args, out
-        torch.cuda.empty_cache()
+    # the main-path sites in bf16 beside v2, then in float32 (3xTF32) beside the first (FMA)
+    # design and cuBLAS's float32 path with TF32 off (the float32 contract)
+    for dtype, tol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-4)):
+        f32 = dtype == torch.float32
+        for (n, c), launches in K2_SITES.items():
+            x = rand((n, c), 1.0, dtype)
+            w1, b1 = rand((8 * c, c), c**-0.5, dtype), rand((8 * c,), 0.1, dtype)
+            w2, b2 = rand((c, 4 * c), (4 * c) ** -0.5, dtype), rand((c,), 0.1, dtype)
+            args = (x, w1, b1, w2, b2)
+            out = fused_geglu_ff(*args)
+            torch.cuda.synchronize()
+            ref = fused_geglu_ff_plain(*args)
+            err = check_close(f"K2 {(n, c)} {dtype}", out, ref, tol, tol)
+            check_close(f"K2 {'v1 (FMA)' if f32 else 'v2'} {(n, c)}", v2_geglu_ff(*args),
+                        ref if f32 else out, tol, tol, quiet=True)
+            del out, ref
+            key = "_f32" if f32 else ""
+            row = {"shape": [n, c], "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err,
+                   f"launches_sd15{key}_forward": launches[0],
+                   f"launches_sdxl{key}_call": launches[1]}
+            with tf32_off() if f32 else contextlib.nullcontext():
+                _timed(row, lambda: fused_geglu_ff(*args), lambda: fused_geglu_ff_plain(*args),
+                       24 * n * c * c, (2 * n * c + 12 * c * c + 9 * c) * x.element_size(),
+                       v2=lambda: v2_geglu_ff(*args),
+                       info={"cublas_path_ms": lambda: _cublas_geglu_ff(*args)}, dtype=dtype,
+                       tf32_passes=3.0 if f32 else 0.0)
+            (f32_rows if f32 else rows).append(row)
+            if f32:
+                f32_err = max(f32_err, err)
+            else:
+                main_err = max(main_err, err)
+            del x, w1, b1, w2, b2, args
+            torch.cuda.empty_cache()
     # ragged row counts and other widths, both dtypes (float32 at atol = rtol = 1e-4)
     for n, c in [(8, 32), (300, 32), (1000, 64), (136, 160), (24 * 256, 1280)]:
         for dtype, tol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-4)):
@@ -877,7 +905,8 @@ def k2_phase(gen) -> dict:
                     rand((c,), 0.1, dtype))
             check_close(f"K2 {(n, c)} {dtype}", fused_geglu_ff(*args),
                         fused_geglu_ff_plain(*args), tol, tol)
-    return {"rows": rows, "max_abs_err": main_err}
+    return {"rows": rows, "max_abs_err": main_err,
+            "f32": {"rows": f32_rows, "max_abs_err": f32_err}}
 
 
 def _sdpa_readout(taps, similarity):
@@ -895,18 +924,28 @@ def _sdpa_readout(taps, similarity):
     return (o1 * o2).sum() / ((o1 * o1).sum().sqrt() * (o2 * o2).sum().sqrt())
 
 
+# K3's float32 rows: (P, B, H, S, D) taps of the float32 scoring calls (f32_scoring_phase), with
+# the row key of each call's launches: the DiT-XL/2 tap of 8 triplets, the SDXL tap of 2 and the
+# SD-1.5 up-block-2 tap of 4
+K3_F32 = {(DIT_T, 2, 16, 1024, 72): "launches_dit_f32_call",
+          (XL_T, 2, 20, 1024, 64): "launches_sdxl_f32_call",
+          (4, 2, 8, 1024, 80): "launches_sd15_k3_f32_call"}
+
+
 def k3_phase(gen) -> dict:
     phase("K3 cross_self_partials (fused readout) vs plain: scores, bf16 atol 1e-3 and rtol 1e-3 "
           "of the distance, float32 atol 1e-5 and rtol 1e-5")
-    v2_score = functools.partial(readout._direction_score,
-                                 readout_partials("fused_readout_v2_fwd"))
+    # the previous designs: bf16's v2, float32's first (FMA)
+    v2_name = {torch.bfloat16: "fused_readout_v2_fwd", torch.float32: "fused_readout_f32_v1_fwd"}
+    v2_score = {dtype: functools.partial(readout._direction_score, readout_partials(name))
+                for dtype, name in v2_name.items()}
     # (P, B, H, S, D): the SDXL tap of the main path (N = 80), the SD-1.5 up-block-2/3 taps of
-    # a 2-pair score_batch, the DiT-XL/2 tap of its main path (head dim 72, N = 256), and the
-    # SDXL tap in float32
+    # a 2-pair score_batch, the DiT-XL/2 tap of its main path (head dim 72, N = 256), and in
+    # float32 the taps of the float32 scoring calls
     shapes = [((XL_T, 2, 20, 1024, 64), torch.bfloat16), ((2, 2, 8, 1024, 80), torch.bfloat16),
               ((2, 2, 8, 4096, 40), torch.bfloat16), ((DIT_T, 2, 16, 1024, 72), torch.bfloat16),
-              ((XL_T, 2, 20, 1024, 64), torch.float32)]
-    rows, main_err = [], 0.0
+              *((shape, torch.float32) for shape in K3_F32)]
+    rows, f32_rows, main_err, f32_err = [], [], 0.0, 0.0
     for shape, dtype in shapes:
         # image B's keys and values are image A's plus noise, so that the scores sit where
         # DiffSim's do (cosine ~0.9): a kernel that pairs the wrong head or the wrong K/V
@@ -917,13 +956,14 @@ def k3_phase(gen) -> dict:
         del qa, ka, va, kb, vb
         p, b, h, s, d = shape
         n = p * b * h
-        main = (n, s, d) == K3_MAIN and dtype == torch.bfloat16
-        dit_main = (n, s, d) == K3_DIT and dtype == torch.bfloat16
+        bf16 = dtype == torch.bfloat16
+        main = (n, s, d) == K3_MAIN and bf16
+        dit_main = (n, s, d) == K3_DIT and bf16
         for similarity in ("cosine", "mse"):
             out = fused_direction_score(*taps, similarity)
             torch.cuda.synchronize()
             ref = fused_direction_score_plain(*taps, similarity)
-            tol = 1e-3 if dtype == torch.bfloat16 else 1e-5
+            tol = 1e-3 if bf16 else 1e-5
             err = check_score(f"K3 {shape} {dtype} {similarity}", out, ref, similarity, tol, tol)
             row = {"shape": [n, s, d], "taps": list(shape), "similarity": similarity,
                    "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err}
@@ -932,26 +972,48 @@ def k3_phase(gen) -> dict:
                 row["launches_sdxl_call"] = 4 if similarity == "cosine" else 0
             if dit_main:
                 row["launches_dit_call"] = 4 if similarity == "cosine" else 0
-            bf16 = dtype == torch.bfloat16
-            if bf16:
-                check_score(f"K3 v2 {shape} {similarity}", v2_score(*taps, similarity), ref,
-                            similarity, tol, tol)
+            if not bf16:
+                f32_err = max(f32_err, err)
+                row[K3_F32[shape]] = 4 if similarity == "cosine" else 0
+            check_score(f"K3 {'v2' if bf16 else 'v1 (FMA)'} {shape} {similarity}",
+                        v2_score[dtype](*taps, similarity), ref, similarity, tol, tol)
             if similarity == "cosine" and (main or dit_main or not bf16 or d == 80):
                 flat = [x.reshape(n, s, d) for x in (taps[0], taps[3], taps[4], taps[1], taps[2])]
                 info = {"sdpa_pair_ms": lambda: _sdpa_readout(taps, similarity)}
                 _timed(row, lambda: cross_self_partials(*flat),
                        lambda: fused_direction_score_plain(*taps, similarity),
                        8 * n * s * s * d, 5 * n * s * d * taps[0].element_size(),
-                       v2=(lambda: readout_launch("fused_readout_v2_fwd", *flat)) if bf16
-                       else None, info=info, kernel_name="readout_",
+                       v2=lambda: readout_launch(v2_name[dtype], *flat), info=info,
+                       kernel_name="readout_",
                        call=lambda: fused_direction_score(*taps, similarity), dtype=dtype,
-                       plain_reps=5, exps=2 * n * s * s)
+                       plain_reps=5, exps=2 * n * s * s,
+                       tf32_passes=0.0 if bf16 else 3.0)
                 if row["timing"] == "cupti":  # by CUDA events, the call's host work enters
                     row["epilogue_ms"] = row["call_device_ms"] - row["ms"]
-            rows.append(row)
+            (rows if bf16 else f32_rows).append(row)
         del taps
         torch.cuda.empty_cache()
-    return {"rows": rows, "max_abs_err": main_err}
+    # float32 at every head dim the kernel takes (D % 8 == 0, D <= 128: one instantiation each),
+    # two S
+    errs = []
+    for d in range(8, 129, 8):
+        for s in (64, 192):
+            qa, ka, va = (torch.randn((1, 2, 2, s, d), generator=gen, device="cuda")
+                          for _ in range(3))
+            taps = (qa, ka, va, ka + 0.3 * torch.randn_like(ka), va + 0.3 * torch.randn_like(va))
+            for similarity in ("cosine", "mse"):
+                out = fused_direction_score(*taps, similarity)
+                ref = fused_direction_score_plain(*taps, similarity)
+                errs.append((out - ref).abs().max().item())
+                dist = (1.0 - ref if similarity == "cosine" else ref).abs()
+                if not ((out - ref).abs() <= torch.clamp(1e-5 * dist, max=1e-5)).all():
+                    raise SystemExit(f"K3 {(1, 2, 2, s, d)} float32 {similarity}: {out.tolist()} "
+                                     f"against the plain version's {ref.tolist()}")
+    print(f"  K3 at every D in 8..128 step 8, S in (64, 192), float32, cosine and mse: "
+          f"max|kernel - plain| = {max(errs):.3e} (atol 1e-5, rtol 1e-5 of the distance) ok",
+          flush=True)
+    return {"rows": rows, "max_abs_err": main_err,
+            "f32": {"rows": f32_rows, "max_abs_err": f32_err}}
 
 
 K4_BF16_SWEEP = (168, 256, 384, 504, 512)  # head dims of the bf16 sweep at S = 8192
@@ -1230,9 +1292,11 @@ def tiny_surface_phase() -> None:
                      TINY_SD15_K3_CALL)
 
 
-def _checked_call(name: str, fn, expected: dict, none_in_mode: bool = False):
+def _checked_call(name: str, fn, expected: dict, none_in_mode: bool = False,
+                  all_float32: bool = False):
     """Run one scoring call with the launch counts at zero; fail unless it launched exactly the
-    ``expected`` kernels and, with ``none_in_mode``, none in the bf16_probs mode."""
+    ``expected`` kernels, with ``none_in_mode`` none in the bf16_probs mode, and with
+    ``all_float32`` every one on float32 tensors."""
     kernels.reset_launch_counts()
     out = fn()
     torch.cuda.synchronize()
@@ -1243,6 +1307,9 @@ def _checked_call(name: str, fn, expected: dict, none_in_mode: bool = False):
     fast = kernels.bf16_probs_launch_counts()
     if none_in_mode and any(fast.values()):
         raise SystemExit(f"{name}: launches in the bf16_probs mode {fast}")
+    f32 = kernels.float32_launch_counts()
+    if all_float32 and f32 != counts:
+        raise SystemExit(f"{name}: launches on float32 tensors {f32}, not all of them")
     return out, counts
 
 
@@ -1554,6 +1621,152 @@ def dit_phase(card_line: str) -> dict:
     out["cached_gap"] = cached_path("DiT-XL/2", scorer, pix, *out["scores"], DIT_ARGS,
                                     DIT_TRIPLET_CALL, DIT_TRIPLET_CALL)
     out["guard"] = guard_slope("DiT-XL/2 512 px", scorer, DIT_ARGS, (8, 16), 512, card_line)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The float32 scorers at full width (dtype=torch.float32): K2 and K3 on their float32 paths
+# ---------------------------------------------------------------------------
+
+# Each float32 call's scores against the same call with K2's and K3's plain versions swapped in
+# (this script only): |d| <= F32_SCORE_TOL[0] + F32_SCORE_TOL[1] x the plain call's distance
+# (1 - cosine). The control, the plain versions with GEMM2's first 32-column k panel (K2) and
+# keys [32, 64) of every 64-key tile (K3) left out, as a kernel that lost one panel sum or one
+# warp's key slice would compute, must exceed that limit.
+F32_SCORE_TOL = (1e-5, 1e-5)
+F32_DROP = (32, 64)
+SD15_K3_TRIPLET_CALL = {**SD15_K3_CALL, "cross_self_partials": 4}
+F32_PER = {"sd15": "one SD-1.5 UNet forward at B=24 in float32 (sum over its launches)",
+           "sd15_k3": ("one SD-1.5 score_triplet_batch call at the up-block-2 tap in float32 (4 "
+                       "triplets, 512 px), the sum over its launches"),
+           "sdxl": (f"one SDXL score_triplet_batch call in float32 ({XL_T} triplets, 1024 px), "
+                    "the sum over its launches"),
+           "dit": (f"one DiT-XL/2 score_triplet_batch call in float32 ({DIT_T} triplets, 512 px, "
+                   "tap block 13), the sum over its launches")}
+
+
+def _k2_control(x, w1, b1, w2, b2):
+    """K2's plain version with GEMM2's k columns [0, 32) left out."""
+    w2 = w2.clone()
+    w2[:, :F32_DROP[0]] = 0
+    return fused_geglu_ff_plain(x, w1, b1, w2, b2)
+
+
+def _k3_control(qa, ka, va, kb, vb, similarity="cosine"):
+    """K3's plain version with keys [32, 64) of every 64-key tile left out of both passes."""
+    keep = torch.arange(qa.shape[-2], device=qa.device) % F32_DROP[1] < F32_DROP[0]
+
+    def partials(q, k1, v1, k2, v2, mse=False):
+        return readout.cross_self_partials_plain(q, k1[:, keep], v1[:, keep], k2[:, keep],
+                                                 v2[:, keep], mse)
+    return readout._direction_score(partials, qa, ka, va, kb, vb, similarity)
+
+
+@contextlib.contextmanager
+def _k2_k3_by(ff, score):
+    """K2 and K3 as the scorers reach them (``ops.blocks``, ``metrics.readout``) replaced by
+    ``ff`` and ``score`` within the block."""
+    from diffsim_tpu_torch.metrics import readout as metrics_readout
+    from diffsim_tpu_torch.ops import blocks
+
+    kept = blocks.fused_geglu_ff, metrics_readout.fused_direction_score
+    blocks.fused_geglu_ff, metrics_readout.fused_direction_score = ff, score
+    try:
+        yield
+    finally:
+        blocks.fused_geglu_ff, metrics_readout.fused_direction_score = kept
+
+
+def f32_call(name, scorer, pix, args, expected, bf16_ms) -> dict:
+    """One float32 triplet call at full width: its launches (all on float32 tensors), a repeat
+    bit for bit, its time, peak memory and its bf16 counterpart's time, and its scores against
+    the same call with K2's and K3's plain versions and with the control."""
+    t = len(pix[0])
+    call = functools.partial(scorer.score_triplet_batch, *pix, **args)
+    torch.cuda.reset_peak_memory_stats()
+    (s_ab, s_ac), counts = _checked_call(f"{name} score_triplet_batch ({t} triplets, float32)",
+                                         call, expected, all_float32=True)
+    _check_scores(name, s_ab, s_ac)
+    t0 = time.perf_counter()
+    again = call()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    if not (np.array_equal(again[0], s_ab) and np.array_equal(again[1], s_ac)):
+        raise SystemExit(f"{name} float32: a repeat call gave other scores")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  s_ab {s_ab}\n  s_ac {s_ac}\n  repeat call {wall:.1f} ms ({2 * t * 1e3 / wall:.2f} "
+          f"pairs/s), peak device memory {peak:.2f} GiB; the bf16 scorer's repeat call "
+          f"{bf16_ms:.1f} ms (information only, not a benchmark)", flush=True)
+    profile_call(call, f"{name} float32 triplet call")
+    swapped = {**expected, "fused_geglu_ff": 0, "cross_self_partials": 0}
+    with _k2_k3_by(fused_geglu_ff_plain, fused_direction_score_plain):
+        plain, _ = _checked_call(f"{name}, K2 and K3 by their plain versions", call, swapped)
+    with _k2_k3_by(_k2_control, _k3_control):
+        ctl, _ = _checked_call(f"{name}, K2 and K3 by the control", call, swapped)
+    plain, ctl = np.concatenate(plain), np.concatenate(ctl)
+    lim = F32_SCORE_TOL[0] + F32_SCORE_TOL[1] * np.abs(1.0 - plain)
+    gap, ctl_gap = np.abs(np.concatenate([s_ab, s_ac]) - plain), np.abs(ctl - plain)
+    share, ctl_share = float((gap / lim).max()), float((ctl_gap / lim).max())
+    print(f"  against the plain K2 and K3: max |d| = {gap.max():.3e}, / limit {share:.3f} (limit "
+          f"{F32_SCORE_TOL[0]} + {F32_SCORE_TOL[1]} x the distance); the control (K2 without "
+          f"GEMM2's k panel [0, {F32_DROP[0]}), K3 without keys [{F32_DROP[0]}, {F32_DROP[1]}) of "
+          "each tile): "
+          f"max |d| = {ctl_gap.max():.3e}, / limit {ctl_share:.3f} "
+          f"({'fails the limit: ok' if ctl_share > 1 else 'within the limit: FAIL'})", flush=True)
+    if not share <= 1.0:
+        raise SystemExit(f"{name} float32: the kernels' scores disagree with the plain K2 and K3")
+    if not ctl_share > 1.0:
+        raise SystemExit(f"{name} float32: the control passes the limit")
+    return {"counts": counts, "scores": (s_ab, s_ac), "repeat_ms": wall, "peak_gib": peak,
+            "bf16_repeat_ms": bf16_ms, "plain_limit_share": share,
+            "control_limit_share": ctl_share}
+
+
+def f32_scoring_phase(card_line: str, bf16_ms: dict) -> dict:
+    """The float32 scorers at full width with random weights from a seeded generator: SD-1.5 at
+    512 px (the canonical CUTE tap and the up-block-2 tap, 4 triplets; the guard's slope), SDXL
+    at 1024 px (2 triplets) and DiT-XL/2 at 512 px (8 triplets), each with its cached path."""
+    out = {}
+    phase(f"float32 scoring at full width: SD-1.5, 512 px, dtype=torch.float32, 4 triplets at the "
+          f"canonical tap and at up block 2 (K2 and K3 on their float32 paths); scores against the "
+          f"plain K2 and K3 within {F32_SCORE_TOL[0]} + {F32_SCORE_TOL[1]} of the distance")
+    scorer = DiffSimSD15(img_size=512, dtype=torch.float32)
+    rng = np.random.default_rng(0)
+    pix = [rng.integers(0, 256, (4, 512, 512, 3), dtype=np.uint8) for _ in range(3)]
+    res = f32_call("SD-1.5", scorer, pix, CUTE, SD15_CALL, bf16_ms["sd15"])
+    res["cached_gap"] = cached_path("SD-1.5 float32", scorer, pix, *res["scores"], CUTE,
+                                    SD15_CALL, SD15_CALL, all_float32=True)
+    out["sd15"] = res
+    out["sd15_k3"] = f32_call("SD-1.5 up block 2", scorer, pix,
+                              {**CUTE, "target_layer": [1], "fix_layer_collapse": True},
+                              SD15_K3_TRIPLET_CALL, bf16_ms["sd15"])
+    out["sd15"]["guard"] = guard_slope("SD-1.5 512 px float32", scorer, CUTE, (8, 16), 512,
+                                       card_line)
+    del scorer
+    torch.cuda.empty_cache()
+    phase("float32 scoring at full width: SDXL, 1024 px, dtype=torch.float32, tap (0, 1, 1), "
+          f"{XL_T} triplets (bench_backbones.py)")
+    scorer = DiffSimXL(img_size=1024, dtype=torch.float32)
+    rng = np.random.default_rng(1)
+    pix = [rng.integers(0, 256, (XL_T, 1024, 1024, 3), dtype=np.uint8) for _ in range(3)]
+    res = f32_call("SDXL", scorer, pix, XL_ARGS, XL_TRIPLET_CALL, bf16_ms["sdxl"])
+    res["cached_gap"] = cached_path("SDXL float32", scorer, pix, *res["scores"], XL_ARGS,
+                                    XL_TRIPLET_CALL, {**XL_FORWARD, "cross_self_partials": 4},
+                                    all_float32=True)
+    out["sdxl"] = res
+    del scorer
+    torch.cuda.empty_cache()
+    phase(f"float32 scoring at full width: DiT-XL/2, 512 px, dtype=torch.float32, tap block 13, "
+          f"{DIT_T} triplets (bench_backbones.py)")
+    scorer = DiffSimDiT(img_size=512, dtype=torch.float32)
+    rng = np.random.default_rng(5)
+    pix = [rng.integers(0, 256, (DIT_T, 512, 512, 3), dtype=np.uint8) for _ in range(3)]
+    res = f32_call("DiT-XL/2", scorer, pix, DIT_ARGS, DIT_TRIPLET_CALL, bf16_ms["dit"])
+    res["cached_gap"] = cached_path("DiT-XL/2 float32", scorer, pix, *res["scores"], DIT_ARGS,
+                                    DIT_TRIPLET_CALL, DIT_TRIPLET_CALL, all_float32=True)
+    out["dit"] = res
+    del scorer
+    torch.cuda.empty_cache()
     return out
 
 
@@ -2624,7 +2837,7 @@ def sd15_fast_768_phase() -> dict:
 
 
 def cached_path(name, scorer, pix, s_ab, s_ac, args, miss_calls, hit_calls,
-                none_in_mode: bool = False) -> float:
+                none_in_mode: bool = False, all_float32: bool = False) -> float:
     """``score_triplet_paths`` on a main-path phase's triplets written to disk as PNGs, with
     exact launch counts: within 1e-2 of ``score_triplet_batch`` (the miss slab and the fresh
     batch may encode different numbers of images at once, and cuDNN picks its algorithms per
@@ -2640,10 +2853,10 @@ def cached_path(name, scorer, pix, s_ab, s_ac, args, miss_calls, hit_calls,
                 Image.fromarray(img).save(path)
         (c_ab, c_ac), _ = _checked_call(f"score_triplet_paths ({t} triplets, all misses)",
                                         lambda: scorer.score_triplet_paths(*roles, **args),
-                                        miss_calls, none_in_mode)
+                                        miss_calls, none_in_mode, all_float32)
         (h_ab, h_ac), _ = _checked_call(f"score_triplet_paths ({t} triplets, all hits)",
                                         lambda: scorer.score_triplet_paths(*roles, **args),
-                                        hit_calls, none_in_mode)
+                                        hit_calls, none_in_mode, all_float32)
     gap = max(np.abs(c_ab - s_ab).max(), np.abs(c_ac - s_ac).max())
     print(f"  cached {c_ab} {c_ac} vs fresh: max |d| = {gap:.3e} (limit 1e-2); cache "
           f"{scorer._moment_cache.stats}", flush=True)
@@ -3962,6 +4175,11 @@ K4_BF16_DESIGN = ("wgmma+TMA, 64-row q blocks, 2 consumer warpgroups splitting t
                   "P V from shared memory under the next softmax (bf16)")
 XL_BF16_PER = (f"one SDXL score_triplet_batch call with --xl_vae_bf16 ({XL_T} triplets, 1024 px), "
                "the sum over its launches")
+K2_F32_DESIGN = ("two 3xTF32 mma.sync GEMMs, 8 warps a 128-row tile, 32-column k panels through "
+                 "a 4-stage cp.async ring, a fresh tensor-core sum a panel (float32)")
+K3_F32_DESIGN = ("K1's 3xTF32 mma.sync pass (attention_tf32.cuh) run twice a 64-row q tile, cross "
+                 "then self, O1 kept in registers up to D = 80, partials in a fixed order "
+                 "(float32)")
 K1_F32_DESIGN = ("3xTF32 mma.sync, 4 warps of 16 q rows, scores and probabilities in registers, "
                  "K/V double-buffered by cp.async (float32)")
 XL_PER = f"one SDXL score_triplet_batch call ({XL_T} triplets, 1024 px), the sum over its launches"
@@ -3973,18 +4191,19 @@ def _path(result, launches, key, per) -> dict:
     return {"launches": launches, **_totals(result["rows"], key), "per": per}
 
 
-def kernel_entry(name, source, replaces, design, result, path, sdxl=None, dit=None) -> dict:
+def kernel_entry(name, source, replaces, design, result, path, sdxl=None, dit=None,
+                 sd15=None) -> dict:
     """One kernel's entry of the kernels line. ``path`` = (launches, row key, per) gives the
     top-level numbers, summed over one call of the path the kernel was ported on: one SD-1.5
     UNet forward for K1 and K2 (as the first slice reported them), one SDXL triplet call for
     K3 and K4. ``sdxl`` gives K1's and K2's numbers over one SDXL triplet call, under "sdxl";
-    ``dit`` K1's and K3's over one DiT-XL/2 triplet call, under "dit"."""
+    ``dit`` K1's and K3's over one DiT-XL/2 triplet call, under "dit"; ``sd15`` another SD-1.5
+    call's, under "sd15"."""
     entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
              "design": design, "max_abs_err": result["max_abs_err"], **_path(result, *path)}
-    if sdxl is not None:
-        entry["sdxl"] = _path(result, *sdxl)
-    if dit is not None:
-        entry["dit"] = _path(result, *dit)
+    for key, sub in (("sdxl", sdxl), ("dit", dit), ("sd15", sd15)):
+        if sub is not None:
+            entry[key] = _path(result, *sub)
     entry["shapes"] = result["rows"]
     return entry
 
@@ -4080,6 +4299,9 @@ def main() -> int:
         dit_out = dit_phase(card_line)
         dit_counts = dit_out["counts"]
         torch.cuda.empty_cache()
+        f32 = f32_scoring_phase(card_line, {"sd15": sd15_out["repeat_ms"],
+                                            "sdxl": xl_out["repeat_ms"],
+                                            "dit": dit_out["repeat_ms"]})
         dit_cli = dit_cli_phase(tree)
         baseline_npz = convert_baselines_phase(tmp)
         baselines = baselines_phase(card_line, registry._load_params(baseline_npz["u2net"]))
@@ -4147,6 +4369,21 @@ def main() -> int:
         fast_k1,
         fast_k4,
         *train_entries(k1_grad, train["runs"], sampled),
+        kernel_entry("fused_geglu_ff (float32)", "diffsim_tpu_torch/csrc/geglu_ff.cu",
+                     "diffsim_tpu/ops/pallas/ff.py:75", K2_F32_DESIGN, k2["f32"],
+                     (f32["sd15"]["counts"]["fused_geglu_ff"], "launches_sd15_f32_forward",
+                      F32_PER["sd15"]),
+                     sdxl=(f32["sdxl"]["counts"]["fused_geglu_ff"], "launches_sdxl_f32_call",
+                           F32_PER["sdxl"])),
+        kernel_entry("cross_self_partials (float32)",
+                     "diffsim_tpu_torch/csrc/fused_readout_f32.cu",
+                     "diffsim_tpu/ops/pallas/readout.py:71", K3_F32_DESIGN, k3["f32"],
+                     (f32["dit"]["counts"]["cross_self_partials"], "launches_dit_f32_call",
+                      F32_PER["dit"]),
+                     sdxl=(f32["sdxl"]["counts"]["cross_self_partials"], "launches_sdxl_f32_call",
+                           F32_PER["sdxl"]),
+                     sd15=(f32["sd15_k3"]["counts"]["cross_self_partials"],
+                           "launches_sd15_k3_f32_call", F32_PER["sd15_k3"])),
     ]}
     next(e for e in line["kernels"]
          if e["name"] == "streaming_self_attention (bf16)")["sharp_logits"] = k4["sharp"]
@@ -4213,18 +4450,34 @@ def main() -> int:
           f"CLI --metric dit hit rate {dit_cli['hit_rate']:.4f}, "
           f"{dit_cli['pairs_per_s']:.2f} pairs/s", flush=True)
     for entry in line["kernels"][-2:]:
+        subs = "; ".join(f"per {k} call {entry[k]['ms']:.3f} ms (v1 {entry[k]['v2_ms']:.3f})"
+                         for k in ("sdxl", "sd15") if k in entry)
+        print(f"  {entry['name']} on {card_line}: {entry['ms']:.3f} ms in {entry['launches']} "
+              f"launches, {entry['per']} (first, FMA design {entry['v2_ms']:.3f}, bound "
+              f"{entry['bound_ms']:.3f}, {100 * entry['roofline_share']:.1f} %); {subs}",
+              flush=True)
+    for what, res in f32.items():
+        print(f"  float32 {what} triplet call {res['repeat_ms']:.1f} ms (bf16 "
+              f"{res['bf16_repeat_ms']:.1f}), peak {res['peak_gib']:.2f} GiB, / limit against "
+              f"the plain K2 and K3 {res['plain_limit_share']:.3f} (control "
+              f"{res['control_limit_share']:.3f})", flush=True)
+    for entry in line["kernels"][-4:-2]:
         v2 = f"previous design {entry['v2_ms']:.3f}, " if "v2_ms" in entry else ""
         print(f"  {entry['name']} on {card_line}: {entry['ms']:.3f} ms per training step in "
               f"{entry['launches']} launches ({v2}SDPA {entry['library_ms']:.3f}, bound "
               f"{entry['bound_ms']:.3f}, {100 * entry['roofline_share']:.1f} %); the plain "
               f"backward {entry['bwd_plain_ms']:.3f} ms per step (SDPA's backward "
               f"{entry['bwd_sdpa_ms']:.3f})", flush=True)
-    for guard in (sd15_out["guard"], xl_out["guard"], dit_out["guard"]):
+    guards = [sd15_out["guard"], xl_out["guard"], dit_out["guard"], f32["sd15"]["guard"]]
+    for guard in guards:
         if (guard["per_triplet"] < guard["slope"] or guard["encode_bytes"] < guard["encode_peak"]
                 or any(guard["estimates"][t] < guard["peaks"][t] for t in guard["peaks"])):
             raise SystemExit(f"{guard['name']}: the device-memory guard's constants are below "
                              f"what the card measured: {guard}")
-    line["hbm_guard"] = [sd15_out["guard"], xl_out["guard"], dit_out["guard"]]
+    line["hbm_guard"] = guards
+    line["float32_scoring"] = {what: {k: v for k, v in res.items()
+                                      if k not in ("counts", "scores", "guard")}
+                               for what, res in f32.items()}
     line["cli"] = {k: v for k, v in cli.items() if k not in ("counts", "fast_counts", "scores")}
     line["ip_adapter"] = {
         name: {k: out["ip"][k] for k in ("call_ms", "no_ip_call_ms", "peak_gib")}

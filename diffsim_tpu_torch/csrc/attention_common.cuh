@@ -1,6 +1,6 @@
-// Shared machinery of the attention kernels: K3's float32 path (fused_readout.cu) and the
-// previous designs of K1 and K3 (attention_v2.cu, fused_readout_v2.cu) use the tile loops below;
-// K1's float32 path (fused_attention.cu) and K4 (streaming_attention.cu) the primitives, among
+// Shared machinery of the attention kernels: the previous designs of K1 and K3 (attention_v2.cu,
+// fused_readout_v2.cu) use the tile loops below; the float32 paths of K1 and K3
+// (attention_tf32.cuh), K2 (geglu_ff.cu) and K4 (streaming_attention.cu) the primitives, among
 // them the 3xTF32 fragments of the float32 tensor-core products. The bf16 Hopper kernels of K1
 // and K3 share their pipeline in attention_wgmma.cuh.
 //
@@ -75,7 +75,7 @@ __device__ inline void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned 
 }
 
 // ---------------------------------------------------------------------------
-// 3xTF32: float32 products on the tensor cores (K1's float32 path, K4's float32 path)
+// 3xTF32: float32 products on the tensor cores (the float32 paths of K1, K2, K3 and K4)
 // ---------------------------------------------------------------------------
 
 // x = hi + lo: hi = tf32(x), rounded to nearest with ties away from zero (cvt.rna's rounding,

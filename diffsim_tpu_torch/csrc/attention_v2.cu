@@ -6,8 +6,8 @@
 //     (attention_common.cuh's tile loop, which K3 still uses);
 //   * K1 float32 v1, the first design of K1's float32 path (fused_attention_f32_v1_fwd, both
 //     modes): one block of 4 warps per 64-row q tile, plain FMAs, the score tile and the
-//     accumulator in shared memory (attention_common.cuh attend_f32, which K3's float32 path
-//     still uses);
+//     accumulator in shared memory (attention_common.cuh attend_f32, which K3's first float32
+//     design in fused_readout_v2.cu runs twice);
 //   * K4 v2 (streaming_attention_v2_fwd): CUDA-core FMAs, no TF32, a 64-row q tile with Q in
 //     shared memory, K in 64 x 64 chunks and V in 8-key chunks through a 4-buffer cp.async ring.
 //   * K4 bf16 v2, the first design of K4's bf16 path (streaming_attention_bf16_v2_fwd,

@@ -40,9 +40,8 @@
 // Torch sums the (N, S / 64, 3) buffer in a fixed order, so a score is the same from run to
 // run.
 //
-// float32 (a tight numerical check on the card, not on any main path): one block of 4 warps per
-// (q tile, row), the cross and then the self pass through attention_common.cuh's plain-FMA
-// tile loop, both accumulators in shared memory.
+// float32 (the scorers built with dtype=torch.float32): fused_readout_f32.cu, 3xTF32 on the
+// tensor cores, a library of its own that exports the same entry point for dtype 0.
 //
 // C interface (loaded with ctypes): every entry point returns cudaGetLastError().
 
@@ -203,104 +202,22 @@ cudaError_t dispatch_bf16(const void* q, const void* k1, const void* v1, const v
   }
 }
 
-// ---------------------------------------------------------------------------
-// float32: plain FMAs, both accumulators in shared memory
-// ---------------------------------------------------------------------------
-
-// Sum of x over the block (4 warps) in a fixed order; the result is valid in thread 0.
-__device__ inline float block_sum(float x, float* red, int slot) {
-#pragma unroll
-  for (int off = 16; off > 0; off /= 2) x += __shfl_xor_sync(0xffffffffu, x, off);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (lane == 0) red[slot * WARPS + warp] = x;
-  __syncthreads();
-  float total = 0.0f;
-  if (threadIdx.x == 0)
-    for (int w = 0; w < WARPS; ++w) total += red[slot * WARPS + w];
-  return total;
-}
-
-__device__ inline void write_partials(float* out, float a, float b, float c, float* red) {
-  a = block_sum(a, red, 0);
-  b = block_sum(b, red, 1);
-  c = block_sum(c, red, 2);
-  if (threadIdx.x == 0) {
-    float* dst = out + (size_t(blockIdx.y) * gridDim.x + blockIdx.x) * 3;
-    dst[0] = a;
-    dst[1] = b;
-    dst[2] = c;
-  }
-}
-
-__global__ void __launch_bounds__(THREADS)
-readout_f32(const float* __restrict__ q, const float* __restrict__ k1,
-            const float* __restrict__ v1, const float* __restrict__ k2,
-            const float* __restrict__ v2, float* __restrict__ out, int s_len, int d, float scale,
-            int mse) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const LayoutF32 L = make_layout_f32(d, 2);
-  float* red = reinterpret_cast<float*>(smem + L.total);
-  const size_t head = size_t(blockIdx.y) * s_len * d;
-  load_tile_f32(reinterpret_cast<float*>(smem + L.q), L.ld_qkv,
-                q + head + size_t(blockIdx.x) * BQ * d, d);
-  attend_f32(L, smem, 0, k1 + head, v1 + head, s_len, d, scale);
-  attend_f32(L, smem, 1, k2 + head, v2 + head, s_len, d, scale);
-  __syncthreads();
-
-  const float* O1 = reinterpret_cast<const float*>(smem + L.o[0]);
-  const float* O2 = reinterpret_cast<const float*>(smem + L.o[1]);
-  const float* L1 = reinterpret_cast<const float*>(smem + L.l[0]);
-  const float* L2 = reinterpret_cast<const float*>(smem + L.l[1]);
-  float a = 0.0f, b = 0.0f, c = 0.0f;
-  for (int i = threadIdx.x; i < BQ * d; i += THREADS) {
-    const int r = i / d, col = i % d;
-    const float x = O1[r * L.ld_o + col] * (1.0f / L1[r]);
-    const float y = O2[r * L.ld_o + col] * (1.0f / L2[r]);
-    if (mse) {
-      a = fmaf(x - y, x - y, a);
-    } else {
-      a = fmaf(x, y, a);
-      b = fmaf(x, x, b);
-      c = fmaf(y, y, c);
-    }
-  }
-  write_partials(out, a, b, c, red);
-}
-
-cudaError_t launch_f32(const void* q, const void* k1, const void* v1, const void* k2,
-                       const void* v2, float* out, int n, int s, int d, float scale, int mse,
-                       cudaStream_t stream) {
-  const size_t bytes = make_layout_f32(d, 2).total + 3 * WARPS * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(readout_f32,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(bytes));
-  if (err != cudaSuccess) return err;
-  readout_f32<<<dim3(s / BQ, n), THREADS, bytes, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k1),
-      static_cast<const float*>(v1), static_cast<const float*>(k2),
-      static_cast<const float*>(v2), out, s, d, scale, mse);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
 
-// q, k1, v1 (cross), k2, v2 (self): contiguous (n, s, d); out: (n, s / 64, 3) float32.
-// dtype 0 = float32, 1 = bfloat16; mse 0 = cosine partials, 1 = squared-difference partial.
-// Requires s % 64 == 0, d % 8 == 0, 0 < d <= 128, 0 < n <= 65535.
+// q, k1, v1 (cross), k2, v2 (self): contiguous bfloat16 (n, s, d); out: (n, s / 64, 3)
+// float32. dtype 1 (bfloat16; float32 is fused_readout_f32.cu's); mse 0 = cosine partials,
+// 1 = squared-difference partial. Requires s % 64 == 0, d % 8 == 0, 0 < d <= 128,
+// 0 < n <= 65535.
 int fused_readout_fwd(const void* q, const void* k1, const void* v1, const void* k2,
                       const void* v2, void* out, int n, int s, int d, float scale, int dtype,
                       int mse, void* stream) {
-  if (n <= 0 || n > 65535 || s <= 0 || s % BQ != 0 || d <= 0 || d > 128 || d % 8 != 0)
+  if (dtype != 1 || n <= 0 || n > 65535 || s <= 0 || s % BQ != 0 || d <= 0 || d > 128 ||
+      d % 8 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* o = static_cast<float*>(out);
-  if (dtype == 1)
-    return static_cast<int>(dispatch_bf16(q, k1, v1, k2, v2, o, n, s, d, scale, mse, st));
-  if (dtype == 0)
-    return static_cast<int>(launch_f32(q, k1, v1, k2, v2, o, n, s, d, scale, mse, st));
-  return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(dispatch_bf16(q, k1, v1, k2, v2, static_cast<float*>(out), n, s, d,
+                                        scale, mse, static_cast<cudaStream_t>(stream)));
 }
 
 const char* kernel_error_string(int code) {

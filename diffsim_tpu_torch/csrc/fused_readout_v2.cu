@@ -1,11 +1,15 @@
-// The previous (v2) design of K3's bf16 path, kept only as a yardstick: chip_smoke.py times the
-// redesigned kernel (fused_readout.cu) against it in the same run, on the same inputs. No path
-// of the port calls it. Its design, as PERF.md describes it: one block of 4 warps per (64-row q
-// tile, row); each warp owns 16 q rows; the block runs the cross pass, then the self pass, over
-// one Q tile loaded once, through attention_common.cuh's mma.sync tile loop (K/V tiles of 64
-// keys double-buffered with cp.async, S, P and both accumulators in registers); the epilogue
-// normalises both outputs and reduces the partials over the warp with shuffles and over the
-// block through shared memory, in a fixed order, into out[n, tile, 0:3].
+// The previous designs of K3's two paths, kept only as yardsticks: chip_smoke.py times the
+// redesigned kernels (fused_readout.cu, fused_readout_f32.cu) against them in the same run, on
+// the same inputs. No path of the port calls them. Their designs, as PERF.md describes them:
+//   * bf16 v2 (fused_readout_v2_fwd): one block of 4 warps per (64-row q tile, row); each warp
+//     owns 16 q rows; the block runs the cross pass, then the self pass, over one Q tile loaded
+//     once, through attention_common.cuh's mma.sync tile loop (K/V tiles of 64 keys
+//     double-buffered with cp.async, S, P and both accumulators in registers);
+//   * float32 v1, the first design of the float32 path (fused_readout_f32_v1_fwd): the same
+//     block and passes through attention_common.cuh's plain-FMA tile loop (attend_f32), the
+//     score tile and both accumulators in shared memory, bound by the 67 TFLOP/s FP32 SIMT rate.
+// Both epilogues normalise the two outputs and reduce the partials over the warp with shuffles
+// and over the block through shared memory, in a fixed order, into out[n, tile, 0:3].
 //
 // C interface (loaded with ctypes): every entry point returns cudaGetLastError().
 
@@ -127,6 +131,60 @@ cudaError_t dispatch_bf16(const void* q, const void* k1, const void* v1, const v
   }
 }
 
+// ---------------------------------------------------------------------------
+// float32 v1: plain FMAs, both accumulators in shared memory
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(THREADS)
+readout_f32(const float* __restrict__ q, const float* __restrict__ k1,
+            const float* __restrict__ v1, const float* __restrict__ k2,
+            const float* __restrict__ v2, float* __restrict__ out, int s_len, int d, float scale,
+            int mse) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const LayoutF32 L = make_layout_f32(d, 2);
+  float* red = reinterpret_cast<float*>(smem + L.total);
+  const size_t head = size_t(blockIdx.y) * s_len * d;
+  load_tile_f32(reinterpret_cast<float*>(smem + L.q), L.ld_qkv,
+                q + head + size_t(blockIdx.x) * BQ * d, d);
+  attend_f32(L, smem, 0, k1 + head, v1 + head, s_len, d, scale);
+  attend_f32(L, smem, 1, k2 + head, v2 + head, s_len, d, scale);
+  __syncthreads();
+
+  const float* O1 = reinterpret_cast<const float*>(smem + L.o[0]);
+  const float* O2 = reinterpret_cast<const float*>(smem + L.o[1]);
+  const float* L1 = reinterpret_cast<const float*>(smem + L.l[0]);
+  const float* L2 = reinterpret_cast<const float*>(smem + L.l[1]);
+  float a = 0.0f, b = 0.0f, c = 0.0f;
+  for (int i = threadIdx.x; i < BQ * d; i += THREADS) {
+    const int r = i / d, col = i % d;
+    const float x = O1[r * L.ld_o + col] * (1.0f / L1[r]);
+    const float y = O2[r * L.ld_o + col] * (1.0f / L2[r]);
+    if (mse) {
+      a = fmaf(x - y, x - y, a);
+    } else {
+      a = fmaf(x, y, a);
+      b = fmaf(x, x, b);
+      c = fmaf(y, y, c);
+    }
+  }
+  write_partials(out, a, b, c, red);
+}
+
+cudaError_t launch_f32(const void* q, const void* k1, const void* v1, const void* k2,
+                       const void* v2, float* out, int n, int s, int d, float scale, int mse,
+                       cudaStream_t stream) {
+  const size_t bytes = make_layout_f32(d, 2).total + 3 * WARPS * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(readout_f32,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  readout_f32<<<dim3(s / BQ, n), THREADS, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k1),
+      static_cast<const float*>(v1), static_cast<const float*>(k2),
+      static_cast<const float*>(v2), out, s, d, scale, mse);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -141,6 +199,16 @@ int fused_readout_v2_fwd(const void* q, const void* k1, const void* v1, const vo
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(dispatch_bf16(q, k1, v1, k2, v2, static_cast<float*>(out), n, s, d,
                                         scale, mse, static_cast<cudaStream_t>(stream)));
+}
+
+// The same on contiguous float32 tensors, through the float32 v1 design.
+int fused_readout_f32_v1_fwd(const void* q, const void* k1, const void* v1, const void* k2,
+                             const void* v2, void* out, int n, int s, int d, float scale,
+                             int mse, void* stream) {
+  if (n <= 0 || n > 65535 || s <= 0 || s % BQ != 0 || d <= 0 || d > 128 || d % 8 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_f32(q, k1, v1, k2, v2, static_cast<float*>(out), n, s, d,
+                                     scale, mse, static_cast<cudaStream_t>(stream)));
 }
 
 const char* kernel_error_string(int code) {

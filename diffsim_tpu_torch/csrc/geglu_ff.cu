@@ -10,7 +10,7 @@
 // approximation (|err| <= 1.5e-7, far below bf16's resolution of y): one reciprocal and one
 // exp2 on the special-function units and about a dozen FMA-unit operations, about half of what
 // CUDA's erff costs once a warp runs both of its branches, and the epilogue is the part of GEMM1
-// that has to hide under the tensor cores. The float32 path keeps erff, as a tight check.
+// that has to hide under the tensor cores. The float32 path keeps erff.
 //
 // Bound on the H100: 24 N C^2 FLOP on the bf16 tensor cores (989 TFLOP/s) against x and out
 // (4 N C bytes) plus the weights: 0.244 ms at (98304, 320). GEMM1 (16 N C^2, K = C) is bound by
@@ -37,20 +37,43 @@
 //     (64 + 64 accumulators a thread a half). Epilogue: + b1, h * gelu(g) in f32, cast, y stored;
 //   * GEMM2 tiles are 128 rows x 160 output columns (160 divides 320, 640 and 1280; narrower C
 //     runs one partial tile), K = 4C; epilogue + b2, cast, stored.
-// float32 (a numerical check): 64x64 tiles with plain FMAs.
+//
+// float32 (the scorers built with dtype=torch.float32: SD-1.5's (98304, 320) and (24576, 640),
+// SDXL's (rows x 4096, 640)): the same two GEMMs and cast point, 3xTF32 on the tensor cores.
+// Bound: the same 24 N C^2 FLOP, three TF32 passes at 495 TFLOP/s: 1.464 ms at (98304, 320) and
+// at (24576, 640), against 0.08 ms of bytes; the float32 SIMT rate (67 TFLOP/s) would put them at
+// 3.61 ms, a floor no FMA design can pass. Each float32 operand is split where its fragment is
+// loaded into hi = tf32(x), rounded to nearest, and lo = x - hi (attention_common.cuh
+// split_tf32), and each product is a_lo b_hi + a_hi b_lo + a_hi b_hi with f32 accumulation (the
+// dropped a_lo b_lo is ~2^-22 relative; one TF32 pass misses the 1e-4 check against the plain
+// version, tests/test_torch_port_f32_tc.py). Design: a block of 8 warps (4 along the rows x 2
+// along the columns) per 128-row tile, mma.sync.m16n8k8 with K1's permuted k order (a thread's
+// two k values of a row are one 8-byte load), 32-column k panels through a 4-stage cp.async ring
+// at a 40-float leading dim (conflict-free fragment loads); GEMM1 tiles are 64 y columns whose
+// h and gate W rows share the panel (a warp 32 rows x 32 columns of each, the GEGLU epilogue in
+// f32 with CUDA's erff, y stored in float32), GEMM2 tiles 160 output columns, K = 4C. The
+// tensor cores truncate their f32 sums (a bias towards zero of up to an ulp a step), so no sum of
+// theirs runs long: each panel's products are a fresh sum of 12 steps, added to the f32
+// accumulator with one rounded add; at C = 640 GEMM2's K = 2560 is 80 panels, where one running
+// sum would take 960 truncating steps (the CPU emulation holds both). Why mma.sync and not TF32
+// wgmma: both B operands (W1, W2) are K-major, which TF32 wgmma takes, but its operands come
+// from shared memory as TF32 values, so each panel would first be split into hi and lo copies
+// there (a conversion pass and twice the shared memory a stage); the split at fragment load
+// needs neither and shares K1's primitives. wgmma is the later design's lever. The first design
+// of this path (64 x 64 tiles of plain FMAs) is kept as a yardstick in geglu_ff_v2.cu.
 //
 // C interface (loaded with ctypes): every entry point returns cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <math.h>
 
-#include "hopper_common.cuh"
+#include "attention_common.cuh"  // the 3xTF32 fragments, cp.async
 
 using bf16 = __nv_bfloat16;
 
 namespace {
 
-constexpr int BK = 32;  // k slice of the float32 path
+constexpr int BK = 32;  // k columns of a float32 panel: one pipeline stage, one fresh sum
 
 // float32 path: CUDA's erff
 __device__ inline float gelu_gate(float h, float g) {
@@ -292,114 +315,181 @@ cudaError_t launch_bf16(const void* x, const void* w1, const void* b1, const voi
 }
 
 // ---------------------------------------------------------------------------
-// float32: 64x64 tiles, plain FMAs, each thread an 8x4 patch
+// float32: two 3xTF32 mma.sync GEMMs of one template
 // ---------------------------------------------------------------------------
 
-constexpr int F_BM = 64, F_BN = 64, F_THREADS = 128;
-constexpr int F_LDA = BK + 1;   // odd pad: conflict-free scalar reads
-constexpr int F_LDC = F_BN + 4;
-constexpr int F_A_BYTES = F_BM * F_LDA * sizeof(float);
-constexpr int F_B_BYTES = F_BN * F_LDA * sizeof(float);
-constexpr int F_C_BYTES = F_BM * F_LDC * sizeof(float);
-// the output tiles (h and gate) reuse the operand tiles' memory after the k-loop
-constexpr int F_BYTES = (F_A_BYTES + 2 * F_B_BYTES) > (2 * F_C_BYTES) ? (F_A_BYTES + 2 * F_B_BYTES)
-                                                                      : (2 * F_C_BYTES);
-static_assert(F_A_BYTES % 16 == 0 && F_B_BYTES % 16 == 0 && F_C_BYTES % 16 == 0, "alignment");
+constexpr int T_BM = 128;       // rows of a block tile
+constexpr int T_LD = BK + 8;    // 40 floats = 8 mod 16: conflict-free 8-byte fragment loads
+constexpr int T_THREADS = 256;  // 8 warps: 4 along the rows x 2 along the columns
+constexpr int T_STAGES = 4;
 
-// Rows [row0, row0 + 64) x columns [k0, k0 + BK) of a row-major (rows, ld_src) matrix; rows at
-// or past `rows` are zero.
-__device__ inline void load_rows_f32(float* dst, const float* __restrict__ src, int row0,
-                                     int rows, int ld_src, int k0) {
-  constexpr int VPR = BK / 4;
-  for (int i = threadIdx.x; i < 64 * VPR; i += F_THREADS) {
-    const int r = i / VPR, c = (i % VPR) * 4;
-    const int row = row0 + r;
-    float4 val = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    if (row < rows) val = *reinterpret_cast<const float4*>(src + size_t(row) * ld_src + k0 + c);
-    dst[r * F_LDA + c] = val.x;
-    dst[r * F_LDA + c + 1] = val.y;
-    dst[r * F_LDA + c + 2] = val.z;
-    dst[r * F_LDA + c + 3] = val.w;
-  }
+// NB = the B tile's W rows: GEMM1 (GEGLU) 64 h rows over the 64 gate rows, GEMM2 160 output
+// columns (160 divides 320, 640 and 1280; narrower C runs one partial tile).
+template <int NB, bool GEGLU>
+struct TfCfg {
+  static constexpr int OUT_COLS = GEGLU ? NB / 2 : NB;  // output columns of a tile
+  static constexpr int SETS = GEGLU ? 2 : 1;            // accumulator sets: h and gate, or out
+  static constexpr int WN = OUT_COLS / 2;               // output columns of a warp
+  static constexpr int NT = WN / 8;                     // n8 tiles of a warp, per set
+  static constexpr int STAGE_FLOATS = (T_BM + NB) * T_LD;
+  static constexpr size_t SMEM = size_t(T_STAGES) * STAGE_FLOATS * sizeof(float);
+};
+
+// 16-byte async copy; src_bytes = 0 fills the destination with zeros (rows past the edge)
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(hopper::smem_u32(dst)),
+               "l"(src), "r"(src_bytes));
 }
 
-template <bool GEGLU>
-__global__ void __launch_bounds__(F_THREADS)
-gemm_f32(const float* __restrict__ A, const float* __restrict__ W, const float* __restrict__ bias,
-         float* __restrict__ out, int M, int N, int K) {
-  __shared__ __align__(16) unsigned char smem[F_BYTES];
-  float* As = reinterpret_cast<float*>(smem);
-  float* Bs = reinterpret_cast<float*>(smem + F_A_BYTES);
-  float* Gs = reinterpret_cast<float*>(smem + F_A_BYTES + F_B_BYTES);
-  float* Ch = reinterpret_cast<float*>(smem);
-  float* Cg = reinterpret_cast<float*>(smem + F_C_BYTES);
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
 
-  const int m0 = blockIdx.y * F_BM, n0 = blockIdx.x * F_BN;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float ch[8][4] = {}, cg[8][4] = {};
+// out (m, n_out) = epilogue(A (m, k) @ B^T), B = W's rows: GEGLU, h rows j and gate rows
+// n_out + j; else out rows j. Block (x, y) computes the tile at rows 128 y, columns OUT_COLS x;
+// warp (wm, wn) rows 32 wm + [0, 32) and columns WN wn + [0, WN) of it, two m16 tiles by NT n8
+// tiles per set. Each 32-column k panel's products are a fresh tensor-core sum (12 truncating
+// steps: 4 k8 steps of 3 TF32 products), added to the f32 accumulator with one rounded add.
+template <int NB, bool GEGLU>
+__global__ void __launch_bounds__(T_THREADS, 1)
+gemm_tf32(const float* __restrict__ A, const float* __restrict__ W, const float* __restrict__ bias,
+          float* __restrict__ out, int m, int n_out, int k) {
+  using C = TfCfg<NB, GEGLU>;
+  constexpr int NT = C::NT, SETS = C::SETS;
+  extern __shared__ __align__(128) float tsm[];
+  const int m0 = blockIdx.y * T_BM, j0 = blockIdx.x * C::OUT_COLS;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm = warp / 2, wn = warp % 2;
+  const int g = lane / 4, t = lane % 4;
+  const int panels = k / BK;
 
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    __syncthreads();
-    load_rows_f32(As, A, m0, M, K, k0);
-    load_rows_f32(Bs, W, n0, N, K, k0);
-    if constexpr (GEGLU) load_rows_f32(Gs, W + size_t(N) * K, n0, N, K, k0);
-    __syncthreads();
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[8], b[4];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) a[i] = As[(ty * 8 + i) * F_LDA + kk];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bs[(tx * 4 + j) * F_LDA + kk];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) ch[i][j] = fmaf(a[i], b[j], ch[i][j]);
-      if constexpr (GEGLU) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) b[j] = Gs[(tx * 4 + j) * F_LDA + kk];
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) cg[i][j] = fmaf(a[i], b[j], cg[i][j]);
+  // stage `slot` <- k panel kp: the tile's 128 A rows, then its NB W rows
+  auto load_stage = [&](int slot, int kp) {
+    float* As = tsm + slot * C::STAGE_FLOATS;
+    float* Bs = As + T_BM * T_LD;
+    const int k0 = kp * BK;
+    for (int i = threadIdx.x; i < (T_BM + NB) * (BK / 4); i += T_THREADS) {
+      const int r = i / (BK / 4), c = (i % (BK / 4)) * 4;
+      if (r < T_BM) {
+        const bool valid = m0 + r < m;
+        cp_async16_zfill(As + r * T_LD + c, A + size_t(valid ? m0 + r : 0) * k + k0 + c,
+                         valid ? 16 : 0);
+      } else {
+        const int rb = r - T_BM;
+        const int wrow = GEGLU && rb >= C::OUT_COLS ? n_out + j0 + rb - C::OUT_COLS : j0 + rb;
+        const bool valid = GEGLU || wrow < n_out;  // GEGLU: n_out = 4C, a multiple of 64
+        cp_async16_zfill(Bs + rb * T_LD + c, W + size_t(valid ? wrow : 0) * k + k0 + c,
+                         valid ? 16 : 0);
       }
     }
+  };
+
+  float acc[SETS][2][NT][4], part[SETS][2][NT][4];
+#pragma unroll
+  for (int p = 0; p < SETS; ++p)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j) acc[p][i][j][0] = acc[p][i][j][1] = acc[p][i][j][2] =
+          acc[p][i][j][3] = 0.0f;
+
+#pragma unroll
+  for (int st = 0; st < T_STAGES - 1; ++st) {
+    if (st < panels) load_stage(st, st);
+    attn::cp_async_commit();
   }
-  __syncthreads();  // the output tiles alias the operand tiles
+  for (int kp = 0; kp < panels; ++kp) {
+    cp_async_wait<T_STAGES - 2>();  // panel kp has landed
+    __syncthreads();                // ... and every warp is done with the slot refilled below
+    if (kp + T_STAGES - 1 < panels) load_stage((kp + T_STAGES - 1) % T_STAGES, kp + T_STAGES - 1);
+    attn::cp_async_commit();
+
+    const float* As = tsm + (kp % T_STAGES) * C::STAGE_FLOATS;
+    const float* Bs = As + T_BM * T_LD;
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+    for (int ks = 0; ks < BK / 8; ++ks) {
+      uint32_t ah[2][4], al[2][4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int off = (ty * 8 + i) * F_LDC + tx * 4 + j;
-      Ch[off] = ch[i][j];
-      if constexpr (GEGLU) Cg[off] = cg[i][j];
+      for (int i = 0; i < 2; ++i)
+        attn::load_a_3xtf32(ah[i], al[i], As, T_LD, 32 * wm + 16 * i, 8 * ks, g, t);
+#pragma unroll
+      for (int p = 0; p < SETS; ++p)
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          // W stored (n, k) row-major is the col-major B operand, in the permuted k order
+          const float2 bp = *reinterpret_cast<const float2*>(
+              Bs + (p * C::OUT_COLS + wn * C::WN + 8 * j + g) * T_LD + 8 * ks + 2 * t);
+          uint32_t bh0, bl0, bh1, bl1;
+          attn::split_tf32(bp.x, bh0, bl0);
+          attn::split_tf32(bp.y, bh1, bl1);
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {  // the small products first
+            if (ks == 0) {
+              attn::mma_tf32_first(part[p][i][j], al[i], bh0, bh1);
+            } else {
+              attn::mma_tf32(part[p][i][j], al[i], bh0, bh1);
+            }
+            attn::mma_tf32(part[p][i][j], ah[i], bl0, bl1);
+            attn::mma_tf32(part[p][i][j], ah[i], bh0, bh1);
+          }
+        }
     }
-  __syncthreads();
-  for (int i = threadIdx.x; i < F_BM * F_BN; i += F_THREADS) {
-    const int r = i / F_BN, c = i % F_BN;
-    const int row = m0 + r, col = n0 + c;
-    if (row >= M || col >= N) continue;
-    float h = Ch[r * F_LDC + c] + bias[col];
-    if constexpr (GEGLU) h = gelu_gate(h, Cg[r * F_LDC + c] + bias[N + col]);
-    out[size_t(row) * N + col] = h;
+#pragma unroll
+    for (int p = 0; p < SETS; ++p)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[p][i][j][e] += part[p][i][j][e];
+  }
+
+  // accumulator layout: acc[p][i][j] holds rows 32 wm + 16 i + g (elements 0, 1) and + 8 (2, 3),
+  // columns WN wn + 8 j + 2 t (+ 1) of the tile
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    const int col = j0 + wn * C::WN + 8 * j + 2 * t;
+    if (!GEGLU && col >= n_out) continue;  // n_out is even: col + 1 < n_out too
+    const float2 b0 = *reinterpret_cast<const float2*>(bias + col);
+    float2 bg = make_float2(0.0f, 0.0f);
+    if constexpr (GEGLU) bg = *reinterpret_cast<const float2*>(bias + n_out + col);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = m0 + 32 * wm + 16 * i + g + 8 * h;
+        if (row >= m) continue;  // rows past N: zero-filled A rows, not stored
+        float y0 = acc[0][i][j][2 * h] + b0.x, y1 = acc[0][i][j][2 * h + 1] + b0.y;
+        if constexpr (GEGLU) {
+          y0 = gelu_gate(y0, acc[SETS - 1][i][j][2 * h] + bg.x);
+          y1 = gelu_gate(y1, acc[SETS - 1][i][j][2 * h + 1] + bg.y);
+        }
+        *reinterpret_cast<float2*>(out + size_t(row) * n_out + col) = make_float2(y0, y1);
+      }
   }
 }
 
-template <bool GEGLU>
-cudaError_t gemm(cudaStream_t st, const float* A, const float* W, const float* bias, float* out,
-                 int M, int N, int K) {
-  const dim3 grid((N + F_BN - 1) / F_BN, (M + F_BM - 1) / F_BM);
-  gemm_f32<GEGLU><<<grid, F_THREADS, 0, st>>>(A, W, bias, out, M, N, K);
+template <int NB, bool GEGLU>
+cudaError_t gemm_3xtf32(const void* a, const void* w, const void* bias, void* out, int m,
+                        int n_out, int k, cudaStream_t stream) {
+  using C = TfCfg<NB, GEGLU>;
+  cudaError_t err = cudaFuncSetAttribute(gemm_tf32<NB, GEGLU>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(C::SMEM));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((n_out + C::OUT_COLS - 1) / C::OUT_COLS, (m + T_BM - 1) / T_BM);
+  gemm_tf32<NB, GEGLU><<<grid, T_THREADS, C::SMEM, stream>>>(
+      static_cast<const float*>(a), static_cast<const float*>(w), static_cast<const float*>(bias),
+      static_cast<float*>(out), m, n_out, k);
   return cudaGetLastError();
 }
 
 cudaError_t launch_f32(const void* x, const void* w1, const void* b1, const void* w2,
                        const void* b2, void* y, void* out, int n, int c, cudaStream_t st) {
-  const int hidden = 4 * c;
-  cudaError_t err = gemm<true>(st, static_cast<const float*>(x), static_cast<const float*>(w1),
-                               static_cast<const float*>(b1), static_cast<float*>(y), n, hidden, c);
+  cudaError_t err = gemm_3xtf32<128, true>(x, w1, b1, y, n, 4 * c, c, st);
   if (err != cudaSuccess) return err;
-  return gemm<false>(st, static_cast<const float*>(y), static_cast<const float*>(w2),
-                     static_cast<const float*>(b2), static_cast<float*>(out), n, c, hidden);
+  return gemm_3xtf32<160, false>(y, w2, b2, out, n, c, 4 * c, st);
 }
 
 }  // namespace
@@ -411,7 +501,7 @@ extern "C" {
 // and 0 < ceil(n / 64) <= 65535.
 int geglu_ff_fwd(const void* x, const void* w1, const void* b1, const void* w2, const void* b2,
                  void* y, void* out, int n, int c, int dtype, void* stream) {
-  if (n <= 0 || (n + F_BM - 1) / F_BM > 65535 || c <= 0 || c % BK != 0)
+  if (n <= 0 || (n + 63) / 64 > 65535 || c <= 0 || c % BK != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1) return static_cast<int>(launch_bf16(x, w1, b1, w2, b2, y, out, n, c, st));

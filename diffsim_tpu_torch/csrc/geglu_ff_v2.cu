@@ -1,10 +1,14 @@
-// The previous (v2) design of K2's bf16 path, kept only as a yardstick: chip_smoke.py times the
-// redesigned kernels (geglu_ff.cu) against it in the same run, on the same inputs. No path of the
-// port calls it. Its design, as PERF.md describes it: two tiled GEMM kernels on mma.sync.m16n8k16
-// with f32 accumulation, 128-row block tiles of 8 warps (4 x 2, each 32 rows x 32 output
-// columns), ldmatrix fragments and a 3-stage cp.async pipeline over 32-deep k slices: (a) x @ W1^T
-// with the h columns j and the gate columns 4C + j in one block tile and the GEGLU epilogue
-// (CUDA's erff) on the accumulators, writing y (N, 4C); (b) y @ W2^T + b2.
+// The previous designs of K2's two paths, kept only as yardsticks: chip_smoke.py times the
+// redesigned kernels (geglu_ff.cu) against them in the same run, on the same inputs. No path of
+// the port calls them. Their designs, as PERF.md describes them, both two GEMM kernels, (a)
+// x @ W1^T with the h columns j and the gate columns 4C + j in one block tile and the GEGLU
+// epilogue (CUDA's erff) on the accumulators, writing y (N, 4C), then (b) y @ W2^T + b2:
+//   * bf16 v2 (geglu_ff_v2_fwd): mma.sync.m16n8k16 with f32 accumulation, 128-row block tiles of
+//     8 warps (4 x 2, each 32 rows x 32 output columns), ldmatrix fragments and a 3-stage
+//     cp.async pipeline over 32-deep k slices;
+//   * float32 v1, the first design of the float32 path (geglu_ff_f32_v1_fwd): 64 x 64 block
+//     tiles of 128 threads, each thread an 8 x 4 patch of plain FMAs over 32-deep k slices in
+//     shared memory, bound by the 67 TFLOP/s FP32 SIMT rate.
 //
 // C interface (loaded with ctypes): every entry point returns cudaGetLastError().
 
@@ -200,6 +204,107 @@ cudaError_t gemm(cudaStream_t st, const bf16* A, const bf16* W, const bf16* bias
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// float32 v1: 64x64 tiles, plain FMAs, each thread an 8x4 patch
+// ---------------------------------------------------------------------------
+
+constexpr int F_BM = 64, F_BN = 64, F_THREADS = 128;
+constexpr int F_LDA = BK + 1;   // odd pad: conflict-free scalar reads
+constexpr int F_LDC = F_BN + 4;
+constexpr int F_A_BYTES = F_BM * F_LDA * sizeof(float);
+constexpr int F_B_BYTES = F_BN * F_LDA * sizeof(float);
+constexpr int F_C_BYTES = F_BM * F_LDC * sizeof(float);
+// the output tiles (h and gate) reuse the operand tiles' memory after the k-loop
+constexpr int F_BYTES = (F_A_BYTES + 2 * F_B_BYTES) > (2 * F_C_BYTES) ? (F_A_BYTES + 2 * F_B_BYTES)
+                                                                      : (2 * F_C_BYTES);
+static_assert(F_A_BYTES % 16 == 0 && F_B_BYTES % 16 == 0 && F_C_BYTES % 16 == 0, "alignment");
+
+// Rows [row0, row0 + 64) x columns [k0, k0 + BK) of a row-major (rows, ld_src) matrix; rows at
+// or past `rows` are zero.
+__device__ inline void load_rows_f32(float* dst, const float* __restrict__ src, int row0,
+                                     int rows, int ld_src, int k0) {
+  constexpr int VPR = BK / 4;
+  for (int i = threadIdx.x; i < 64 * VPR; i += F_THREADS) {
+    const int r = i / VPR, c = (i % VPR) * 4;
+    const int row = row0 + r;
+    float4 val = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (row < rows) val = *reinterpret_cast<const float4*>(src + size_t(row) * ld_src + k0 + c);
+    dst[r * F_LDA + c] = val.x;
+    dst[r * F_LDA + c + 1] = val.y;
+    dst[r * F_LDA + c + 2] = val.z;
+    dst[r * F_LDA + c + 3] = val.w;
+  }
+}
+
+template <bool GEGLU>
+__global__ void __launch_bounds__(F_THREADS)
+gemm_f32(const float* __restrict__ A, const float* __restrict__ W, const float* __restrict__ bias,
+         float* __restrict__ out, int M, int N, int K) {
+  __shared__ __align__(16) unsigned char smem[F_BYTES];
+  float* As = reinterpret_cast<float*>(smem);
+  float* Bs = reinterpret_cast<float*>(smem + F_A_BYTES);
+  float* Gs = reinterpret_cast<float*>(smem + F_A_BYTES + F_B_BYTES);
+  float* Ch = reinterpret_cast<float*>(smem);
+  float* Cg = reinterpret_cast<float*>(smem + F_C_BYTES);
+
+  const int m0 = blockIdx.y * F_BM, n0 = blockIdx.x * F_BN;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  float ch[8][4] = {}, cg[8][4] = {};
+
+  for (int k0 = 0; k0 < K; k0 += BK) {
+    __syncthreads();
+    load_rows_f32(As, A, m0, M, K, k0);
+    load_rows_f32(Bs, W, n0, N, K, k0);
+    if constexpr (GEGLU) load_rows_f32(Gs, W + size_t(N) * K, n0, N, K, k0);
+    __syncthreads();
+    for (int kk = 0; kk < BK; ++kk) {
+      float a[8], b[4];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) a[i] = As[(ty * 8 + i) * F_LDA + kk];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) b[j] = Bs[(tx * 4 + j) * F_LDA + kk];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) ch[i][j] = fmaf(a[i], b[j], ch[i][j]);
+      if constexpr (GEGLU) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) b[j] = Gs[(tx * 4 + j) * F_LDA + kk];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) cg[i][j] = fmaf(a[i], b[j], cg[i][j]);
+      }
+    }
+  }
+  __syncthreads();  // the output tiles alias the operand tiles
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int off = (ty * 8 + i) * F_LDC + tx * 4 + j;
+      Ch[off] = ch[i][j];
+      if constexpr (GEGLU) Cg[off] = cg[i][j];
+    }
+  __syncthreads();
+  for (int i = threadIdx.x; i < F_BM * F_BN; i += F_THREADS) {
+    const int r = i / F_BN, c = i % F_BN;
+    const int row = m0 + r, col = n0 + c;
+    if (row >= M || col >= N) continue;
+    float h = Ch[r * F_LDC + c] + bias[col];
+    if constexpr (GEGLU) h = gelu_gate(h, Cg[r * F_LDC + c] + bias[N + col]);
+    out[size_t(row) * N + col] = h;
+  }
+}
+
+template <bool GEGLU>
+cudaError_t gemm_v1(cudaStream_t st, const float* A, const float* W, const float* bias,
+                    float* out, int M, int N, int K) {
+  const dim3 grid((N + F_BN - 1) / F_BN, (M + F_BM - 1) / F_BM);
+  gemm_f32<GEGLU><<<grid, F_THREADS, 0, st>>>(A, W, bias, out, M, N, K);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -217,6 +322,23 @@ int geglu_ff_v2_fwd(const void* x, const void* w1, const void* b1, const void* w
   if (err == cudaSuccess)
     err = gemm<false>(st, static_cast<const bf16*>(y), static_cast<const bf16*>(w2),
                       static_cast<const bf16*>(b2), static_cast<bf16*>(out), n, c, hidden);
+  return static_cast<int>(err);
+}
+
+// The same on contiguous float32 tensors, through the float32 v1 design. Requires c % 32 == 0
+// and 0 < ceil(n / 64) <= 65535.
+int geglu_ff_f32_v1_fwd(const void* x, const void* w1, const void* b1, const void* w2,
+                        const void* b2, void* y, void* out, int n, int c, void* stream) {
+  if (n <= 0 || (n + F_BM - 1) / F_BM > 65535 || c <= 0 || c % BK != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int hidden = 4 * c;
+  cudaError_t err = gemm_v1<true>(st, static_cast<const float*>(x), static_cast<const float*>(w1),
+                                  static_cast<const float*>(b1), static_cast<float*>(y), n,
+                                  hidden, c);
+  if (err == cudaSuccess)
+    err = gemm_v1<false>(st, static_cast<const float*>(y), static_cast<const float*>(w2),
+                         static_cast<const float*>(b2), static_cast<float*>(out), n, c, hidden);
   return static_cast<int>(err);
 }
 

@@ -1,8 +1,9 @@
 """Hand-written CUDA kernels of the port and their plain PyTorch versions.
 
-Every wrapper counts its launches in an integer attribute ``<wrapper>.launches``;
-:func:`launch_counts` and :func:`reset_launch_counts` read and clear them all. K1 and K4 also count
-the launches that took their ``bf16_probs`` mode (:func:`bf16_probs_launch_counts`).
+Every wrapper counts its launches in an integer attribute ``<wrapper>.launches`` and those on
+float32 tensors in ``<wrapper>.launches_float32``; :func:`launch_counts`,
+:func:`float32_launch_counts` and :func:`reset_launch_counts` read and clear them all. K1 and K4
+also count the launches that took their ``bf16_probs`` mode (:func:`bf16_probs_launch_counts`).
 """
 
 from __future__ import annotations
@@ -25,6 +26,10 @@ def launch_counts() -> dict[str, int]:
     return {name: fn.launches for name, fn in WRAPPERS.items()}
 
 
+def float32_launch_counts() -> dict[str, int]:
+    return {name: fn.launches_float32 for name, fn in WRAPPERS.items()}
+
+
 def bf16_probs_launch_counts() -> dict[str, int]:
     return {name: WRAPPERS[name].launches_bf16_probs for name in BF16_PROBS}
 
@@ -32,5 +37,6 @@ def bf16_probs_launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
+        fn.launches_float32 = 0
     for name in BF16_PROBS:
         WRAPPERS[name].launches_bf16_probs = 0

@@ -118,7 +118,8 @@ def fused_self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     requires grad, the call goes through :class:`FusedSelfAttention`.
 
     CUDA: contiguous bf16 or float32 tensors of one shape, S % 64 == 0, D % 8 == 0, D <= 160.
-    Counts one launch in ``fused_self_attention.launches`` and, in the fast mode, one in
+    Counts one launch in ``fused_self_attention.launches``, in float32 one in
+    ``fused_self_attention.launches_float32`` and, in the fast mode, one in
     ``fused_self_attention.launches_bf16_probs``."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return FusedSelfAttention.apply(q, k, v, bf16_probs)
@@ -155,9 +156,11 @@ def _dispatch(q, k, v, bf16_probs: bool) -> torch.Tensor:
                                      int(bf16_probs), stream)
     build.check(lib, rc, "fused_self_attention")
     fused_self_attention.launches += 1
+    fused_self_attention.launches_float32 += int(q.dtype == torch.float32)
     fused_self_attention.launches_bf16_probs += int(bf16_probs)
     return out
 
 
 fused_self_attention.launches = 0
+fused_self_attention.launches_float32 = 0
 fused_self_attention.launches_bf16_probs = 0

@@ -93,7 +93,8 @@ def streaming_self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     CUDA: contiguous tensors of one shape, S % 64 == 0, D <= 512; float32 with D % 64 == 0,
     bf16 with D % 8 == 0 (the SDXL VAE's mid attention is (B, 1, 16384, 512)).
-    Counts one launch in ``streaming_self_attention.launches`` and, in the fast mode, one in
+    Counts one launch in ``streaming_self_attention.launches``, in float32 one in
+    ``streaming_self_attention.launches_float32`` and, in the fast mode, one in
     ``streaming_self_attention.launches_bf16_probs``. Not differentiable, as the TPU kernel is
     not: under grad, on inputs that require it, the call raises."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
@@ -130,9 +131,11 @@ def streaming_self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                          _DTYPES[q.dtype], int(bf16_probs), stream)
     build.check(lib, rc, "streaming_self_attention")
     streaming_self_attention.launches += 1
+    streaming_self_attention.launches_float32 += int(q.dtype == torch.float32)
     streaming_self_attention.launches_bf16_probs += int(bf16_probs)
     return out
 
 
 streaming_self_attention.launches = 0
+streaming_self_attention.launches_float32 = 0
 streaming_self_attention.launches_bf16_probs = 0

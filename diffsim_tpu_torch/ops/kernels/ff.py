@@ -1,9 +1,10 @@
 """K2 ``fused_geglu_ff``: the transformer GEGLU feed-forward.
 
 Replaces the TPU kernel ``diffsim_tpu/ops/pallas/ff.py:fused_geglu_ff``. The CUDA kernels are
-``csrc/geglu_ff.cu`` (design and bound in its header). Weights are in the nn.Linear (out, in)
-layout: W1 (8C, C), W2 (C, 4C). On a CPU tensor the wrapper runs :func:`fused_geglu_ff_plain`;
-on a CUDA tensor it launches the kernels or raises.
+``csrc/geglu_ff.cu`` (design and bound in its header): ``wgmma`` GEMMs in bf16, 3xTF32
+``mma.sync`` GEMMs in float32. Weights are in the nn.Linear (out, in) layout: W1 (8C, C),
+W2 (C, 4C). On a CPU tensor the wrapper runs :func:`fused_geglu_ff_plain`; on a CUDA tensor it
+launches the kernels or raises.
 
 Under grad the call goes through :class:`FusedGegluFF`, whose backward
 :func:`fused_geglu_ff_bwd_plain` ports the TPU kernel's custom VJP (``_fused_bwd``,
@@ -70,9 +71,10 @@ class FusedGegluFF(torch.autograd.Function):
 
 def kernel_takes(n: int, c: int) -> bool:
     """The shape contract of the CUDA kernels, both dtypes: C % 32 == 0 (the bf16 kernels read
-    64-column k panels, TMA zero-filling the last half panel when C % 64 == 32; y has 4C columns,
-    a multiple of their 64-column tiles) and 0 < ceil(N / 64) <= 65535 (the float32 grid); any N
-    in that range, the bf16 kernels zero-filling the rows past N of their 128-row tiles."""
+    64-column k panels, TMA zero-filling the last half panel when C % 64 == 32, the float32
+    kernels 32-column ones; y has 4C columns, a multiple of their 64-column tiles) and
+    0 < ceil(N / 64) <= 65535; any N in that range, the kernels zero-filling the rows past N of
+    their 128-row tiles."""
     return c > 0 and c % 32 == 0 and 0 < n and (n + 63) // 64 <= 65535
 
 
@@ -88,7 +90,8 @@ def _lib() -> ctypes.CDLL:
 def fused_geglu_ff(x, w1, b1, w2, b2) -> torch.Tensor:
     """x (N, C) -> (N, C). CUDA: contiguous tensors of one dtype (bfloat16 or float32) and a
     shape that :func:`kernel_takes`. One call launches the two GEMM kernels and counts one
-    launch in ``fused_geglu_ff.launches``. Differentiable through :class:`FusedGegluFF`."""
+    launch in ``fused_geglu_ff.launches`` (and, in float32, one in
+    ``fused_geglu_ff.launches_float32``). Differentiable through :class:`FusedGegluFF`."""
     tensors = (x, w1, b1, w2, b2)
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         return FusedGegluFF.apply(*tensors)
@@ -128,7 +131,9 @@ def _dispatch(x, w1, b1, w2, b2) -> torch.Tensor:
                               _DTYPES[x.dtype], stream)
     build.check(lib, rc, "fused_geglu_ff")
     fused_geglu_ff.launches += 1
+    fused_geglu_ff.launches_float32 += int(x.dtype == torch.float32)
     return out
 
 
 fused_geglu_ff.launches = 0
+fused_geglu_ff.launches_float32 = 0

@@ -4,10 +4,12 @@ Replaces the TPU kernel ``diffsim_tpu/ops/pallas/readout.py:cross_self_partials`
 caller ``fused_direction_score``. For each row of N = P*B*H the kernel computes the cross and
 the self attention of the same queries and reduces them at once to the similarity partials
 sum(o1*o2), sum(o1^2), sum(o2^2) (cosine) or sum((o1-o2)^2) (mse), so neither attention output
-is written to device memory. The CUDA kernel is ``csrc/fused_readout.cu`` (design and bound in
-its header); it writes one f32 triple per (row, 64-row q tile), and torch sums them in a fixed
-order, so scores repeat exactly from run to run. On a CPU tensor the wrapper runs
-:func:`cross_self_partials_plain`; on a CUDA tensor it launches the kernel or raises.
+is written to device memory. The CUDA kernels are ``csrc/fused_readout.cu`` (bf16, ``wgmma``)
+and ``csrc/fused_readout_f32.cu`` (float32, 3xTF32 ``mma.sync``), each its own library with
+the entry point ``fused_readout_fwd`` (design and bound in their headers); each writes one f32
+triple per (row, 64-row q tile), and torch sums them in a fixed order, so scores repeat exactly
+from run to run. On a CPU tensor the wrapper runs :func:`cross_self_partials_plain`; on a CUDA
+tensor it launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch
 from diffsim_tpu_torch.ops.kernels import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_LIBRARIES = {torch.float32: "fused_readout_f32", torch.bfloat16: "fused_readout"}
 _COS_EPS = 1e-8
 _Q_TILE = 64
 
@@ -45,8 +48,8 @@ def cross_self_partials_plain(q, k_cross, v_cross, k_self, v_self, mse: bool = F
     return _partials(attn(k_cross, v_cross), attn(k_self, v_self), mse)
 
 
-def _lib() -> ctypes.CDLL:
-    lib = build.library("fused_readout")
+def _lib(dtype: torch.dtype) -> ctypes.CDLL:
+    lib = build.library(_LIBRARIES[dtype])
     if lib.fused_readout_fwd.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.fused_readout_fwd.argtypes = [p, p, p, p, p, p, i, i, i, ctypes.c_float, i, i, p]
@@ -58,7 +61,8 @@ def cross_self_partials(q, k_cross, v_cross, k_self, v_self, mse: bool = False):
     """(N, S, D) rows -> three (N,) f32 partial sums, as :func:`cross_self_partials_plain`.
 
     CUDA: contiguous bf16 or float32 tensors of one shape, S % 64 == 0, D % 8 == 0, D <= 128.
-    Counts one launch in ``cross_self_partials.launches``. Not differentiable, as the TPU
+    Counts one launch in ``cross_self_partials.launches`` (and, in float32, one in
+    ``cross_self_partials.launches_float32``). Not differentiable, as the TPU
     kernel is not: under grad, on inputs that require it, the call raises."""
     tensors = (q, k_cross, v_cross, k_self, v_self)
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
@@ -82,18 +86,20 @@ def cross_self_partials(q, k_cross, v_cross, k_self, v_self, mse: bool = False):
         raise ValueError(f"cross_self_partials: shape {(n, s, d)} not supported by the kernel "
                          "(S % 64 == 0, D % 8 == 0, D <= 128, N <= 65535)")
     out = torch.empty((n, s // _Q_TILE, 3), dtype=torch.float32, device=q.device)
-    lib = _lib()
+    lib = _lib(q.dtype)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.fused_readout_fwd(*(t.data_ptr() for t in tensors), out.data_ptr(), n, s, d,
                                    float(d**-0.5), _DTYPES[q.dtype], int(mse), stream)
     build.check(lib, rc, "cross_self_partials")
     cross_self_partials.launches += 1
+    cross_self_partials.launches_float32 += int(q.dtype == torch.float32)
     sums = out.sum(dim=1)
     return sums[:, 0], sums[:, 1], sums[:, 2]
 
 
 cross_self_partials.launches = 0
+cross_self_partials.launches_float32 = 0
 
 
 def _direction_score(partials, qa, ka, va, kb, vb, similarity: str) -> torch.Tensor:

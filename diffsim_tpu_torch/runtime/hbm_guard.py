@@ -15,8 +15,9 @@ Estimate = static + per_triplet * chunk:
   same bytes at 512 px in bf16 and 1024 px in float32; the peak of a small chunk is the encode's,
   not the UNet's), and :data:`RESERVE_BYTES` for what ``torch.cuda.max_memory_allocated`` does
   not see (the CUDA context, cuBLAS and cuDNN workspaces) and the prompt tables;
-* per_triplet: :data:`PER_TRIPLET_BYTES_512` for SD-1.5 at 512 px, scaled by
-  (img_size / 512)^2 (activations are spatial) and the scorer's ``hbm_scale``;
+* per_triplet: :data:`PER_TRIPLET_BYTES_512` for SD-1.5 at 512 px in bf16, scaled by
+  (img_size / 512)^2 (activations are spatial), the scorer's ``hbm_scale`` and, for a scorer
+  built with ``dtype=torch.float32``, :data:`FLOAT32_SCALE`;
 * :data:`MARGIN` of the budget may be filled; the rest is the caching allocator's slack.
 
 The budget is the card's total memory (``torch.cuda.mem_get_info``). ``DIFFSIM_TPU_HBM_GB``
@@ -30,11 +31,15 @@ import os
 
 import torch
 
-# Both measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 at a 700 W power limit, and held
+# Each measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 at a 700 W power limit, and held
 # there above what it measures in the same run. The device memory one SD-1.5 triplet adds to the
 # scoring tail (UNet to the tap and readout) at 512 px in bf16: the slope of
 # torch.cuda.max_memory_allocated between 8 and 16 triplets, 0.342 GB, rounded up.
 PER_TRIPLET_BYTES_512 = 0.4e9
+# A float32 scorer's per-triplet bytes over its bf16 counterpart's: the float32 SD-1.5 tail's
+# slope, 0.438 GB a triplet, over bf16's 0.342 is 1.28 (part of the bf16 tail is float32
+# already: logits, softmax statistics, the readout's sums), rounded up.
+FLOAT32_SCALE = 1.5
 # the peak of one VAE encode slice, rounded up: 11.84 GB for SD-1.5's 16 images at 512 px in
 # bf16, 7.54 GB for SDXL's 2 images at 1024 px in float32
 ENCODE_BYTES = 12.5e9
@@ -78,7 +83,8 @@ def scorer_static_bytes(scorer) -> float:
 
 def per_triplet_bytes(scorer) -> float:
     """Peak bytes one triplet adds to a chunk of the scorer's triplet path."""
-    return PER_TRIPLET_BYTES_512 * scorer.hbm_scale * (scorer.img_size / 512.0) ** 2
+    scale = FLOAT32_SCALE if scorer.dtype == torch.float32 else 1.0
+    return PER_TRIPLET_BYTES_512 * scorer.hbm_scale * (scorer.img_size / 512.0) ** 2 * scale
 
 
 def max_triplets(scorer) -> int | None:
