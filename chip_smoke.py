@@ -34,6 +34,15 @@ Phases, each of which fails the run (non-zero exit, no result line) if anything 
    time and its previous design (v2) beside it; in bf16 also at (4, 1, 16384, 512), at the
    768 px (2, 1, 9216, 512) and over D 168-512 at S = 8192 (atol 2e-3, rtol 1e-2), and on sharp
    logits (atol = rtol = 1e-2) beside a control, one 32-key slice left out, that must fail it;
+6b. K4 wide heads (``csrc/streaming_attention_wide.cu``): at (2, 1, 16384, 1024) and (2, 1, 16384,
+   768) in float32 (atol 1e-5) and bf16 (atol 2e-3, rtol 1e-2), in both modes (the bf16_probs
+   mode within 1e-2 of the plain version and against the kernels' own rounding), timed beside
+   SDPA and the bound; at S = 8192 over D 520-1024 in both dtypes and float32 D 168, 200, 328;
+   on sharp logits at (1, 1, 8192, 1024) in bf16 beside its control; and through a VAE encoder
+   whose last block is 1024 wide (``VAEConfig(block_out_channels=(128, 256, 512, 1024))``) at
+   1024 px on 2 images in float32 and bf16: 1 K4 launch a chunk, the moments held to the same
+   encode with the plain K4 beside a control (V in place of the attention) that must fail the
+   limit;
 7. end-to-end correctness, card vs CPU from one seeded numpy weight tree and one
    ``noise_override``, in float32 with TF32 off: a tiny ``DiffSimSD15`` at 32 px (K1, K2), a
    tiny ``DiffSimXL`` at 256 px (all four kernels) and a tiny ``DiffSimDiT`` at 128 px whose tap
@@ -248,7 +257,7 @@ from diffsim_tpu_torch.metrics.ffa import (
 from diffsim_tpu_torch.metrics.lpips import LPIPS, LPIPSNet
 from diffsim_tpu_torch.metrics.sam_masking import SamMasking, infer_config, resampled_logits
 from diffsim_tpu_torch.metrics.vgg_gram import VGGGram
-from diffsim_tpu_torch.metrics.scorer_base import to_device_pixels
+from diffsim_tpu_torch.metrics.scorer_base import build_module, to_device_pixels
 from diffsim_tpu_torch.models.clip_text import CLIPText, CLIPTextConfig
 from diffsim_tpu_torch.models.clip_vision import CLIPVision, CLIPVisionConfig
 from diffsim_tpu_torch.models.dinov2 import Dino, DinoConfig
@@ -257,7 +266,13 @@ from diffsim_tpu_torch.models.ip_adapter import Resampler, ResamplerConfig, attn
 from diffsim_tpu_torch.models.sam import Sam, SamConfig
 from diffsim_tpu_torch.models.u2net import U2Net, U2NetConfig
 from diffsim_tpu_torch.models.unet import UNet, UNetConfig
-from diffsim_tpu_torch.models.vae import Decoder, Encoder, VAEConfig, encode_chunked
+from diffsim_tpu_torch.models.vae import (
+    Decoder,
+    Encoder,
+    VAEConfig,
+    default_chunk,
+    encode_chunked,
+)
 from diffsim_tpu_torch.models.vgg import VGG, VGG16_CFG, VGG19_CFG
 from diffsim_tpu_torch.ops import kernels
 from diffsim_tpu_torch.ops.kernels import attention as kattn
@@ -531,7 +546,8 @@ PLANT_ROWS = 4096  # query rows per reference block
 def planted_qkv(shape, dtype, gen):
     """q, k, v on a 1/8 grid (exact in bf16 and in TF32, so every logit and partial sum is
     exact in float32), with q[..., 0] = 1 and key 0's first component raised by the largest
-    gap any row has to its own max: key 0 holds every row's largest logit."""
+    gap any row has to its own max, to an integer that ``dtype`` holds (bf16 holds only even
+    ones past 256, a gap that wide heads reach): key 0 holds every row's largest logit."""
     q, k, v = ((torch.randn(shape, generator=gen, device=gen.device) * 8).round() / 8
                for _ in range(3))
     q[..., 0] = 1.0
@@ -543,7 +559,10 @@ def planted_qkv(shape, dtype, gen):
         for r0 in range(0, s, PLANT_ROWS):
             logits = qf[i, r0:r0 + PLANT_ROWS] @ kf[i].T
             gap = max(gap, (logits.amax(-1) - logits[:, 0]).max().item())
-    k[:, :, 0, 0] = float(np.ceil(gap))
+    plant = float(np.ceil(gap))
+    while torch.tensor(plant).to(dtype).item() < gap:  # the cast would round it down
+        plant += 1.0
+    k[:, :, 0, 0] = plant
     return q.to(dtype), k.to(dtype), v.to(dtype)
 
 
@@ -1862,6 +1881,182 @@ def k4_fast_phase(gen) -> dict:
         del q, k, v
         torch.cuda.empty_cache()
     return {"rows": rows, "max_abs_err": main_err}
+
+
+# K4 past D = 512 (csrc/streaming_attention_wide.cu): the mid attention of a 1024 px encode of two
+# images by a VAE whose last block is 1024 (768) wide
+K4_WIDE = ((2, 1, 16384, 1024), (2, 1, 16384, 768))
+K4_WIDE_SWEEP = (520, 576, 640, 768, 896, 1024)  # head dims past 512 at S = 8192, both dtypes
+K4_F32_RAGGED = (168, 200, 328)  # float32 head dims that are not multiples of 64, S = 8192
+VAE_WIDE = VAEConfig(block_out_channels=(128, 256, 512, 1024))
+VAE_WIDE_IMAGES = 2
+# the widened encoder's moments against the same encode with the plain K4, |d| / |plain|: in
+# float32 the kernel's own limit (1e-5), with TF32 off (cuDNN's TF32 convolutions round their
+# inputs to 10 bits, so a rounding difference at the mid attention flips roundings after it,
+# each 2^-11 relative); in bf16 the --xl_vae_bf16 check's
+VAE_WIDE_MOMENTS_TOL = {torch.float32: 1e-5, torch.bfloat16: XL_BF16_MOMENTS_TOL}
+VAE_WIDE_PER = (f"one encode of {VAE_WIDE_IMAGES} images at 1024 px by the VAE encoder with "
+                f"block_out_channels {VAE_WIDE.block_out_channels}")
+
+
+def _dtype_name(dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
+def k4_wide_phase(gen) -> dict:
+    phase(f"K4 wide heads (csrc/streaming_attention_wide.cu) vs plain: 512 < D <= 1024 and float32 "
+          f"at D % 64 != 0 (float32 atol 1e-5; bf16 atol {K4_BF16_TOL[0]}, rtol "
+          f"{K4_BF16_TOL[1]}; the bf16_probs mode atol=rtol=1e-2 and vs the kernels' own "
+          "rounding), timed beside SDPA; a D sweep at S = 8192; sharp logits with a control")
+    rows = []
+    errs = {"float32": 0.0, "bfloat16": 0.0}
+    for shape in K4_WIDE:
+        for dtype in (torch.float32, torch.bfloat16):
+            name = _dtype_name(dtype)
+            q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                       for _ in range(3))
+            out = streaming_self_attention(q, k, v)
+            torch.cuda.synchronize()
+            ref = streaming_self_attention_plain(q, k, v)
+            tol = (1e-5, 0.0) if dtype == torch.float32 else K4_BF16_TOL
+            err = check_close(f"K4 wide {shape} {name}", out, ref, *tol)
+            del out, ref
+            fast = streaming_self_attention(q, k, v, True)
+            torch.cuda.synchronize()
+            fast_err = check_close(f"K4 wide bf16_probs {shape} {name}", fast,
+                                   streaming_self_attention_plain(q, k, v, True), 1e-2, 1e-2)
+            del fast
+            errs[name] = max(errs[name], err)
+            row = {"shape": list(shape), "dtype": name, "max_abs_err": err,
+                   "bf16_probs_max_abs_err": fast_err}
+            row["rounding"] = check_rounding(f"K4 wide bf16_probs {shape} {name}",
+                                             streaming_self_attention, shape, dtype, gen,
+                                             K4_SUM_TILE[dtype])
+            torch.cuda.empty_cache()
+            b, h, s, d = shape
+            _timed(row, lambda: streaming_self_attention(q, k, v),
+                   lambda: streaming_self_attention_plain(q, k, v),
+                   4 * b * h * s * s * d, 4 * b * h * s * d * q.element_size(),
+                   library=lambda: F.scaled_dot_product_attention(q, k, v), dtype=dtype,
+                   plain_reps=5, exps=b * h * s * s,
+                   tf32_passes=3.0 if dtype == torch.float32 else 0.0)
+            rows.append(row)
+            del q, k, v
+            torch.cuda.empty_cache()
+    sweep = []
+    for dtype in (torch.float32, torch.bfloat16):
+        dims = K4_F32_RAGGED + K4_WIDE_SWEEP if dtype == torch.float32 else K4_WIDE_SWEEP
+        for d in dims:
+            shape = (1, 1, 8192, d)
+            q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                       for _ in range(3))
+            out = streaming_self_attention(q, k, v)
+            torch.cuda.synchronize()
+            tol = (1e-5, 0.0) if dtype == torch.float32 else K4_BF16_TOL
+            err = check_close(f"K4 wide {shape} {_dtype_name(dtype)} (sweep)", out,
+                              streaming_self_attention_plain(q, k, v), *tol)
+            errs[_dtype_name(dtype)] = max(errs[_dtype_name(dtype)], err)
+            sweep.append({"shape": list(shape), "dtype": _dtype_name(dtype), "max_abs_err": err})
+            del q, k, v, out
+    sharp = k4_sharp_check((1, 1, 8192, 1024), gen)
+    torch.cuda.empty_cache()
+    vae = k4_wide_vae(gen)
+    for row in rows:  # the encode's launches, on the row of its attention's shape
+        if tuple(row["shape"]) == (VAE_WIDE_IMAGES, 1, 16384, VAE_WIDE.block_out_channels[-1]):
+            row["launches_vae_wide_encode"] = vae[row["dtype"]]["launches"]
+    return {"rows": rows, "max_abs_err": errs, "sweep": sweep, "sharp": sharp, "vae": vae}
+
+
+def k4_wide_vae(gen) -> dict:
+    """The widened VAE encoder at 1024 px, random weights from ``gen``, in float32 and bf16: the
+    encode's launches (every count set to 0 just before it), its moments against the same
+    encode with the plain K4 and with the control, V in place of the attention, and its time."""
+    phase(f"K4 wide heads through the VAE encoder with block_out_channels "
+          f"{VAE_WIDE.block_out_channels} at 1024 px, {VAE_WIDE_IMAGES} images, float32 and "
+          "bf16: 1 K4 launch a chunk at (2, 1, 16384, 1024); the moments held to the same encode "
+          "with the plain K4 (|d| / |plain| <= 1e-5 float32 with TF32 off, 1e-2 bf16), a "
+          "control (V in place of the attention) that must fail the limit")
+    from diffsim_tpu_torch.ops import attention as ops_attention
+
+    kernel = ops_attention.streaming_self_attention
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = _dtype_name(dtype)
+        enc = build_module(lambda: Encoder(VAE_WIDE), None, "vae", torch.device("cuda"), dtype,
+                           gen)
+        x = (torch.rand((VAE_WIDE_IMAGES, 3, 1024, 1024), generator=gen, device="cuda") * 2
+             - 1).to(dtype)
+        chunks = -(-VAE_WIDE_IMAGES // default_chunk(x))
+
+        def moments() -> torch.Tensor:
+            with torch.inference_mode():
+                return encode_chunked(enc, x).float()
+
+        with tf32_off() if dtype == torch.float32 else contextlib.nullcontext():
+            kernels.reset_launch_counts()
+            z = moments()
+            torch.cuda.synchronize()
+            counts = kernels.launch_counts()
+            f32_counts = kernels.float32_launch_counts()
+            expected = {**NONE, "streaming_self_attention": chunks}
+            f32_expected = chunks if dtype == torch.float32 else 0
+            print(f"  {name} encode: {chunks} chunk(s) of {default_chunk(x)} images, launches "
+                  f"{counts} (float32 {f32_counts['streaming_self_attention']})", flush=True)
+            if counts != expected or f32_counts["streaming_self_attention"] != f32_expected:
+                raise SystemExit(f"the widened VAE encode launched {counts} (float32 "
+                                 f"{f32_counts}), not {expected}")
+            if z.shape != (VAE_WIDE_IMAGES, 8, 128, 128) or not torch.isfinite(z).all():
+                raise SystemExit(f"the widened VAE encode gave {tuple(z.shape)} moments or "
+                                 "non-finite values")
+            gaps = {}
+            for what, attn in (
+                    ("the plain K4",
+                     lambda q, k, v, bf16_probs=False: streaming_self_attention_plain(
+                         q, k, v, bf16_probs)),
+                    ("the control, V", lambda q, k, v, bf16_probs=False: v)):
+                ops_attention.streaming_self_attention = attn
+                try:
+                    zp = moments()
+                finally:
+                    ops_attention.streaming_self_attention = kernel
+                gaps[what] = ((z - zp).norm() / zp.norm()).item()
+        lim = VAE_WIDE_MOMENTS_TOL[dtype]
+        gap, ctl_gap = gaps.values()
+        ok = gap <= lim and ctl_gap > lim
+        print(f"  {name} moments |d| / |plain K4| = {gap:.3e} (limit {lim:g}); control, V: "
+              f"{ctl_gap:.3e} ({'fails the limit' if ctl_gap > lim else 'within the limit'}) "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise SystemExit(f"the widened VAE encode in {name}: moments {gap:.3e} off the plain "
+                             f"K4's (control {ctl_gap:.3e}, limit {lim:g})")
+        encode_ms = time_ms(moments, reps=3, warmup=1)
+        print(f"  {name} encode {encode_ms:.1f} ms with the default TF32 settings (CUDA events, "
+              "median of 3)", flush=True)
+        out[name] = {"launches": counts["streaming_self_attention"], "chunks": chunks,
+                     "moments_gap": gap, "control_moments_gap": ctl_gap, "limit": lim,
+                     "encode_ms": encode_ms}
+        del enc, x, z, zp
+        torch.cuda.empty_cache()
+    return out
+
+
+def k4_wide_entries(k4_wide: dict) -> list[dict]:
+    """K4's wide rows, one entry a dtype: launches and totals over one widened VAE encode."""
+    entries = []
+    for name, design in (("float32", K4_WIDE_DESIGN), ("bfloat16", K4_WIDE_BF16_DESIGN)):
+        result = {"rows": [r for r in k4_wide["rows"] if r["dtype"] == name],
+                  "max_abs_err": k4_wide["max_abs_err"][name]}
+        entry = kernel_entry(f"streaming_self_attention (wide, {name})",
+                             "diffsim_tpu_torch/csrc/streaming_attention_wide.cu",
+                             "diffsim_tpu/ops/pallas/attention_stream.py:94", design, result,
+                             (k4_wide["vae"][name]["launches"], "launches_vae_wide_encode",
+                              VAE_WIDE_PER))
+        entry["vae_encode"] = k4_wide["vae"][name]
+        entry["sweep"] = [r for r in k4_wide["sweep"] if r["dtype"] == name]
+        if name == "bfloat16":
+            entry["sharp_logits"] = k4_wide["sharp"]
+        entries.append(entry)
+    return entries
 
 
 def guard_slope(name: str, scorer, args, counts, img: int, card_line: str) -> dict:
@@ -4173,6 +4368,11 @@ K4_DESIGN = "3xTF32 mma.sync (float32)"
 K4_BF16_DESIGN = ("wgmma+TMA, 64-row q blocks, 2 consumer warpgroups splitting the keys of Q K^T "
                   "and the 512 output columns, K/V chunks through a 16 KB-slot mbarrier ring, "
                   "P V from shared memory under the next softmax (bf16)")
+K4_WIDE_DESIGN = ("3xTF32 mma.sync, Q and K streamed in 64-column chunks, a 512-column half of "
+                  "the output a block (Q K^T recomputed in each half) (float32)")
+K4_WIDE_BF16_DESIGN = ("wgmma+TMA, K4 bf16's warp roles, a 512-column half of the output a block "
+                       "(Q K^T recomputed in each half), Q resident, each chunk awaited and "
+                       "released in turn (bf16)")
 XL_BF16_PER = (f"one SDXL score_triplet_batch call with --xl_vae_bf16 ({XL_T} triplets, 1024 px), "
                "the sum over its launches")
 K2_F32_DESIGN = ("two 3xTF32 mma.sync GEMMs, 8 warps a 128-row tile, 32-column k panels through "
@@ -4276,6 +4476,7 @@ def main() -> int:
     k4 = k4_phase(gen)
     k1_fast = k1_fast_phase(gen)
     k4_fast = k4_fast_phase(gen)
+    k4_wide = k4_wide_phase(gen)
     k1_grad = k1_grad_phase(gen)
     tiny_phase()
     tiny_xl_phase()
@@ -4368,6 +4569,7 @@ def main() -> int:
                       XL_BF16_PER)),
         fast_k1,
         fast_k4,
+        *k4_wide_entries(k4_wide),
         *train_entries(k1_grad, train["runs"], sampled),
         kernel_entry("fused_geglu_ff (float32)", "diffsim_tpu_torch/csrc/geglu_ff.cu",
                      "diffsim_tpu/ops/pallas/ff.py:75", K2_F32_DESIGN, k2["f32"],
@@ -4430,6 +4632,17 @@ def main() -> int:
         print(f"  K4 bf16 {shape} per launch {row['ms']:.3f} ms (v2 {row['v2_ms']:.3f}, SDPA "
               f"{row['library_ms']:.3f}, bound {row['bound_ms']:.3f}, "
               f"{100 * row['bound_ms'] / row['ms']:.1f} %)", flush=True)
+    for entry in line["kernels"]:
+        if entry["name"].startswith("streaming_self_attention (wide"):
+            for row in entry["shapes"]:
+                print(f"  {entry['name']} {tuple(row['shape'])} per launch {row['ms']:.3f} ms "
+                      f"(SDPA {row['library_ms']:.3f}, bound {row['bound_ms']:.3f}, "
+                      f"{100 * row['bound_ms'] / row['ms']:.1f} %, plain {row['plain_ms']:.3f})",
+                      flush=True)
+            print(f"  {entry['name']}: {entry['launches']} launch(es) a widened VAE encode, "
+                  f"{entry['vae_encode']['encode_ms']:.1f} ms, moments within "
+                  f"{entry['vae_encode']['moments_gap']:.3e} of the plain K4's (control "
+                  f"{entry['vae_encode']['control_moments_gap']:.3e})", flush=True)
     print(f"  SDXL --xl_vae_bf16 triplet call {xl_bf16['call_ms']:.1f} ms, VAE encode "
           f"{xl_bf16['vae_ms']:.1f} ms; against the plain K4's call, scores within "
           f"{xl_bf16['plain_k4_gap']:.3e} and moments {xl_bf16['plain_k4_moments_gap']:.3e} "

@@ -1,9 +1,10 @@
 """AutoencoderKL (the Stable Diffusion VAE), NCHW inside.
 
 Counterpart of ``diffsim_tpu/models/vae.py``: the encoder, which the scorers and the DiT trainer
-run, and the decoder, which the DiT sampler runs. The mid attention is single-head at d = 512; at
-up to 4096 tokens (512 px) it takes the math path, as in the JAX package; at >= 8192 tokens
-(1024 px, the SDXL path) it runs the K4 streaming kernel (``ops/kernels/attention_stream.py``).
+run, and the decoder, which the DiT sampler runs. The mid attention is single-head at d = the
+last block's width (512 in ``sd()`` and ``sdxl()``); at up to 4096 tokens (512 px) it takes the
+math path, as in the JAX package; at >= 8192 tokens (1024 px, the SDXL path) it runs the K4
+streaming kernel (``ops/kernels/attention_stream.py``), which takes d up to 1024.
 """
 
 from __future__ import annotations

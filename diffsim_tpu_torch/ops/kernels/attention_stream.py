@@ -1,11 +1,15 @@
 """K4 ``streaming_self_attention``: square self-attention for wide heads and long sequences.
 
 Replaces the TPU kernel ``diffsim_tpu/ops/pallas/attention_stream.py:streaming_self_attention``,
-both its exact mode and its ``bf16_probs`` fast mode. The CUDA kernel is
-``csrc/streaming_attention.cu`` (design and bound in its header): float32 as three TF32 products
-(3xTF32) on ``mma.sync``, bf16 on ``wgmma`` + TMA with a 64-row q block whose two consumer
-warpgroups split the keys of Q K^T and the output columns of P V. On a CPU tensor the wrapper
-runs :func:`streaming_self_attention_plain`; on a CUDA tensor it launches the kernel or raises.
+both its exact mode and its ``bf16_probs`` fast mode, at every width its route admits with
+D % 8 == 0. The CUDA kernels (design and bound in each header) are two libraries with one entry
+point, ``streaming_attention_fwd``: ``csrc/streaming_attention.cu`` for D <= 512 (float32 at
+D % 64 == 0, as three TF32 products (3xTF32) on ``mma.sync``; bf16 on ``wgmma`` + TMA with a
+64-row q block whose two consumer warpgroups split the keys of Q K^T and the output columns of
+P V), and ``csrc/streaming_attention_wide.cu`` for the rest (512 < D <= 1024 in both dtypes, and
+float32 at D % 64 != 0), whose blocks each own a 512-column half of the output. On a CPU tensor
+the wrapper runs :func:`streaming_self_attention_plain`; on a CUDA tensor it launches a kernel
+or raises.
 """
 
 from __future__ import annotations
@@ -22,6 +26,8 @@ from diffsim_tpu_torch.ops.kernels.attention import (
 )
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_DIM = 1024  # the route's widest head (routes.use_streaming)
+NARROW_DIM = 512  # the widest head of csrc/streaming_attention.cu
 _PLAIN_BLOCK_Q = 2048  # query rows per step of the plain version: bounds its logits buffer
 
 
@@ -77,8 +83,17 @@ def streaming_self_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Te
     return out
 
 
-def _lib() -> ctypes.CDLL:
-    lib = build.library("streaming_attention")
+def library_name(d: int, dtype: torch.dtype) -> str:
+    """The library whose kernel takes a head of width ``d``: ``streaming_attention`` up to 512
+    (float32 at D % 64 == 0), ``streaming_attention_wide`` past 512 and for float32's other
+    widths."""
+    if d > NARROW_DIM or (dtype == torch.float32 and d % 64):
+        return "streaming_attention_wide"
+    return "streaming_attention"
+
+
+def _lib(name: str) -> ctypes.CDLL:
+    lib = build.library(name)
     if lib.streaming_attention_fwd.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.streaming_attention_fwd.argtypes = [p, p, p, p, i, i, i, ctypes.c_float, i, i, p]
@@ -91,8 +106,8 @@ def streaming_self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """(B, H, S, D) self-attention, softmax scale 1/sqrt(D), output in V's dtype;
     ``bf16_probs`` selects the fast mode.
 
-    CUDA: contiguous tensors of one shape, S % 64 == 0, D <= 512; float32 with D % 64 == 0,
-    bf16 with D % 8 == 0 (the SDXL VAE's mid attention is (B, 1, 16384, 512)).
+    CUDA: contiguous tensors of one shape, S % 64 == 0, D % 8 == 0, D <= 1024 (the SDXL VAE's
+    mid attention is (B, 1, 16384, 512); a VAE whose last block is 1024 wide gives D = 1024).
     Counts one launch in ``streaming_self_attention.launches``, in float32 one in
     ``streaming_self_attention.launches_float32`` and, in the fast mode, one in
     ``streaming_self_attention.launches_bf16_probs``. Not differentiable, as the TPU kernel is
@@ -117,13 +132,12 @@ def streaming_self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError("streaming_self_attention: q/k/v must be contiguous and 16-byte "
                              "aligned")
     b, h, s, d = q.shape
-    d_step = 64 if q.dtype == torch.float32 else 8
-    if s % 64 or d % d_step or d > 512 or b * h > 65535:
+    if s % 64 or d % 8 or d > MAX_DIM or b * h > 65535:
         raise ValueError(f"streaming_self_attention: shape {tuple(q.shape)} {q.dtype} not "
-                         f"supported by the kernel (S % 64 == 0, D % {d_step} == 0, "
-                         "D <= 512, B*H <= 65535)")
+                         f"supported by the kernel (S % 64 == 0, D % 8 == 0, D <= {MAX_DIM}, "
+                         "B*H <= 65535)")
     out = torch.empty_like(v)
-    lib = _lib()
+    lib = _lib(library_name(d, q.dtype))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.streaming_attention_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),

@@ -24,7 +24,7 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 SOURCES = ("fused_attention", "geglu_ff", "fused_readout", "fused_readout_f32",
-           "streaming_attention")
+           "streaming_attention", "streaming_attention_wide")
 # the previous designs of K1 (bf16 and float32) and K4 (attention_v2), K2 and K3 (both dtypes),
 # built only by chip_smoke.py to time the kernels against them
 BASELINES = ("attention_v2", "geglu_ff_v2", "fused_readout_v2")
