@@ -747,6 +747,8 @@ YARDSTICKS = {
     "geglu_ff_f32_v1_fwd": ("geglu_ff_v2", [_P] * 7 + [_I, _I, _P]),
     "fused_readout_v2_fwd": ("fused_readout_v2", [_P] * 6 + [_I] * 3 + [_F, _I, _P]),
     "fused_readout_f32_v1_fwd": ("fused_readout_v2", [_P] * 6 + [_I] * 3 + [_F, _I, _P]),
+    "streaming_attention_wide_v1_fwd": ("streaming_attention_wide_v1",
+                                        [_P] * 4 + [_I] * 3 + [_F, _I, _I, _P]),
 }
 
 
@@ -761,7 +763,7 @@ def _yardstick(name: str, *args) -> None:
 
 def v2_kernel(name: str, q, k, v, *mode):
     """The previous design of K1 (bf16) or K4 (float32, or bf16 with its ``bf16_probs`` flag
-    in ``mode``) on the same inputs."""
+    in ``mode``; the wide heads with their dtype code and that flag) on the same inputs."""
     b, h, s, d = q.shape
     out = torch.empty_like(v)
     _yardstick(name, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h, s, d,
@@ -1888,6 +1890,14 @@ def k4_fast_phase(gen) -> dict:
 K4_WIDE = ((2, 1, 16384, 1024), (2, 1, 16384, 768))
 K4_WIDE_SWEEP = (520, 576, 640, 768, 896, 1024)  # head dims past 512 at S = 8192, both dtypes
 K4_F32_RAGGED = (168, 200, 328)  # float32 head dims that are not multiples of 64, S = 8192
+K4_PADDED = (170, 1020)  # head dims that are not multiples of 8, S = 8192: zero-padded to 176, 1024
+# more B*H rows than a CUDA grid's y axis takes: the wide library in one launch (float32 at D 200),
+# the D <= 512 one in two (65535 rows, then 1). Over 64 keys the outputs are O(1), so bf16 is held
+# at the sharp-logit limit, atol = rtol = 1e-2 (one bf16 ulp of an output in [1, 2) is 7.8e-3)
+K4_MANY_HEADS = (((65536, 1, 64, 200), torch.float32, 1), ((65536, 1, 64, 256), torch.bfloat16, 2))
+# (d, dtype) of the wide library's kernels whose cluster occupancy the phase prints
+K4_CLUSTER_KERNELS = ((1024, torch.float32), (768, torch.float32), (200, torch.float32),
+                      (1024, torch.bfloat16), (768, torch.bfloat16))
 VAE_WIDE = VAEConfig(block_out_channels=(128, 256, 512, 1024))
 VAE_WIDE_IMAGES = 2
 # the widened encoder's moments against the same encode with the plain K4, |d| / |plain|: in
@@ -1903,11 +1913,70 @@ def _dtype_name(dtype) -> str:
     return str(dtype).replace("torch.", "")
 
 
+def k4_wide_clusters() -> dict:
+    """The 2-block clusters of each wide kernel that the card runs at once, at its shared memory
+    (``cudaOccupancyMaxActiveClusters``); fails if any kernel fits none."""
+    lib = build.library("streaming_attention_wide")
+    fn = lib.streaming_attention_wide_clusters
+    fn.argtypes, fn.restype = [_I, _I, _I, ctypes.POINTER(ctypes.c_int)], _I
+    pairs = {}
+    for d, dtype in K4_CLUSTER_KERNELS:
+        for mode in (0, 1):
+            n = ctypes.c_int(0)
+            build.check(lib, fn(d, kattn._DTYPES[dtype], mode, ctypes.byref(n)),
+                        "streaming_attention_wide_clusters")
+            pairs[f"{_dtype_name(dtype)} D {d}{' bf16_probs' if mode else ''}"] = n.value
+    print(f"  pairs (2-block clusters) the card runs at once, by cudaOccupancyMaxActiveClusters: "
+          f"{pairs}", flush=True)
+    if min(pairs.values()) < 1:
+        raise SystemExit(f"a wide K4 kernel's cluster fits nowhere on the card: {pairs}")
+    return pairs
+
+
+def k4_wide_edges(gen) -> dict:
+    """K4's wrapper at the shapes its kernels take only through it: D % 8 != 0 (zero-padded, the
+    output sliced back) in both dtypes, and more B*H rows than a grid's y axis takes (the wide
+    library in one launch, the D <= 512 one in a launch a slice), against the plain version."""
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = (1e-5, 0.0) if dtype == torch.float32 else K4_BF16_TOL
+        for d in K4_PADDED:
+            shape = (1, 1, 8192, d)
+            q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                       for _ in range(3))
+            out = streaming_self_attention(q, k, v)
+            torch.cuda.synchronize()
+            if out.shape != shape or not out.is_contiguous():
+                raise SystemExit(f"K4 {shape}: the padded call gave {tuple(out.shape)}")
+            errs[f"{_dtype_name(dtype)} D {d}"] = check_close(
+                f"K4 {shape} {_dtype_name(dtype)} (padded to {d + -d % 8})", out,
+                streaming_self_attention_plain(q, k, v), *tol)
+            del q, k, v, out
+    for shape, dtype, launches in K4_MANY_HEADS:
+        tol = (1e-5, 0.0) if dtype == torch.float32 else K4_SHARP_TOL
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(3))
+        before = streaming_self_attention.launches
+        out = streaming_self_attention(q, k, v)
+        torch.cuda.synchronize()
+        took = streaming_self_attention.launches - before
+        name = f"K4 {shape} {_dtype_name(dtype)} (B*H > 65535, {took} launch(es))"
+        errs[f"{_dtype_name(dtype)} B*H {shape[0] * shape[1]}"] = check_close(
+            name, out, streaming_self_attention_plain(q, k, v), *tol)
+        if took != launches:
+            raise SystemExit(f"{name}: expected {launches} launch(es)")
+        del q, k, v, out
+        torch.cuda.empty_cache()
+    return errs
+
+
 def k4_wide_phase(gen) -> dict:
-    phase(f"K4 wide heads (csrc/streaming_attention_wide.cu) vs plain: 512 < D <= 1024 and float32 "
-          f"at D % 64 != 0 (float32 atol 1e-5; bf16 atol {K4_BF16_TOL[0]}, rtol "
-          f"{K4_BF16_TOL[1]}; the bf16_probs mode atol=rtol=1e-2 and vs the kernels' own "
-          "rounding), timed beside SDPA; a D sweep at S = 8192; sharp logits with a control")
+    phase(f"K4 wide heads (csrc/streaming_attention_wide.cu, 2-block clusters) vs plain: 512 < D "
+          f"<= 1024 and float32 at D % 64 != 0 (float32 atol 1e-5; bf16 atol {K4_BF16_TOL[0]}, "
+          f"rtol {K4_BF16_TOL[1]}; the bf16_probs mode atol=rtol=1e-2 and vs the kernels' own "
+          "rounding), timed beside the previous design (v1, held to the plain version too) and "
+          "SDPA, the bf16_probs mode timed too; a D sweep at S = 8192; sharp logits with a "
+          "control; D % 8 != 0 and B*H > 65535 through the wrapper")
+    clusters = k4_wide_clusters()
     rows = []
     errs = {"float32": 0.0, "bfloat16": 0.0}
     for shape in K4_WIDE:
@@ -1920,7 +1989,13 @@ def k4_wide_phase(gen) -> dict:
             ref = streaming_self_attention_plain(q, k, v)
             tol = (1e-5, 0.0) if dtype == torch.float32 else K4_BF16_TOL
             err = check_close(f"K4 wide {shape} {name}", out, ref, *tol)
-            del out, ref
+            del out
+
+            def v1(q=q, k=k, v=v, code=kattn._DTYPES[dtype]):
+                return v2_kernel("streaming_attention_wide_v1_fwd", q, k, v, code, 0)
+
+            v1_err = check_close(f"K4 wide v1 {shape} {name}", v1(), ref, *tol, quiet=True)
+            del ref
             fast = streaming_self_attention(q, k, v, True)
             torch.cuda.synchronize()
             fast_err = check_close(f"K4 wide bf16_probs {shape} {name}", fast,
@@ -1928,7 +2003,7 @@ def k4_wide_phase(gen) -> dict:
             del fast
             errs[name] = max(errs[name], err)
             row = {"shape": list(shape), "dtype": name, "max_abs_err": err,
-                   "bf16_probs_max_abs_err": fast_err}
+                   "bf16_probs_max_abs_err": fast_err, "v1_max_abs_err": v1_err}
             row["rounding"] = check_rounding(f"K4 wide bf16_probs {shape} {name}",
                                              streaming_self_attention, shape, dtype, gen,
                                              K4_SUM_TILE[dtype])
@@ -1937,9 +2012,13 @@ def k4_wide_phase(gen) -> dict:
             _timed(row, lambda: streaming_self_attention(q, k, v),
                    lambda: streaming_self_attention_plain(q, k, v),
                    4 * b * h * s * s * d, 4 * b * h * s * d * q.element_size(),
-                   library=lambda: F.scaled_dot_product_attention(q, k, v), dtype=dtype,
+                   library=lambda: F.scaled_dot_product_attention(q, k, v), v2=v1, dtype=dtype,
                    plain_reps=5, exps=b * h * s * s,
-                   tf32_passes=3.0 if dtype == torch.float32 else 0.0)
+                   tf32_passes=3.0 if dtype == torch.float32 else 0.0,
+                   info={"bf16_probs_ms": lambda: streaming_self_attention(q, k, v, True)})
+            if not row["ms"] < row["v2_ms"]:
+                raise SystemExit(f"K4 wide {shape} {name}: the cluster design ({row['ms']:.3f} "
+                                 f"ms) is not faster than its previous design ({row['v2_ms']:.3f})")
             rows.append(row)
             del q, k, v
             torch.cuda.empty_cache()
@@ -1959,12 +2038,14 @@ def k4_wide_phase(gen) -> dict:
             sweep.append({"shape": list(shape), "dtype": _dtype_name(dtype), "max_abs_err": err})
             del q, k, v, out
     sharp = k4_sharp_check((1, 1, 8192, 1024), gen)
+    edges = k4_wide_edges(gen)
     torch.cuda.empty_cache()
     vae = k4_wide_vae(gen)
     for row in rows:  # the encode's launches, on the row of its attention's shape
         if tuple(row["shape"]) == (VAE_WIDE_IMAGES, 1, 16384, VAE_WIDE.block_out_channels[-1]):
             row["launches_vae_wide_encode"] = vae[row["dtype"]]["launches"]
-    return {"rows": rows, "max_abs_err": errs, "sweep": sweep, "sharp": sharp, "vae": vae}
+    return {"rows": rows, "max_abs_err": errs, "sweep": sweep, "sharp": sharp, "vae": vae,
+            "clusters": clusters, "edges": edges}
 
 
 def k4_wide_vae(gen) -> dict:
@@ -2053,6 +2134,10 @@ def k4_wide_entries(k4_wide: dict) -> list[dict]:
                               VAE_WIDE_PER))
         entry["vae_encode"] = k4_wide["vae"][name]
         entry["sweep"] = [r for r in k4_wide["sweep"] if r["dtype"] == name]
+        entry["clusters_at_once"] = {key: n for key, n in k4_wide["clusters"].items()
+                                     if key.startswith(name)}
+        entry["edges"] = {key: err for key, err in k4_wide["edges"].items()
+                          if key.startswith(name)}
         if name == "bfloat16":
             entry["sharp_logits"] = k4_wide["sharp"]
         entries.append(entry)
@@ -4368,11 +4453,12 @@ K4_DESIGN = "3xTF32 mma.sync (float32)"
 K4_BF16_DESIGN = ("wgmma+TMA, 64-row q blocks, 2 consumer warpgroups splitting the keys of Q K^T "
                   "and the 512 output columns, K/V chunks through a 16 KB-slot mbarrier ring, "
                   "P V from shared memory under the next softmax (bf16)")
-K4_WIDE_DESIGN = ("3xTF32 mma.sync, Q and K streamed in 64-column chunks, a 512-column half of "
-                  "the output a block (Q K^T recomputed in each half) (float32)")
-K4_WIDE_BF16_DESIGN = ("wgmma+TMA, K4 bf16's warp roles, a 512-column half of the output a block "
-                       "(Q K^T recomputed in each half), Q resident, each chunk awaited and "
-                       "released in turn (bf16)")
+K4_WIDE_DESIGN = ("3xTF32 mma.sync, a 2-block cluster a q block, each block Q K^T and P V over "
+                  "its share of D with Q's share resident, the partial scores exchanged through "
+                  "distributed shared memory (float32)")
+K4_WIDE_BF16_DESIGN = ("wgmma+TMA, K4 bf16's warp roles, a 2-block cluster a q block, each block "
+                       "Q K^T and P V over its share of D, the partial scores exchanged through "
+                       "distributed shared memory under the previous tile's P V (bf16)")
 XL_BF16_PER = (f"one SDXL score_triplet_batch call with --xl_vae_bf16 ({XL_T} triplets, 1024 px), "
                "the sum over its launches")
 K2_F32_DESIGN = ("two 3xTF32 mma.sync GEMMs, 8 warps a 128-row tile, 32-column k panels through "
@@ -4465,7 +4551,7 @@ def main() -> int:
     print(f"  built {sorted(reports) or 'nothing (cached)'} in {time.perf_counter() - t0:.1f} s")
     for name, log in reports.items():
         for line in log.splitlines():
-            if "Used" in line or "spill" in line:
+            if "Used" in line or "spill" in line or "warning" in line:
                 print(f"  {name}: {line.strip()}")
     probe_timing()
     gen = torch.Generator(device="cuda")
@@ -4636,9 +4722,10 @@ def main() -> int:
         if entry["name"].startswith("streaming_self_attention (wide"):
             for row in entry["shapes"]:
                 print(f"  {entry['name']} {tuple(row['shape'])} per launch {row['ms']:.3f} ms "
-                      f"(SDPA {row['library_ms']:.3f}, bound {row['bound_ms']:.3f}, "
-                      f"{100 * row['bound_ms'] / row['ms']:.1f} %, plain {row['plain_ms']:.3f})",
-                      flush=True)
+                      f"(previous design v1 {row['v2_ms']:.3f}, SDPA {row['library_ms']:.3f}, "
+                      f"bound {row['bound_ms']:.3f}, {100 * row['bound_ms'] / row['ms']:.1f} %, "
+                      f"plain {row['plain_ms']:.3f}; bf16_probs mode "
+                      f"{row['bf16_probs_ms']:.3f})", flush=True)
             print(f"  {entry['name']}: {entry['launches']} launch(es) a widened VAE encode, "
                   f"{entry['vae_encode']['encode_ms']:.1f} ms, moments within "
                   f"{entry['vae_encode']['moments_gap']:.3e} of the plain K4's (control "

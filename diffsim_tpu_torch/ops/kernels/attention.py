@@ -41,7 +41,8 @@ def fast_probs(logits: torch.Tensor, m: torch.Tensor, scale: float) -> torch.Ten
 
 
 def fused_self_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                               bf16_probs: bool = False) -> torch.Tensor:
+                               bf16_probs: bool = False,
+                               scale: float | None = None) -> torch.Tensor:
     """The TPU kernel's arithmetic: f32 logits, row max over the unscaled logits, the scale
     folded into exp's operand, probabilities cast to V's dtype before PV (f32 accumulation),
     1/rowsum applied after PV, output in V's dtype.
@@ -51,8 +52,10 @@ def fused_self_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     their row sum accumulated in float32 and rounded to bf16 once (``jnp.sum`` of a bf16 tile),
     the probabilities rounded only by the cast to V's dtype. The CUDA kernel rounds each
     probability to bf16 before the sum, as the bf16 tile of the TPU kernel holds them; the two
-    agree within bf16 rounding."""
-    scale = q.shape[-1] ** -0.5
+    agree within bf16 rounding. ``scale`` defaults to 1/sqrt(D); a caller that zero-pads the
+    head passes the unpadded width's."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2))
     m = logits.amax(dim=-1, keepdim=True)
     if bf16_probs:

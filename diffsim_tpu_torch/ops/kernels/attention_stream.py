@@ -1,15 +1,17 @@
 """K4 ``streaming_self_attention``: square self-attention for wide heads and long sequences.
 
 Replaces the TPU kernel ``diffsim_tpu/ops/pallas/attention_stream.py:streaming_self_attention``,
-both its exact mode and its ``bf16_probs`` fast mode, at every width its route admits with
-D % 8 == 0. The CUDA kernels (design and bound in each header) are two libraries with one entry
-point, ``streaming_attention_fwd``: ``csrc/streaming_attention.cu`` for D <= 512 (float32 at
-D % 64 == 0, as three TF32 products (3xTF32) on ``mma.sync``; bf16 on ``wgmma`` + TMA with a
-64-row q block whose two consumer warpgroups split the keys of Q K^T and the output columns of
-P V), and ``csrc/streaming_attention_wide.cu`` for the rest (512 < D <= 1024 in both dtypes, and
-float32 at D % 64 != 0), whose blocks each own a 512-column half of the output. On a CPU tensor
-the wrapper runs :func:`streaming_self_attention_plain`; on a CUDA tensor it launches a kernel
-or raises.
+both its exact mode and its ``bf16_probs`` fast mode, at every width its route admits. The CUDA
+kernels (design and bound in each header) are two libraries with one entry point,
+``streaming_attention_fwd``: ``csrc/streaming_attention.cu`` for D <= 512 (float32 at D % 64 ==
+0, as three TF32 products (3xTF32) on ``mma.sync``; bf16 on ``wgmma`` + TMA with a 64-row q block
+whose two consumer warpgroups split the keys of Q K^T and the output columns of P V), and
+``csrc/streaming_attention_wide.cu`` for the rest (512 < D <= 1024 in both dtypes, and float32
+at D % 64 != 0), where a 2-block cluster owns a q block and each block of the pair takes a share
+of D for Q K^T and P V, the partial scores exchanged through distributed shared memory. A head
+whose D is not a multiple of 8 is zero-padded to the next one (:func:`pad_head_dim`), the softmax
+scale kept at the true D, and the output sliced back. On a CPU tensor the wrapper runs
+:func:`streaming_self_attention_plain`; on a CUDA tensor it launches a kernel or raises.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from diffsim_tpu_torch.ops.kernels.attention import (
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_DIM = 1024  # the route's widest head (routes.use_streaming)
 NARROW_DIM = 512  # the widest head of csrc/streaming_attention.cu
+NARROW_MAX_BH = 65535  # csrc/streaming_attention.cu's grid.y: B*H rows a launch
 _PLAIN_BLOCK_Q = 2048  # query rows per step of the plain version: bounds its logits buffer
 
 
@@ -40,14 +43,14 @@ def _block_k(s: int) -> int:
     return bk
 
 
-def _online_bf16_probs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+def _online_bf16_probs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       scale: float) -> torch.Tensor:
     """The fast mode's online recurrence over the TPU kernel's key blocks, as XLA's CPU
     compiler runs it in interpret mode: per block the running max m' = max(m, rowmax S_j), the
     probabilities of :func:`~diffsim_tpu_torch.ops.kernels.attention.fast_probs` against m', the
     block's row sum accumulated in float32 and rounded to bf16 once, alpha = exp((m - m')
     scale) in float32, l' = l alpha + rowsum, acc' = acc alpha + P V with P cast to V's dtype;
     acc / l at the end."""
-    scale = q.shape[-1] ** -0.5
     bk = _block_k(k.shape[-2])
     qf = q.float()
     m = torch.full(q.shape[:-1] + (1,), -torch.inf, device=q.device)
@@ -65,22 +68,43 @@ def _online_bf16_probs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tor
 
 
 def streaming_self_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                                   bf16_probs: bool = False) -> torch.Tensor:
+                                   bf16_probs: bool = False,
+                                   scale: float | None = None) -> torch.Tensor:
     """The TPU kernel's arithmetic (f32 logits, row max over the unscaled logits, the scale in
     exp's operand, probabilities cast to V's dtype before PV, f32 accumulation, 1/rowsum last).
     The exact mode takes each row's softmax over all keys at once, which differs from the
     kernel's online recurrence only by rounding; ``bf16_probs`` runs the TPU kernel's online
     recurrence (:func:`_online_bf16_probs`), since its rounding depends on the running max.
     Query rows go in blocks of 2048, so the f32 logits of a 16384-token head take 128 MiB at a
-    time instead of 1 GiB."""
+    time instead of 1 GiB. ``scale`` defaults to 1/sqrt(D); on heads zero-padded by
+    :func:`pad_head_dim` it is the unpadded width's, as the kernels take it."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
     out = torch.empty_like(v)
     for i in range(0, q.shape[-2], _PLAIN_BLOCK_Q):
         rows = slice(i, i + _PLAIN_BLOCK_Q)
         if bf16_probs:
-            out[..., rows, :] = _online_bf16_probs(q[..., rows, :], k, v)
+            out[..., rows, :] = _online_bf16_probs(q[..., rows, :], k, v, scale)
         else:
-            out[..., rows, :] = fused_self_attention_plain(q[..., rows, :], k, v)
+            out[..., rows, :] = fused_self_attention_plain(q[..., rows, :], k, v, scale=scale)
     return out
+
+
+def pad_head_dim(t: torch.Tensor) -> torch.Tensor:
+    """``t`` with its last dimension zero-padded to a multiple of 8, the kernels' granule (``t``
+    itself if it is one). Zero columns of Q and K add nothing to a logit and zero columns of V
+    give zero output columns, so with the softmax scale of the unpadded width the padded call's
+    first D output columns are the unpadded call's."""
+    pad = -t.shape[-1] % 8
+    return torch.nn.functional.pad(t, (0, pad)) if pad else t
+
+
+def bh_slices(bh: int, library: str) -> list[tuple[int, int]]:
+    """The [start, stop) ranges of the B*H rows that one launch of ``library`` takes: all of them
+    in ``streaming_attention_wide`` (its grid has no B*H axis limit), slices of at most
+    :data:`NARROW_MAX_BH` in ``streaming_attention``."""
+    step = bh if library == "streaming_attention_wide" else NARROW_MAX_BH
+    return [(i, min(i + step, bh)) for i in range(0, bh, step)]
 
 
 def library_name(d: int, dtype: torch.dtype) -> str:
@@ -106,10 +130,12 @@ def streaming_self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """(B, H, S, D) self-attention, softmax scale 1/sqrt(D), output in V's dtype;
     ``bf16_probs`` selects the fast mode.
 
-    CUDA: contiguous tensors of one shape, S % 64 == 0, D % 8 == 0, D <= 1024 (the SDXL VAE's
-    mid attention is (B, 1, 16384, 512); a VAE whose last block is 1024 wide gives D = 1024).
-    Counts one launch in ``streaming_self_attention.launches``, in float32 one in
-    ``streaming_self_attention.launches_float32`` and, in the fast mode, one in
+    CUDA: contiguous tensors of one shape, S % 64 == 0, D <= 1024 (the SDXL VAE's mid attention
+    is (B, 1, 16384, 512); a VAE whose last block is 1024 wide gives D = 1024), any B*H. A D that
+    is not a multiple of 8 is zero-padded (:func:`pad_head_dim`) and the output sliced back; B*H
+    past :data:`NARROW_MAX_BH` takes one launch a slice in the D <= 512 library
+    (:func:`bh_slices`). Counts each launch in ``streaming_self_attention.launches``, in float32
+    in ``streaming_self_attention.launches_float32`` and, in the fast mode, in
     ``streaming_self_attention.launches_bf16_probs``. Not differentiable, as the TPU kernel is
     not: under grad, on inputs that require it, the call raises."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
@@ -132,22 +158,28 @@ def streaming_self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError("streaming_self_attention: q/k/v must be contiguous and 16-byte "
                              "aligned")
     b, h, s, d = q.shape
-    if s % 64 or d % 8 or d > MAX_DIM or b * h > 65535:
+    if s % 64 or d > MAX_DIM:
         raise ValueError(f"streaming_self_attention: shape {tuple(q.shape)} {q.dtype} not "
-                         f"supported by the kernel (S % 64 == 0, D % 8 == 0, D <= {MAX_DIM}, "
-                         "B*H <= 65535)")
+                         f"supported by the kernel (S % 64 == 0, D <= {MAX_DIM})")
+    q, k, v = (pad_head_dim(t) for t in (q, k, v))
+    dp = q.shape[-1]
     out = torch.empty_like(v)
-    lib = _lib(library_name(d, q.dtype))
+    name = library_name(dp, q.dtype)
+    lib = _lib(name)
+    row = s * dp * q.element_size()  # bytes of one of the B*H rows
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.streaming_attention_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                         out.data_ptr(), b * h, s, d, float(d**-0.5),
-                                         _DTYPES[q.dtype], int(bf16_probs), stream)
-    build.check(lib, rc, "streaming_self_attention")
-    streaming_self_attention.launches += 1
-    streaming_self_attention.launches_float32 += int(q.dtype == torch.float32)
-    streaming_self_attention.launches_bf16_probs += int(bf16_probs)
-    return out
+        for start, stop in bh_slices(b * h, name):
+            at = start * row
+            rc = lib.streaming_attention_fwd(q.data_ptr() + at, k.data_ptr() + at,
+                                             v.data_ptr() + at, out.data_ptr() + at,
+                                             stop - start, s, dp, float(d**-0.5),
+                                             _DTYPES[q.dtype], int(bf16_probs), stream)
+            build.check(lib, rc, "streaming_self_attention")
+            streaming_self_attention.launches += 1
+            streaming_self_attention.launches_float32 += int(q.dtype == torch.float32)
+            streaming_self_attention.launches_bf16_probs += int(bf16_probs)
+    return out if dp == d else out[..., :d].contiguous()
 
 
 streaming_self_attention.launches = 0

@@ -25,9 +25,10 @@ CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 SOURCES = ("fused_attention", "geglu_ff", "fused_readout", "fused_readout_f32",
            "streaming_attention", "streaming_attention_wide")
-# the previous designs of K1 (bf16 and float32) and K4 (attention_v2), K2 and K3 (both dtypes),
-# built only by chip_smoke.py to time the kernels against them
-BASELINES = ("attention_v2", "geglu_ff_v2", "fused_readout_v2")
+# the previous designs of K1 (bf16 and float32) and K4 (attention_v2; the wide heads'
+# streaming_attention_wide_v1), K2 and K3 (both dtypes), built only by chip_smoke.py to time the
+# kernels against them
+BASELINES = ("attention_v2", "geglu_ff_v2", "fused_readout_v2", "streaming_attention_wide_v1")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
