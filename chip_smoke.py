@@ -43,6 +43,14 @@ Phases, each of which fails the run (non-zero exit, no result line) if anything 
    1024 px on 2 images in float32 and bf16: 1 K4 launch a chunk, the moments held to the same
    encode with the plain K4 beside a control (V in place of the attention) that must fail the
    limit;
+6c. K1-K3 at the shapes their kernels take only through the wrapper's launch plan: K1 at D 20,
+   36, 100, 156 (zero-padded to 8) and S 64, 256 in both dtypes and both modes, K3 at D 20, 100
+   (both similarities), K2 at C 40, 200 (zero-padded to 32 with the weights, W1's h and gate
+   halves apart), and past the grid's 65535 rows in two launches (K1 at B*H = 65536, K3 at
+   N = 65536, K2 at 65535 x 64 + 64 rows, the rows on both sides of each boundary checked), each
+   against its plain version at the K1-K3 phases' limits with its shape, contiguity and launches;
+   one call a kernel through its route (``ops.attention.sdpa``, ``GEGLUFeedForward``,
+   ``metrics.readout.cross_attention_score``); K1's gradient at D 36 under autograd;
 7. end-to-end correctness, card vs CPU from one seeded numpy weight tree and one
    ``noise_override``, in float32 with TF32 off: a tiny ``DiffSimSD15`` at 32 px (K1, K2), a
    tiny ``DiffSimXL`` at 256 px (all four kernels) and a tiny ``DiffSimDiT`` at 128 px whose tap
@@ -90,7 +98,8 @@ Phases, each of which fails the run (non-zero exit, no result line) if anything 
    call with K2's and K3's plain versions within 1e-5 + 1e-5 of the distance, beside a control
    (GEMM2's first 32-column k panel and keys [32, 64) of every 64-key tile left out) that must
    fail that limit; a repeat bit for bit, its time and peak memory beside the bf16 scorer's
-   time; each cached path; the device-memory guard's slope for the float32 SD-1.5 scorer;
+   time; each cached path; the device-memory guard's slope for each float32 scorer (SD-1.5 at 8
+   and 16 triplets, SDXL at 2 and 4, DiT-XL/2 at 8 and 16), held below the guard's constants;
 13. the CLI with ``--metric dit`` (``cute --preset cute``, the same 36 JPEGs, through the moment
    cache: one miss per image);
 14. the checkpoint converter on this machine, which has neither ``safetensors`` nor
@@ -274,16 +283,19 @@ from diffsim_tpu_torch.models.vae import (
     encode_chunked,
 )
 from diffsim_tpu_torch.models.vgg import VGG, VGG16_CFG, VGG19_CFG
+from diffsim_tpu_torch.metrics.readout import cross_attention_score
+from diffsim_tpu_torch.ops import attention as tattn
 from diffsim_tpu_torch.ops import kernels
 from diffsim_tpu_torch.ops.kernels import attention as kattn
 from diffsim_tpu_torch.ops.kernels import build, readout
+from diffsim_tpu_torch.ops.kernels import ff as kff
 from diffsim_tpu_torch.ops.kernels.attention import (
     fused_self_attention, fused_self_attention_plain, round_bf16)
 from diffsim_tpu_torch.ops.kernels.attention_stream import (
     streaming_self_attention,
     streaming_self_attention_plain,
 )
-from diffsim_tpu_torch.ops.blocks import IPProjection
+from diffsim_tpu_torch.ops.blocks import GEGLUFeedForward, IPProjection
 from diffsim_tpu_torch.parallel import mesh
 from diffsim_tpu_torch.ops.kernels.ff import fused_geglu_ff, fused_geglu_ff_plain
 from diffsim_tpu_torch.ops.kernels.readout import (
@@ -1745,8 +1757,9 @@ def f32_call(name, scorer, pix, args, expected, bf16_ms) -> dict:
 
 def f32_scoring_phase(card_line: str, bf16_ms: dict) -> dict:
     """The float32 scorers at full width with random weights from a seeded generator: SD-1.5 at
-    512 px (the canonical CUTE tap and the up-block-2 tap, 4 triplets; the guard's slope), SDXL
-    at 1024 px (2 triplets) and DiT-XL/2 at 512 px (8 triplets), each with its cached path."""
+    512 px (the canonical CUTE tap and the up-block-2 tap, 4 triplets), SDXL at 1024 px (2
+    triplets) and DiT-XL/2 at 512 px (8 triplets), each with its cached path and the guard's
+    slope."""
     out = {}
     phase(f"float32 scoring at full width: SD-1.5, 512 px, dtype=torch.float32, 4 triplets at the "
           f"canonical tap and at up block 2 (K2 and K3 on their float32 paths); scores against the "
@@ -1774,6 +1787,7 @@ def f32_scoring_phase(card_line: str, bf16_ms: dict) -> dict:
     res["cached_gap"] = cached_path("SDXL float32", scorer, pix, *res["scores"], XL_ARGS,
                                     XL_TRIPLET_CALL, {**XL_FORWARD, "cross_self_partials": 4},
                                     all_float32=True)
+    res["guard"] = guard_slope("SDXL 1024 px float32", scorer, XL_ARGS, (2, 4), 1024, card_line)
     out["sdxl"] = res
     del scorer
     torch.cuda.empty_cache()
@@ -1785,6 +1799,8 @@ def f32_scoring_phase(card_line: str, bf16_ms: dict) -> dict:
     res = f32_call("DiT-XL/2", scorer, pix, DIT_ARGS, DIT_TRIPLET_CALL, bf16_ms["dit"])
     res["cached_gap"] = cached_path("DiT-XL/2 float32", scorer, pix, *res["scores"], DIT_ARGS,
                                     DIT_TRIPLET_CALL, DIT_TRIPLET_CALL, all_float32=True)
+    res["guard"] = guard_slope("DiT-XL/2 512 px float32", scorer, DIT_ARGS, (8, 16), 512,
+                               card_line)
     out["dit"] = res
     del scorer
     torch.cuda.empty_cache()
@@ -3252,6 +3268,263 @@ def k1_grad_phase(gen) -> dict:
     return {"rows": rows, "err": err_of, "grad_err": grad_err_of}
 
 
+# K1-K3 at the shapes their kernels take only through the wrapper's launch plan: heads off the
+# granule of 8 (K1, K3) and C off K2's 32, zero-padded (the scale at the true D), and more rows
+# than a grid's y axis takes, one launch a slice
+DOMAIN_K1_DIMS = (20, 36, 100, 156)
+DOMAIN_K1_SEQS = (64, 256)
+DOMAIN_K1_SPLIT = (65536, 1, 64, 40)  # B*H = 65536: 65535 rows, then 1
+DOMAIN_K3_DIMS = (20, 100)
+DOMAIN_K3_SPLIT = (2, 2, 16384, 64, 72)  # N = P*B*H = 65536 rows at S = 64: two launches
+DOMAIN_K2_DIMS = (40, 200)
+DOMAIN_K2_ROWS = 4096
+DOMAIN_K2_SPLIT = (65535 * 64 + 64, 32)  # one 64-row tile past the grid: two launches
+DOMAIN_K1_GRAD = (2, 4, 256, 36)
+# the existing phases' limits against the plain versions: K1 exact (atol, rtol), K1's bf16_probs
+# mode, K2, K3's scores (atol and rtol of the distance)
+DOMAIN_K1_TOL = {torch.float32: (1e-5, 0.0), torch.bfloat16: (1e-2, 1e-2)}
+DOMAIN_K1_FAST_TOL = (1e-2, 1e-2)
+DOMAIN_K2_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 1e-2)}
+DOMAIN_K3_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-3}
+# K3's per-row partials at a launch boundary have no earlier limit: relative, float32 at K3's
+# 1e-5, bf16 at K1's and K2's elementwise 1e-2; a row read or written at a wrong offset is O(1)
+# away
+DOMAIN_PARTIAL_RTOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+
+
+def _counted(wrapper, fn):
+    """``fn()`` and the launches it added to ``wrapper.launches``."""
+    before = wrapper.launches
+    out = fn()
+    torch.cuda.synchronize()
+    return out, wrapper.launches - before
+
+
+def _domain_check(name, out, ref, shape, took, launches, tol) -> float:
+    """A padded or split call against its plain version: its shape, contiguity and number of
+    launches, then the error (printed only if it fails)."""
+    if tuple(out.shape) != tuple(shape) or not out.is_contiguous():
+        raise SystemExit(f"{name}: the call gave {tuple(out.shape)} "
+                         f"(contiguous {out.is_contiguous()}), not {tuple(shape)}")
+    if took != launches:
+        raise SystemExit(f"{name}: {took} launch(es), expected {launches}")
+    return check_close(name, out, ref, *tol, quiet=True)
+
+
+def _boundary(name, out, ref, rows, tol) -> float:
+    """Rows of dim 0 on both sides of a launch boundary, against the plain version."""
+    idx = torch.tensor(rows, device=out.device)
+    return check_close(f"{name} rows {list(rows)}", out.index_select(0, idx),
+                       ref.index_select(0, idx), *tol)
+
+
+def _domain_taps(shape, dtype, gen):
+    """(qa, ka, va, kb, vb): image B's keys and values are image A's plus noise (cosine ~0.9)."""
+    qa, ka, va = (torch.randn(shape, generator=gen, device="cuda") for _ in range(3))
+    kb, vb = (x + 0.3 * torch.randn(shape, generator=gen, device="cuda") for x in (ka, va))
+    return [x.to(dtype) for x in (qa, ka, va, kb, vb)]
+
+
+def _domain_k1(gen, out: dict) -> None:
+    split = DOMAIN_K1_SPLIT
+    for dtype in (torch.float32, torch.bfloat16):
+        name = _dtype_name(dtype)
+        for bf16_probs in (False, True):
+            tol = DOMAIN_K1_FAST_TOL if bf16_probs else DOMAIN_K1_TOL[dtype]
+            mode = " bf16_probs" if bf16_probs else ""
+            errs = []
+            for d in DOMAIN_K1_DIMS:
+                for s in DOMAIN_K1_SEQS:
+                    shape = (2, 3, s, d)
+                    q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                               for _ in range(3))
+                    got, took = _counted(fused_self_attention,
+                                         lambda: fused_self_attention(q, k, v, bf16_probs))
+                    errs.append(_domain_check(f"K1 {shape} {name}{mode} (padded to {d + -d % 8})",
+                                              got, fused_self_attention_plain(q, k, v, bf16_probs),
+                                              shape, took, 1, tol))
+            out[f"k1 {name}{mode} padded"] = max(errs)
+            print(f"  K1 {name}{mode} at D {DOMAIN_K1_DIMS} (zero-padded to 8), S "
+                  f"{DOMAIN_K1_SEQS}: max|kernel - plain| = {max(errs):.3e} (atol {tol[0]}, rtol "
+                  f"{tol[1]}), 1 launch each, shapes and contiguity ok", flush=True)
+            q, k, v = (torch.randn(split, generator=gen, device="cuda").to(dtype)
+                       for _ in range(3))
+            plan = kattn.launch_plan(split, dtype)
+            got, took = _counted(fused_self_attention,
+                                 lambda: fused_self_attention(q, k, v, bf16_probs))
+            ref = fused_self_attention_plain(q, k, v, bf16_probs)
+            what = f"K1 {split} {name}{mode} (B*H > 65535, {took} launches)"
+            if len(plan.slices) != 2:
+                raise SystemExit(f"{what}: the plan has {len(plan.slices)} slices, not 2")
+            err = _domain_check(what, got, ref, split, took, 2, tol)
+            cut = plan.slices[1][0]
+            edge = _boundary(what, got, ref, (cut - 2, cut - 1, cut), tol)
+            out[f"k1 {name}{mode} B*H 65536"] = {"max_abs_err": err, "boundary_err": edge,
+                                                 "launches": took}
+            print(f"  {what}: max|kernel - plain| = {err:.3e} over the output", flush=True)
+            del q, k, v, got, ref
+            torch.cuda.empty_cache()
+
+
+def _domain_k3(gen, out: dict) -> None:
+    for dtype in (torch.float32, torch.bfloat16):
+        name, tol = _dtype_name(dtype), DOMAIN_K3_TOL[dtype]
+        for d in DOMAIN_K3_DIMS:
+            shape = (2, 2, 2, 512, d)
+            taps = _domain_taps(shape, dtype, gen)
+            for similarity in ("cosine", "mse"):
+                got, took = _counted(cross_self_partials,
+                                     lambda: fused_direction_score(*taps, similarity))
+                if tuple(got.shape) != (2,) or took != 1:
+                    raise SystemExit(f"K3 {shape} {name}: scores {tuple(got.shape)}, {took} "
+                                     "launch(es), expected (2,) and 1")
+                out[f"k3 {name} D {d} {similarity}"] = check_score(
+                    f"K3 {shape} {name} {similarity} (padded to {d + -d % 8})", got,
+                    fused_direction_score_plain(*taps, similarity), similarity, tol, tol)
+        taps = _domain_taps(DOMAIN_K3_SPLIT, dtype, gen)
+        p, b, h, s, d = DOMAIN_K3_SPLIT
+        plan = readout.launch_plan((p * b * h, s, d), dtype)
+        for similarity in ("cosine", "mse"):
+            got, took = _counted(cross_self_partials,
+                                 lambda: fused_direction_score(*taps, similarity))
+            what = f"K3 {DOMAIN_K3_SPLIT} {name} {similarity} (N > 65535, {took} launches)"
+            if took != len(plan.slices) or len(plan.slices) != 2:
+                raise SystemExit(f"{what}: expected 2 launches")
+            out[f"k3 {name} N 65536 {similarity}"] = check_score(
+                what, got, fused_direction_score_plain(*taps, similarity), similarity, tol, tol)
+        rows = [x.reshape(p * b * h, s, d) for x in (taps[0], taps[3], taps[4], taps[1], taps[2])]
+        got, took = _counted(cross_self_partials, lambda: torch.stack(cross_self_partials(*rows)))
+        ref = torch.stack(readout.cross_self_partials_plain(*rows))
+        rtol = DOMAIN_PARTIAL_RTOL[dtype]
+        what = f"K3 partials of {p * b * h} rows {name} ({took} launches)"
+        _domain_check(what, got, ref, (3, p * b * h), took, 2, (0.0, rtol))
+        cut = plan.slices[1][0]
+        out[f"k3 {name} N 65536 boundary"] = _boundary(
+            what, got.t(), ref.t(), (cut - 2, cut - 1, cut), (0.0, rtol))
+        del taps, rows, got, ref
+        torch.cuda.empty_cache()
+
+
+def _domain_k2(gen, out: dict) -> None:
+    def rand(shape, scale, dtype):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
+
+    def weights(c, dtype):
+        return (rand((8 * c, c), c**-0.5, dtype), rand((8 * c,), 0.1, dtype),
+                rand((c, 4 * c), (4 * c) ** -0.5, dtype), rand((c,), 0.1, dtype))
+
+    for dtype in (torch.float32, torch.bfloat16):
+        name, tol = _dtype_name(dtype), DOMAIN_K2_TOL[dtype]
+        for c in DOMAIN_K2_DIMS:
+            args = (rand((DOMAIN_K2_ROWS, c), 1.0, dtype), *weights(c, dtype))
+            got, took = _counted(fused_geglu_ff, lambda: fused_geglu_ff(*args))
+            out[f"k2 {name} C {c}"] = _domain_check(
+                f"K2 {(DOMAIN_K2_ROWS, c)} {name} (padded to {c + -c % 32})", got,
+                fused_geglu_ff_plain(*args), (DOMAIN_K2_ROWS, c), took, 1, tol)
+            print(f"  K2 {(DOMAIN_K2_ROWS, c)} {name}, C zero-padded to {c + -c % 32} with the "
+                  f"weights: max|kernel - plain| = {out[f'k2 {name} C {c}']:.3e} (atol = rtol = "
+                  f"{tol[0]}), 1 launch", flush=True)
+        n, c = DOMAIN_K2_SPLIT
+        args = (rand((n, c), 1.0, dtype), *weights(c, dtype))
+        plan = kff.launch_plan((n, c), dtype)
+        got, took = _counted(fused_geglu_ff, lambda: fused_geglu_ff(*args))
+        ref = fused_geglu_ff_plain(*args)
+        what = f"K2 {DOMAIN_K2_SPLIT} {name} (ceil(N / 64) > 65535, {took} launches)"
+        if len(plan.slices) != 2:
+            raise SystemExit(f"{what}: the plan has {len(plan.slices)} slices, not 2")
+        err = _domain_check(what, got, ref, (n, c), took, 2, tol)
+        cut = plan.slices[1][0]
+        edge = _boundary(what, got, ref, (cut - 2, cut - 1, cut, cut + 1, n - 1), tol)
+        out[f"k2 {name} N {n}"] = {"max_abs_err": err, "boundary_err": edge, "launches": took}
+        print(f"  {what}: max|kernel - plain| = {err:.3e} over the output", flush=True)
+        del args, got, ref
+        torch.cuda.empty_cache()
+
+
+def _domain_routes(gen, out: dict) -> None:
+    """One call a kernel through its route (``ops.attention.sdpa``, ``GEGLUFeedForward``,
+    ``metrics.readout.cross_attention_score``) at a shape off the granule, in both dtypes."""
+    for dtype in (torch.float32, torch.bfloat16):
+        name = _dtype_name(dtype)
+        q, k, v = (torch.randn((1, 2, 256, 20), generator=gen, device="cuda").to(dtype)
+                   for _ in range(3))
+        got, took = _counted(fused_self_attention, lambda: tattn.sdpa(q, k, v))
+        out[f"route sdpa {name}"] = _domain_check(
+            f"ops.attention.sdpa (1, 2, 256, 20) {name}", got, fused_self_attention_plain(q, k, v),
+            (1, 2, 256, 20), took, 1, DOMAIN_K1_TOL[dtype])
+        ff = GEGLUFeedForward(40).to("cuda", dtype)
+        with torch.no_grad():
+            for param in ff.parameters():
+                param.copy_(torch.randn(param.shape, generator=gen, device="cuda") * 0.1)
+            x = torch.randn((2, 256, 40), generator=gen, device="cuda").to(dtype)
+            got, took = _counted(fused_geglu_ff, lambda: ff(x))
+            ref = fused_geglu_ff_plain(x.reshape(512, 40), ff.proj_in.weight, ff.proj_in.bias,
+                                       ff.proj_out.weight, ff.proj_out.bias).reshape(2, 256, 40)
+        out[f"route GEGLUFeedForward {name}"] = _domain_check(
+            f"GEGLUFeedForward(40) on (2, 256, 40) {name}", got, ref, (2, 256, 40), took, 1,
+            DOMAIN_K2_TOL[dtype])
+        qa, ka, va, kb, vb = _domain_taps((1, 1, 2, 512, 20), dtype, gen)
+        qb = qa + 0.3 * torch.randn(qa.shape, generator=gen, device="cuda").to(dtype)
+        tol = DOMAIN_K3_TOL[dtype]
+        for similarity in ("cosine", "mse"):
+            got, took = _counted(cross_self_partials, lambda: cross_attention_score(
+                qa, ka, va, qb, kb, vb, similarity))
+            if took != 2:
+                raise SystemExit(f"cross_attention_score {name}: {took} K3 launches, not 2")
+            ref = (fused_direction_score_plain(qa, ka, va, kb, vb, similarity)
+                   + fused_direction_score_plain(qb, kb, vb, ka, va, similarity)) / 2.0
+            out[f"route cross_attention_score {name} {similarity}"] = check_score(
+                f"metrics.readout.cross_attention_score (1, 1, 2, 512, 20) {name} {similarity} "
+                "(2 launches)", got, ref, similarity, tol, tol)
+    print("  through the routes: sdpa 1 K1, GEGLUFeedForward 1 K2, cross_attention_score 2 K3 "
+          f"launches a call; max|kernel - plain| "
+          f"{max(v for k, v in out.items() if k.startswith('route')):.3e}", flush=True)
+
+
+def _domain_grad(gen, out: dict) -> None:
+    """K1's gradient at D 36 through ``FusedSelfAttention`` against the plain version's."""
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, g = (torch.randn(DOMAIN_K1_GRAD, generator=gen, device="cuda").to(dtype)
+                      for _ in range(4))
+        qkv = [t.clone().requires_grad_() for t in (q, k, v)]
+        got, took = _counted(fused_self_attention, lambda: fused_self_attention(*qkv))
+        if type(got.grad_fn).__name__ != "FusedSelfAttentionBackward" or took != 1:
+            raise SystemExit(f"K1 {DOMAIN_K1_GRAD} under grad: grad_fn "
+                             f"{type(got.grad_fn).__name__}, {took} launch(es)")
+        saved = [tuple(t.shape) for t in got.grad_fn.saved_tensors]
+        if saved != [DOMAIN_K1_GRAD] * 3:
+            raise SystemExit(f"K1 under grad saved {saved}, not the unpadded q, k, v")
+        grads = torch.autograd.grad(got, qkv, g)
+        tol = DOMAIN_K1_TOL[dtype]
+        what = f"K1 {DOMAIN_K1_GRAD} {_dtype_name(dtype)} under autograd"
+        with torch.no_grad():
+            err = _domain_check(f"{what} forward", got, fused_self_attention_plain(q, k, v),
+                                DOMAIN_K1_GRAD, took, 1, tol)
+        ref_qkv = [t.clone().requires_grad_() for t in (q, k, v)]
+        ref = torch.autograd.grad(fused_self_attention_plain(*ref_qkv), ref_qkv, g)
+        grad_err = max(check_close(f"{what} grad d{x}", a, b, *tol)
+                       for x, a, b in zip("qkv", grads, ref))
+        out[f"grad {_dtype_name(dtype)}"] = {"max_abs_err": err, "grad_max_abs_err": grad_err}
+
+
+def kernel_domain_phase(gen) -> dict:
+    phase("K1-K3 at the shapes their kernels take only through the wrapper: D % 8 != 0 (K1 at D "
+          f"{DOMAIN_K1_DIMS}, K3 at {DOMAIN_K3_DIMS}) and C % 32 != 0 (K2 at {DOMAIN_K2_DIMS}) "
+          "zero-padded, more rows than the grid's 65535 in two launches, both dtypes and K1's "
+          "bf16_probs mode, against the plain versions at the K1-K3 phases' limits; one call a "
+          "kernel through its route; K1's gradient at D 36")
+    t0 = time.perf_counter()
+    out = {}
+    _domain_k1(gen, out)
+    _domain_k3(gen, out)
+    _domain_k2(gen, out)
+    _domain_routes(gen, out)
+    _domain_grad(gen, out)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  phase done in {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def tiny_train_phase() -> None:
     phase("one DiT training step at tiny width in float32, TF32 off: card vs CPU from one seeded "
           "tree with injected noise, t (5, 617) and label drop (loss and MSE within 1e-5 "
@@ -4564,6 +4837,7 @@ def main() -> int:
     k4_fast = k4_fast_phase(gen)
     k4_wide = k4_wide_phase(gen)
     k1_grad = k1_grad_phase(gen)
+    domain = kernel_domain_phase(gen)
     tiny_phase()
     tiny_xl_phase()
     tiny_dit_phase()
@@ -4768,13 +5042,15 @@ def main() -> int:
               f"{entry['bound_ms']:.3f}, {100 * entry['roofline_share']:.1f} %); the plain "
               f"backward {entry['bwd_plain_ms']:.3f} ms per step (SDPA's backward "
               f"{entry['bwd_sdpa_ms']:.3f})", flush=True)
-    guards = [sd15_out["guard"], xl_out["guard"], dit_out["guard"], f32["sd15"]["guard"]]
+    guards = [sd15_out["guard"], xl_out["guard"], dit_out["guard"],
+              *(f32[what]["guard"] for what in ("sd15", "sdxl", "dit"))]
     for guard in guards:
         if (guard["per_triplet"] < guard["slope"] or guard["encode_bytes"] < guard["encode_peak"]
                 or any(guard["estimates"][t] < guard["peaks"][t] for t in guard["peaks"])):
             raise SystemExit(f"{guard['name']}: the device-memory guard's constants are below "
                              f"what the card measured: {guard}")
     line["hbm_guard"] = guards
+    line["kernel_domain"] = domain
     line["float32_scoring"] = {what: {k: v for k, v in res.items()
                                       if k not in ("counts", "scores", "guard")}
                                for what, res in f32.items()}

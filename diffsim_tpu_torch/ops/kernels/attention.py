@@ -4,8 +4,10 @@ Replaces the TPU kernel ``diffsim_tpu/ops/pallas/attention.py:fused_self_attenti
 CUDA kernel is ``csrc/fused_attention.cu`` (design and bound in its header): bf16 on ``wgmma`` +
 TMA, float32 as three TF32 products (3xTF32) on ``mma.sync`` with the scores and probabilities
 in registers. On a CPU tensor the wrapper runs :func:`fused_self_attention_plain`, the TPU
-kernel's arithmetic in torch; on a CUDA tensor it launches the kernel or raises. ``bf16_probs`` is the TPU kernel's fast mode
-(``--bf16_softmax``, ``ops/attention.py:fast_softmax``).
+kernel's arithmetic in torch; on a CUDA tensor it launches the kernel or raises. Every shape the
+route admits is launched (:func:`launch_plan`): a D off the kernel's granule of 8 zero-padded,
+the scale kept at the true D, and B*H past the grid's 65535 in slices. ``bf16_probs`` is the TPU
+kernel's fast mode (``--bf16_softmax``, ``ops/attention.py:fast_softmax``).
 
 Under grad (grad mode on and an input that requires it) the call goes through
 :class:`FusedSelfAttention`, the counterpart of the TPU kernel's custom VJP: the forward is the
@@ -20,9 +22,10 @@ import ctypes
 
 import torch
 
-from diffsim_tpu_torch.ops.kernels import build
+from diffsim_tpu_torch.ops.kernels import build, launch
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_DIM = 160  # the route's widest head (routes.use_fused) and the kernel's
 
 
 def round_bf16(x: torch.Tensor) -> torch.Tensor:
@@ -90,8 +93,8 @@ def fused_self_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Te
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _lib() -> ctypes.CDLL:
-    lib = build.library("fused_attention")
+def _lib(name: str) -> ctypes.CDLL:
+    lib = build.library(name)
     if lib.fused_attention_fwd.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.fused_attention_fwd.argtypes = [p, p, p, p, i, i, i, ctypes.c_float, i, i, p]
@@ -99,9 +102,22 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def launch_plan(shape, dtype: torch.dtype) -> launch.LaunchPlan:
+    """K1's launches for a (B, H, S, D) call in ``dtype``: D zero-padded to a multiple of 8 (at
+    most 160), one launch a slice of at most 65535 B*H rows. Raises ValueError outside
+    S % 64 == 0, 0 < D <= 160, or off bfloat16 and float32."""
+    b, h, s, d = shape
+    if dtype not in _DTYPES or s % 64 or not 0 < d <= MAX_DIM:
+        raise ValueError(f"fused_self_attention: shape {tuple(shape)} {dtype} not supported by "
+                         f"the kernel (bfloat16 or float32, S % 64 == 0, D <= {MAX_DIM})")
+    return launch.LaunchPlan("fused_attention", d, launch.padded_width(d, launch.HEAD_GRANULE),
+                             launch.row_slices(b * h))
+
+
 class FusedSelfAttention(torch.autograd.Function):
     """K1 under autograd: the forward dispatches as :func:`fused_self_attention` does without
-    grad (counting its launch), saves q, k and v; the backward is
+    grad (counting its launches), saves q, k and v as the caller gave them (unpadded, so the
+    backward runs at the true D and scale); the backward is
     :func:`fused_self_attention_bwd_plain`."""
 
     @staticmethod
@@ -120,9 +136,11 @@ def fused_self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``bf16_probs`` selects the fast mode. Differentiable: with grad mode on and an input that
     requires grad, the call goes through :class:`FusedSelfAttention`.
 
-    CUDA: contiguous bf16 or float32 tensors of one shape, S % 64 == 0, D % 8 == 0, D <= 160.
-    Counts one launch in ``fused_self_attention.launches``, in float32 one in
-    ``fused_self_attention.launches_float32`` and, in the fast mode, one in
+    CUDA: contiguous bf16 or float32 tensors of one shape, S % 64 == 0, any D <= 160 and any
+    B*H (:func:`launch_plan`): a D that is not a multiple of 8 is zero-padded, the scale kept at
+    the true D, and the output sliced back; B*H past 65535 takes one launch a slice. Counts each
+    launch in ``fused_self_attention.launches``, in float32 in
+    ``fused_self_attention.launches_float32`` and, in the fast mode, in
     ``fused_self_attention.launches_bf16_probs``."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return FusedSelfAttention.apply(q, k, v, bf16_probs)
@@ -146,22 +164,25 @@ def _dispatch(q, k, v, bf16_probs: bool) -> torch.Tensor:
     for t in (q, k, v):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("fused_self_attention: q/k/v must be contiguous and 16-byte aligned")
-    b, h, s, d = q.shape
-    if s % 64 or d % 8 or d > 160 or b * h > 65535:
-        raise ValueError(f"fused_self_attention: shape {tuple(q.shape)} not supported by the "
-                         "kernel (S % 64 == 0, D % 8 == 0, D <= 160, B*H <= 65535)")
+    plan = launch_plan(q.shape, q.dtype)
+    q, k, v = (launch.pad_to(t, plan.padded) for t in (q, k, v))
+    s, dp = q.shape[-2:]
     out = torch.empty_like(v)
-    lib = _lib()
+    lib = _lib(plan.library)
+    row = s * dp * q.element_size()  # bytes of one of the B*H rows
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.fused_attention_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                                     b * h, s, d, float(d**-0.5), _DTYPES[q.dtype],
-                                     int(bf16_probs), stream)
-    build.check(lib, rc, "fused_self_attention")
-    fused_self_attention.launches += 1
-    fused_self_attention.launches_float32 += int(q.dtype == torch.float32)
-    fused_self_attention.launches_bf16_probs += int(bf16_probs)
-    return out
+        for start, stop in plan.slices:
+            at = start * row
+            rc = lib.fused_attention_fwd(q.data_ptr() + at, k.data_ptr() + at, v.data_ptr() + at,
+                                         out.data_ptr() + at, stop - start, s, dp,
+                                         float(plan.width**-0.5), _DTYPES[q.dtype],
+                                         int(bf16_probs), stream)
+            build.check(lib, rc, "fused_self_attention")
+            fused_self_attention.launches += 1
+            fused_self_attention.launches_float32 += int(q.dtype == torch.float32)
+            fused_self_attention.launches_bf16_probs += int(bf16_probs)
+    return out if dp == plan.width else out[..., :plan.width].contiguous()
 
 
 fused_self_attention.launches = 0

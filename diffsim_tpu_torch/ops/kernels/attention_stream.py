@@ -9,8 +9,8 @@ whose two consumer warpgroups split the keys of Q K^T and the output columns of 
 ``csrc/streaming_attention_wide.cu`` for the rest (512 < D <= 1024 in both dtypes, and float32
 at D % 64 != 0), where a 2-block cluster owns a q block and each block of the pair takes a share
 of D for Q K^T and P V, the partial scores exchanged through distributed shared memory. A head
-whose D is not a multiple of 8 is zero-padded to the next one (:func:`pad_head_dim`), the softmax
-scale kept at the true D, and the output sliced back. On a CPU tensor the wrapper runs
+whose D is not a multiple of 8 is zero-padded to the next one (``launch.pad_head_dim``), the
+softmax scale kept at the true D, and the output sliced back. On a CPU tensor the wrapper runs
 :func:`streaming_self_attention_plain`; on a CUDA tensor it launches a kernel or raises.
 """
 
@@ -20,17 +20,18 @@ import ctypes
 
 import torch
 
-from diffsim_tpu_torch.ops.kernels import build
+from diffsim_tpu_torch.ops.kernels import build, launch
 from diffsim_tpu_torch.ops.kernels.attention import (
     fast_probs,
     fused_self_attention_plain,
     round_bf16,
 )
+from diffsim_tpu_torch.ops.kernels.launch import pad_head_dim  # noqa: F401 (re-exported)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_DIM = 1024  # the route's widest head (routes.use_streaming)
 NARROW_DIM = 512  # the widest head of csrc/streaming_attention.cu
-NARROW_MAX_BH = 65535  # csrc/streaming_attention.cu's grid.y: B*H rows a launch
+NARROW_MAX_BH = launch.MAX_GRID_ROWS  # csrc/streaming_attention.cu's grid.y: B*H rows a launch
 _PLAIN_BLOCK_Q = 2048  # query rows per step of the plain version: bounds its logits buffer
 
 
@@ -77,7 +78,7 @@ def streaming_self_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Te
     recurrence (:func:`_online_bf16_probs`), since its rounding depends on the running max.
     Query rows go in blocks of 2048, so the f32 logits of a 16384-token head take 128 MiB at a
     time instead of 1 GiB. ``scale`` defaults to 1/sqrt(D); on heads zero-padded by
-    :func:`pad_head_dim` it is the unpadded width's, as the kernels take it."""
+    ``launch.pad_head_dim`` it is the unpadded width's, as the kernels take it."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     out = torch.empty_like(v)
@@ -90,21 +91,12 @@ def streaming_self_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Te
     return out
 
 
-def pad_head_dim(t: torch.Tensor) -> torch.Tensor:
-    """``t`` with its last dimension zero-padded to a multiple of 8, the kernels' granule (``t``
-    itself if it is one). Zero columns of Q and K add nothing to a logit and zero columns of V
-    give zero output columns, so with the softmax scale of the unpadded width the padded call's
-    first D output columns are the unpadded call's."""
-    pad = -t.shape[-1] % 8
-    return torch.nn.functional.pad(t, (0, pad)) if pad else t
-
-
 def bh_slices(bh: int, library: str) -> list[tuple[int, int]]:
     """The [start, stop) ranges of the B*H rows that one launch of ``library`` takes: all of them
     in ``streaming_attention_wide`` (its grid has no B*H axis limit), slices of at most
     :data:`NARROW_MAX_BH` in ``streaming_attention``."""
-    step = bh if library == "streaming_attention_wide" else NARROW_MAX_BH
-    return [(i, min(i + step, bh)) for i in range(0, bh, step)]
+    step = max(bh, 1) if library == "streaming_attention_wide" else NARROW_MAX_BH
+    return list(launch.row_slices(bh, step))
 
 
 def library_name(d: int, dtype: torch.dtype) -> str:
@@ -114,6 +106,19 @@ def library_name(d: int, dtype: torch.dtype) -> str:
     if d > NARROW_DIM or (dtype == torch.float32 and d % 64):
         return "streaming_attention_wide"
     return "streaming_attention"
+
+
+def launch_plan(shape, dtype: torch.dtype) -> launch.LaunchPlan:
+    """K4's launches for a (B, H, S, D) call in ``dtype``: D zero-padded to a multiple of 8, the
+    library whose kernel takes the padded width (:func:`library_name`) and its B*H slices
+    (:func:`bh_slices`). Raises ValueError outside S % 64 == 0, 0 < D <= :data:`MAX_DIM`."""
+    b, h, s, d = shape
+    if dtype not in _DTYPES or s % 64 or not 0 < d <= MAX_DIM:
+        raise ValueError(f"streaming_self_attention: shape {tuple(shape)} {dtype} not supported "
+                         f"by the kernel (bfloat16 or float32, S % 64 == 0, D <= {MAX_DIM})")
+    dp = launch.padded_width(d, launch.HEAD_GRANULE)
+    name = library_name(dp, dtype)
+    return launch.LaunchPlan(name, d, dp, tuple(bh_slices(b * h, name)))
 
 
 def _lib(name: str) -> ctypes.CDLL:
@@ -130,14 +135,14 @@ def streaming_self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """(B, H, S, D) self-attention, softmax scale 1/sqrt(D), output in V's dtype;
     ``bf16_probs`` selects the fast mode.
 
-    CUDA: contiguous tensors of one shape, S % 64 == 0, D <= 1024 (the SDXL VAE's mid attention
-    is (B, 1, 16384, 512); a VAE whose last block is 1024 wide gives D = 1024), any B*H. A D that
-    is not a multiple of 8 is zero-padded (:func:`pad_head_dim`) and the output sliced back; B*H
-    past :data:`NARROW_MAX_BH` takes one launch a slice in the D <= 512 library
-    (:func:`bh_slices`). Counts each launch in ``streaming_self_attention.launches``, in float32
-    in ``streaming_self_attention.launches_float32`` and, in the fast mode, in
-    ``streaming_self_attention.launches_bf16_probs``. Not differentiable, as the TPU kernel is
-    not: under grad, on inputs that require it, the call raises."""
+    CUDA: contiguous tensors of one shape, S % 64 == 0, D <= 1024 (the SDXL VAE's mid attention is
+    (B, 1, 16384, 512); a VAE whose last block is 1024 wide gives D = 1024), any B*H. A D that is
+    not a multiple of 8 is zero-padded and the output sliced back; B*H past :data:`NARROW_MAX_BH`
+    takes one launch a slice in the D <= 512 library (:func:`launch_plan`). Counts each launch in
+    ``streaming_self_attention.launches``, in float32 in
+    ``streaming_self_attention.launches_float32`` and, in the fast mode, in
+    ``streaming_self_attention.launches_bf16_probs``. Not differentiable, as the TPU kernel is not:
+    under grad, on inputs that require it, the call raises."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         raise RuntimeError("streaming_self_attention has no backward (the TPU kernel defines no "
                            "VJP either): call it under torch.no_grad() or on detached inputs")
@@ -157,29 +162,25 @@ def streaming_self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("streaming_self_attention: q/k/v must be contiguous and 16-byte "
                              "aligned")
-    b, h, s, d = q.shape
-    if s % 64 or d > MAX_DIM:
-        raise ValueError(f"streaming_self_attention: shape {tuple(q.shape)} {q.dtype} not "
-                         f"supported by the kernel (S % 64 == 0, D <= {MAX_DIM})")
-    q, k, v = (pad_head_dim(t) for t in (q, k, v))
-    dp = q.shape[-1]
+    plan = launch_plan(q.shape, q.dtype)
+    q, k, v = (launch.pad_to(t, plan.padded) for t in (q, k, v))
+    s, dp = q.shape[-2:]
     out = torch.empty_like(v)
-    name = library_name(dp, q.dtype)
-    lib = _lib(name)
+    lib = _lib(plan.library)
     row = s * dp * q.element_size()  # bytes of one of the B*H rows
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        for start, stop in bh_slices(b * h, name):
+        for start, stop in plan.slices:
             at = start * row
             rc = lib.streaming_attention_fwd(q.data_ptr() + at, k.data_ptr() + at,
                                              v.data_ptr() + at, out.data_ptr() + at,
-                                             stop - start, s, dp, float(d**-0.5),
+                                             stop - start, s, dp, float(plan.width**-0.5),
                                              _DTYPES[q.dtype], int(bf16_probs), stream)
             build.check(lib, rc, "streaming_self_attention")
             streaming_self_attention.launches += 1
             streaming_self_attention.launches_float32 += int(q.dtype == torch.float32)
             streaming_self_attention.launches_bf16_probs += int(bf16_probs)
-    return out if dp == d else out[..., :d].contiguous()
+    return out if dp == plan.width else out[..., :plan.width].contiguous()
 
 
 streaming_self_attention.launches = 0

@@ -36,10 +36,12 @@ import torch
 # scoring tail (UNet to the tap and readout) at 512 px in bf16: the slope of
 # torch.cuda.max_memory_allocated between 8 and 16 triplets, 0.342 GB, rounded up.
 PER_TRIPLET_BYTES_512 = 0.4e9
-# A float32 scorer's per-triplet bytes over its bf16 counterpart's: the float32 SD-1.5 tail's
-# slope, 0.438 GB a triplet, over bf16's 0.342 is 1.28 (part of the bf16 tail is float32
-# already: logits, softmax statistics, the readout's sums), rounded up.
-FLOAT32_SCALE = 1.5
+# A float32 scorer's per-triplet bytes over its bf16 constant's. The float32 tails' slopes
+# (chip_smoke.py, NVIDIA H100 80GB HBM3 at 700 W): SD-1.5 0.438 GB a triplet at 512 px against
+# a bf16 constant of 0.4 GB (1.10x), SDXL 1.284 GB at 1024 px against 0.8 (1.61x), DiT-XL/2
+# 0.3411 GB at 512 px against 0.2 (1.71x: the most, as DiT's bf16 tail is the least float32
+# already); 1.71 rounded up with the bf16 constants' margin. 1.5 held SD-1.5 only.
+FLOAT32_SCALE = 2.0
 # the peak of one VAE encode slice, rounded up: 11.84 GB for SD-1.5's 16 images at 512 px in
 # bf16, 7.54 GB for SDXL's 2 images at 1024 px in float32
 ENCODE_BYTES = 12.5e9

@@ -171,3 +171,23 @@ def test_the_guard_counts_more_bytes_a_triplet_for_a_float32_scorer():
     assert bf16 == hbm_guard.PER_TRIPLET_BYTES_512 * 1.7 * 4
     assert hbm_guard.per_triplet_bytes(scorer(torch.float32)) == hbm_guard.FLOAT32_SCALE * bf16
     assert hbm_guard.FLOAT32_SCALE > 1.0
+
+
+# the float32 scoring tails' slopes that chip_smoke.py measured between two triplet counts
+# (bytes a triplet; NVIDIA H100 80GB HBM3, 700 W): (scorer class, image size, slope)
+FLOAT32_SLOPES = [("DiffSimSD15", 512, 0.438e9), ("DiffSimXL", 1024, 1.284e9),
+                  ("DiffSimDiT", 512, 0.3411e9)]
+
+
+@pytest.mark.parametrize("name, img_size, slope", FLOAT32_SLOPES)
+def test_the_guard_holds_each_float32_scorer_above_its_measured_slope(name, img_size, slope):
+    """A float32 scorer's per-triplet constant stays above the slope measured on the card, with
+    the margin of the bf16 constants (at least 10 %); the scale of 1.5 held SD-1.5 alone, and
+    SDXL's and DiT-XL/2's tails outgrew it."""
+    from diffsim_tpu_torch.metrics import diffsim_dit, diffsim_sd15, diffsim_xl
+
+    cls = {"DiffSimSD15": diffsim_sd15.DiffSimSD15, "DiffSimXL": diffsim_xl.DiffSimXL,
+           "DiffSimDiT": diffsim_dit.DiffSimDiT}[name]
+    scorer = types.SimpleNamespace(hbm_scale=cls.hbm_scale, img_size=img_size,
+                                   dtype=torch.float32)
+    assert hbm_guard.per_triplet_bytes(scorer) >= 1.1 * slope
