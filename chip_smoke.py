@@ -1411,12 +1411,16 @@ def sd15_phase(card_line: str) -> dict:
     _check_scores("score_batch at up block 2", scores)
     print(f"  scores {scores}", flush=True)
     out["guard"] = guard_slope("SD-1.5 512 px", scorer, CUTE, (8, 16), 512, card_line)
+    out["pair_guard"] = pair_slope("SD-1.5 512 px", scorer, CUTE, (8, 16), 512, card_line)
+    out["refusal"] = pair_refusal(scorer, CUTE, 16, 512, card_line)
     out["surface"] = sd15_surface(scorer, pix)
     phase("SD-1.5 IP-Adapter-plus at full width, 512 px: CLIP ViT-H/14 and the sd15_plus "
           "Resampler, random weights on the card; the ipref preset's arguments (target_layer 5 "
           "collapses to up block 1, attn2), t = 750")
     out["ip"] = ip_drive("SD-1.5", scorer, pix[0][:2], pix[1][:2], IPREF, SD15_IP_CALL,
                          card_line)
+    out["ip_pair_guard"] = pair_slope("SD-1.5 IP-Adapter 512 px", scorer,
+                                      {**IPREF, "ip_adapter": True}, (8, 16), 512, card_line)
     return out
 
 
@@ -1522,10 +1526,13 @@ def sdxl_phase(card_line: str) -> dict:
     out["cached_gap"] = cached_path("SDXL", scorer, pix, *out["scores"], XL_ARGS,
                                     XL_TRIPLET_CALL, {**XL_FORWARD, "cross_self_partials": 4})
     out["guard"] = guard_slope("SDXL 1024 px", scorer, XL_ARGS, (2, 4), 1024, card_line)
+    out["pair_guard"] = pair_slope("SDXL 1024 px", scorer, XL_ARGS, (2, 4), 1024, card_line)
     del x
     phase("SDXL IP-Adapter-plus at full width, 1024 px: CLIP ViT-H/14 and the sdxl_plus "
           "Resampler, random weights on the card; tap up (0, 1, 1) attn2, t = 900")
     out["ip"] = ip_drive("SDXL", scorer, pix[0], pix[1], XL_ARGS, XL_IP_PAIRS_CALL, card_line)
+    out["ip_pair_guard"] = pair_slope("SDXL IP-Adapter 1024 px", scorer,
+                                      {**XL_ARGS, "ip_adapter": True}, (2, 4), 1024, card_line)
     return out
 
 
@@ -1654,6 +1661,7 @@ def dit_phase(card_line: str) -> dict:
     out["cached_gap"] = cached_path("DiT-XL/2", scorer, pix, *out["scores"], DIT_ARGS,
                                     DIT_TRIPLET_CALL, DIT_TRIPLET_CALL)
     out["guard"] = guard_slope("DiT-XL/2 512 px", scorer, DIT_ARGS, (8, 16), 512, card_line)
+    out["pair_guard"] = pair_slope("DiT-XL/2 512 px", scorer, DIT_ARGS, (8, 16), 512, card_line)
     return out
 
 
@@ -1776,6 +1784,8 @@ def f32_scoring_phase(card_line: str, bf16_ms: dict) -> dict:
                               SD15_K3_TRIPLET_CALL, bf16_ms["sd15"])
     out["sd15"]["guard"] = guard_slope("SD-1.5 512 px float32", scorer, CUTE, (8, 16), 512,
                                        card_line)
+    out["sd15"]["pair_guard"] = pair_slope("SD-1.5 512 px float32", scorer, CUTE, (8, 16), 512,
+                                           card_line)
     del scorer
     torch.cuda.empty_cache()
     phase("float32 scoring at full width: SDXL, 1024 px, dtype=torch.float32, tap (0, 1, 1), "
@@ -1788,6 +1798,8 @@ def f32_scoring_phase(card_line: str, bf16_ms: dict) -> dict:
                                     XL_TRIPLET_CALL, {**XL_FORWARD, "cross_self_partials": 4},
                                     all_float32=True)
     res["guard"] = guard_slope("SDXL 1024 px float32", scorer, XL_ARGS, (2, 4), 1024, card_line)
+    res["pair_guard"] = pair_slope("SDXL 1024 px float32", scorer, XL_ARGS, (2, 4), 1024,
+                                   card_line)
     out["sdxl"] = res
     del scorer
     torch.cuda.empty_cache()
@@ -1801,6 +1813,8 @@ def f32_scoring_phase(card_line: str, bf16_ms: dict) -> dict:
                                     DIT_TRIPLET_CALL, DIT_TRIPLET_CALL, all_float32=True)
     res["guard"] = guard_slope("DiT-XL/2 512 px float32", scorer, DIT_ARGS, (8, 16), 512,
                                card_line)
+    res["pair_guard"] = pair_slope("DiT-XL/2 512 px float32", scorer, DIT_ARGS, (8, 16), 512,
+                                   card_line)
     out["dit"] = res
     del scorer
     torch.cuda.empty_cache()
@@ -2221,6 +2235,94 @@ def guard_slope(name: str, scorer, args, counts, img: int, card_line: str) -> di
     return {"name": name, "slope": slope, "per_triplet": per, "encode_peak": encode,
             "encode_bytes": hbm_guard.ENCODE_BYTES, "peaks": peaks, "estimates": est,
             "tail": tail}
+
+
+def pair_slope(name: str, scorer, args, counts, img: int, card_line: str) -> dict:
+    """Calibrate the device-memory guard's pair path on ``scorer``: the peak of
+    ``torch.cuda.max_memory_allocated`` of ``score_batch`` at two pair counts (each after a
+    warm-up call, reset and read as in :func:`guard_slope`), and the peak of its tail, the part
+    after the last VAE encode slice (the peak stats reset by a forward hook on the encoder at
+    the end of each slice). At these counts the call's peak is the encode slice's, which does
+    not grow with P, so the tail's slope is the one that tells. ``main`` fails unless the
+    guard's per-pair estimate is at least both slopes and its estimate at each count at least
+    the call's peak."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(4)
+    lo, hi = counts
+    peaks, tail = {}, {}
+    readings = []
+
+    def after_slice(*_):
+        readings.append(torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+
+    for p in counts:
+        pix = [rng.integers(0, 256, (p, img, img, 3), dtype=np.uint8) for _ in range(2)]
+        scorer.score_batch(*pix, **args)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        readings.clear()
+        hook = scorer.vae.register_forward_hook(after_slice)
+        try:
+            scorer.score_batch(*pix, **args)
+        finally:
+            hook.remove()
+        torch.cuda.synchronize()
+        tail[p] = torch.cuda.max_memory_allocated()
+        peaks[p] = max(readings + [tail[p]])
+        del pix
+    per = hbm_guard.per_pair_bytes(scorer)
+    est = {p: hbm_guard.scorer_static_bytes(scorer) + per * p for p in counts}
+    slope = (peaks[hi] - peaks[lo]) / (hi - lo)
+    tail_slope = (tail[hi] - tail[lo]) / (hi - lo)
+    took = time.perf_counter() - t0
+    print(f"  {name} pair path, device-memory guard on {card_line}: score_batch peaks at "
+          f"{peaks[lo] / 1e9:.3f} GB with {lo} pairs and {peaks[hi] / 1e9:.3f} GB with {hi} "
+          f"(the guard's estimates {est[lo] / 1e9:.3f} and {est[hi] / 1e9:.3f}): "
+          f"{slope / 1e9:.4f} GB per pair; after the encode {tail[lo] / 1e9:.3f} and "
+          f"{tail[hi] / 1e9:.3f} GB: {tail_slope / 1e9:.4f} GB per pair (the guard's "
+          f"{per / 1e9:.4f}); {took:.1f} s", flush=True)
+    return {"name": name, "slope": slope, "tail_slope": tail_slope, "per_pair": per,
+            "peaks": peaks, "tail": tail, "estimates": est, "seconds": took}
+
+
+def pair_refusal(scorer, args, n: int, img: int, card_line: str) -> dict:
+    """The guard's refusal on the card: with ``DIFFSIM_TPU_HBM_GB`` just below the estimate of
+    ``n`` pairs, ``score_batch`` of ``n`` pairs must raise ``HbmBudgetError`` with
+    ``torch.cuda.memory_allocated()`` unmoved (nothing uploaded), and ``n // 2`` pairs must
+    then score."""
+    rng = np.random.default_rng(6)
+    pix = [rng.integers(0, 256, (n, img, img, 3), dtype=np.uint8) for _ in range(2)]
+    est = hbm_guard.scorer_static_bytes(scorer) + hbm_guard.per_pair_bytes(scorer) * n
+    budget_gb = est * (1 - 1e-6) / hbm_guard.MARGIN / 1e9
+    kept = os.environ.get("DIFFSIM_TPU_HBM_GB")
+    os.environ["DIFFSIM_TPU_HBM_GB"] = repr(budget_gb)
+    try:
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        try:
+            scorer.score_batch(*pix, **args)
+        except hbm_guard.HbmBudgetError as err:
+            message = str(err)
+        else:
+            raise SystemExit(f"score_batch of {n} pairs ran under a budget below its estimate")
+        torch.cuda.synchronize()
+        after = torch.cuda.memory_allocated()
+        if after != before:
+            raise SystemExit(f"a refused {n}-pair call moved the device memory from {before} "
+                             f"to {after} bytes")
+        half = scorer.score_batch(pix[0][:n // 2], pix[1][:n // 2], **args)
+    finally:
+        if kept is None:
+            del os.environ["DIFFSIM_TPU_HBM_GB"]
+        else:
+            os.environ["DIFFSIM_TPU_HBM_GB"] = kept
+    _check_scores(f"score_batch of {n // 2} pairs under the budget", half)
+    print(f"  DIFFSIM_TPU_HBM_GB={budget_gb:.4f} on {card_line}: {n} pairs refused ({message}), "
+          f"memory_allocated {before} bytes before and {after} after; {n // 2} pairs scored "
+          f"{half}", flush=True)
+    return {"pairs": n, "budget_gb": budget_gb, "estimate": est, "allocated_before": before,
+            "allocated_after": after, "message": message}
 
 
 def _cute_tree(root: str) -> str:
@@ -5050,9 +5152,25 @@ def main() -> int:
             raise SystemExit(f"{guard['name']}: the device-memory guard's constants are below "
                              f"what the card measured: {guard}")
     line["hbm_guard"] = guards
+    pair_guards = [out[key] for out in (sd15_out, xl_out, dit_out, *f32.values())
+                   for key in ("pair_guard", "ip_pair_guard") if key in out]
+    for guard in pair_guards:
+        if (guard["per_pair"] < max(guard["slope"], guard["tail_slope"])
+                or any(guard["estimates"][p] < guard["peaks"][p] for p in guard["peaks"])):
+            raise SystemExit(f"{guard['name']}: the device-memory guard's pair estimate is below "
+                             f"what the card measured: {guard}")
+    if len(pair_guards) != 8:
+        raise SystemExit(f"{len(pair_guards)} pair-path calibrations ran, not 8")
+    print(f"  the pair paths' guard held on {card_line}: "
+          + "; ".join(f"{g['name']} {g['tail_slope'] / 1e9:.4f} GB a pair after the encode "
+                      f"(whole call {g['slope'] / 1e9:.4f}) <= {g['per_pair'] / 1e9:.4f}"
+                      for g in pair_guards)
+          + f"; the pair calibrations took {sum(g['seconds'] for g in pair_guards):.1f} s",
+          flush=True)
+    line["hbm_guard_pairs"] = {"calibration": pair_guards, "refusal": sd15_out["refusal"]}
     line["kernel_domain"] = domain
     line["float32_scoring"] = {what: {k: v for k, v in res.items()
-                                      if k not in ("counts", "scores", "guard")}
+                                      if k not in ("counts", "scores", "guard", "pair_guard")}
                                for what, res in f32.items()}
     line["cli"] = {k: v for k, v in cli.items() if k not in ("counts", "fast_counts", "scores")}
     line["ip_adapter"] = {

@@ -44,6 +44,7 @@ from diffsim_tpu_torch.metrics.scorer_base import (
 from diffsim_tpu_torch.models.dit import DiT, DiTConfig, pos_embed_2d
 from diffsim_tpu_torch.models.vae import Encoder, VAEConfig, encode_chunked, sample_latents
 from diffsim_tpu_torch.ops.taps import QKV, TapSpec
+from diffsim_tpu_torch.runtime import hbm_guard
 
 KINDS = ("dit", "vae")
 
@@ -169,7 +170,9 @@ class DiffSimDiT:
         """Score P pairs; pix_a/pix_b (P, H, W, 3). ``blocking=False`` returns a zero-arg
         callable that fetches the (P,) scores. ``noise_override``: (eps_vae, eps_noise), each
         (2, h, w, latent_c), replacing the seed-derived draws (the cross-framework parity
-        mode)."""
+        mode). A P whose estimate exceeds the device-memory budget raises ``HbmBudgetError``
+        before anything reaches the device (``runtime/hbm_guard.check_pairs``)."""
+        hbm_guard.check_pairs(self, pix_a.shape[0])
         tap = self._tap(target_layer)
         spec = schedulers.dit_noise_spec(int(target_step))
         moments = self._encode([pix_a, pix_b])

@@ -51,6 +51,7 @@ from diffsim_tpu_torch.models.unet import UNet, UNetConfig
 from diffsim_tpu_torch.models.vae import Encoder, VAEConfig, encode_chunked, sample_latents
 from diffsim_tpu_torch.ops.attention import fast_softmax as fast_softmax_mode
 from diffsim_tpu_torch.ops.taps import IP_QKV, OUTPUT, QKV, TapSpec
+from diffsim_tpu_torch.runtime import hbm_guard
 
 
 def sd15_tap(target_block: str, target_layer, ip_adapter: bool = False,
@@ -227,8 +228,11 @@ class DiffSimSD15(IPAdapterMixin):
                      seed: int, noise_override, masks=None) -> torch.Tensor:
         """(P,) scores of P pairs at ``tap``, by the readout of the tap's kind; the whole graph,
         VAE encode included, in the fast mode when the scorer has it. ``masks`` (P, 2, H, W)
-        weight the queries of a QKV tap."""
+        weight the queries of a QKV tap. A P whose estimate exceeds the device-memory budget
+        raises ``HbmBudgetError`` before anything reaches the device
+        (``runtime/hbm_guard.check_pairs``)."""
         P = pix_a.shape[0]
+        hbm_guard.check_pairs(self, P)
         prompts = [prompt] * P if isinstance(prompt, str) else list(prompt)
         if len(prompts) != P:
             raise ValueError(f"{len(prompts)} prompts for {P} pairs")

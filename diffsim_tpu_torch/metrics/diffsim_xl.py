@@ -55,6 +55,7 @@ from diffsim_tpu_torch.models.ip_adapter import ResamplerConfig
 from diffsim_tpu_torch.models.unet import UNet, UNetConfig
 from diffsim_tpu_torch.models.vae import Encoder, VAEConfig, encode_chunked, sample_latents
 from diffsim_tpu_torch.ops.taps import IP_QKV, QKV, TapSpec
+from diffsim_tpu_torch.runtime import hbm_guard
 
 KINDS = ("unet", "vae", "text", "text2")
 
@@ -271,9 +272,12 @@ class DiffSimXL(IPAdapterMixin):
         ``blocking=False`` returns a zero-arg callable that fetches the (P,) scores.
         ``noise_override``: (eps_vae, eps_noise), each (2, h, w, latent_c), replacing the
         seed-derived draws (the cross-framework parity mode). ``ip_adapter`` taps attn2's
-        IP-Adapter keys and values (attaching random weights if no adapter is)."""
+        IP-Adapter keys and values (attaching random weights if no adapter is). A P whose
+        estimate exceeds the device-memory budget raises ``HbmBudgetError`` before anything
+        reaches the device (``runtime/hbm_guard.check_pairs``)."""
         tap = sdxl_tap(target_block, target_layer, ip_adapter)
         P = pix_a.shape[0]
+        hbm_guard.check_pairs(self, P)
         prompts = [prompt] * P if isinstance(prompt, str) else list(prompt)
         if len(prompts) != P:
             raise ValueError(f"{len(prompts)} prompts for {P} pairs")

@@ -1,4 +1,4 @@
-"""Pre-flight device-memory budget for the triplet scoring paths (counterpart of
+"""Pre-flight device-memory budget for the scoring paths (counterpart of
 ``diffsim_tpu/runtime/hbm_guard.py``).
 
 Every triplet dispatch (fresh pixels and cached moments, SD-1.5 and SDXL) estimates its peak
@@ -19,6 +19,15 @@ Estimate = static + per_triplet * chunk:
   (img_size / 512)^2 (activations are spatial), the scorer's ``hbm_scale`` and, for a scorer
   built with ``dtype=torch.float32``, :data:`FLOAT32_SCALE`;
 * :data:`MARGIN` of the budget may be filled; the rest is the caching allocator's slack.
+
+The pair paths (``score_batch`` of the three DiffSim scorers) have no chunk loop: like the JAX
+scorers, they refuse an over-budget batch of P pairs outright (:func:`check_pairs`), before
+anything of the call reaches the card. A pair is 2 images and 4 CFG forwards against a triplet's
+3 and 6, so its tail is 2/3 of a triplet's, plus :data:`PAIR_PIXEL_BYTES` for each value of its
+two images (``metrics/scorer_base.to_device_pixels`` uploads all 2P images at once). Under
+``torch.distributed`` each rank checks its own share of the rows (``parallel/mesh.shard_rows``).
+``chip_smoke.py`` measures the pair tails' slopes on the card and fails unless this estimate
+is above each of them.
 
 The budget is the card's total memory (``torch.cuda.mem_get_info``). ``DIFFSIM_TPU_HBM_GB``
 overrides it in GB, as in the JAX package; a value <= 0 disables the guard. On a CPU device the
@@ -47,13 +56,18 @@ FLOAT32_SCALE = 2.0
 ENCODE_BYTES = 12.5e9
 # the CUDA context, cuBLAS/cuDNN workspaces and the prompt tables, outside the allocator's count
 RESERVE_BYTES = 1.0e9
+# bytes a pixel value of a pair's images takes on the device while metrics/scorer_base
+# to_device_pixels runs, at its peak: the uint8 upload and two float32 maps (u8 / 127.5, then
+# - 1) at once; no later step holds more (the scoring-dtype copy beside the upload and one map,
+# then the NCHW copy beside that copy)
+PAIR_PIXEL_BYTES = 1 + 4 + 4
 # the share of the budget an estimate may fill
 MARGIN = 0.9
 
 
 class HbmBudgetError(RuntimeError):
-    """A requested scoring chunk would exceed the device-memory budget. Raised on the host
-    before anything of that chunk runs."""
+    """A requested scoring chunk or pair batch would exceed the device-memory budget. Raised on
+    the host before anything of it runs."""
 
 
 def budget_bytes(device: torch.device) -> float:
@@ -110,3 +124,25 @@ def check_chunk(scorer, chunk: int) -> None:
             f"a {chunk}-triplet chunk at {scorer.img_size}px is estimated at {est / 1e9:.2f} GB "
             f"against a {budget / 1e9:.2f} GB device budget ({MARGIN:.0%} usable): pass a "
             f"smaller chunk=, score in smaller batches, or set DIFFSIM_TPU_HBM_GB")
+
+
+def per_pair_bytes(scorer) -> float:
+    """Peak bytes one pair adds to a ``score_batch`` call: 2/3 of a triplet's tail, and its two
+    images' pixels as they are uploaded."""
+    pixels = 2 * scorer.img_size * scorer.img_size * 3 * PAIR_PIXEL_BYTES
+    return per_triplet_bytes(scorer) * (2 / 3) + pixels
+
+
+def check_pairs(scorer, n_pairs: int) -> None:
+    """Refuse a ``score_batch`` call of ``n_pairs`` pairs whose estimate exceeds the budget.
+    The pair paths have no chunk loop, so the remedy is a smaller batch."""
+    budget = budget_bytes(scorer.device)
+    if budget <= 0:
+        return
+    est = scorer_static_bytes(scorer) + per_pair_bytes(scorer) * n_pairs
+    if est > budget * MARGIN:
+        raise HbmBudgetError(
+            f"a {n_pairs}-pair call at {scorer.img_size}px is estimated at {est / 1e9:.2f} GB "
+            f"against a {budget / 1e9:.2f} GB device budget ({MARGIN:.0%} usable): score in "
+            f"smaller batches (the 2AFC runner's --batch_size, the service's --batch_size), or "
+            f"set DIFFSIM_TPU_HBM_GB if this card has more memory")
