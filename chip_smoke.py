@@ -139,20 +139,25 @@ Phases, each of which fails the run (non-zero exit, no result line) if anything 
    ensemble`` (diffsim through the moment cache, clip_i, dino; its K1 / K2 launches predicted
    from the cached CLI run's forwards), each with its pairs/s;
 22. K1 under autograd (DiT training): ``torch.autograd.grad`` through its ``FusedSelfAttention``
-   Function (the kernel's forward, the backward a port of the JAX ``_fused_bwd``) against the
-   same through ``fused_self_attention_plain``, at DiT-XL/2's 256 px training site (32, 16, 256,
-   72) and at (2, 3, 256, 72) and (2, 3, 1024, 80), in float32 and bf16; the output's
-   ``grad_fn`` is the Function; the forward timed beside SDPA and its bound (float32: also
-   beside the previous FMA design, at the training site and the sampler's), the plain backward
-   beside SDPA's backward (information);
-23. one DiT training step at tiny width (head dim 72 at 256 tokens, so K1 routes), card vs CPU
-   from one seeded tree in float32 with TF32 off and injected noise, t and label drop: the
-   loss, every gradient, the AdamW step and the EMA;
+   Function (the kernel's forward; the backward the kernel ``csrc/fused_attention_bwd.cu``, the
+   JAX ``_fused_bwd``, one launch a call) against the same through
+   ``fused_self_attention_plain``, and the backward kernel against
+   ``fused_self_attention_bwd_plain``, bit for bit on a second call, at DiT-XL/2's 256 px
+   training site (32, 16, 256, 72) and at (2, 3, 256, 72) and (2, 3, 1024, 80), in float32 and
+   bf16; the backward alone at D 36 (zero-padded), D 160, 1024 tokens and B*H = 65536 (two
+   launches); the output's ``grad_fn`` is the Function; the forward timed beside SDPA and its
+   bound (float32: also beside the previous FMA design, at the training site and the
+   sampler's), the backward beside its plain version, SDPA's backward and its bound;
+23. one DiT training step at tiny width (head dim 72 at 256 tokens, so K1 and its backward
+   kernel route: 3 K1 and 2 backward launches asserted), card vs CPU from one seeded tree in
+   float32 with TF32 off and injected noise, t and label drop: the loss, every gradient, the
+   AdamW step and the EMA;
 24. ``dit_train`` at DiT-XL/2 256 px, batch 32, over 96 random JPEGs in 2 class folders: float32
    (4 steps, a checkpoint every 2, the SD VAE encoder from a seeded ``.npz`` of its published
    widths), ``--resume`` from step 2 (the step count continues), ``--bf16`` (3 steps, a profile
    of one step) and ``--remat`` (2 steps, the random encoder); 28 K1 launches a step (56 with
-   remat) and none of K2-K4 asserted, finite losses, step time, images/s and peak memory;
+   remat) and 28 of its backward kernel, none of K2-K4 asserted, finite losses, step time,
+   images/s and peak memory;
 25. ``dit_sample`` from that checkpoint with the ``.npz``'s ``vae_decoder``: the 8 default
    labels at CFG 4.0 and 50 steps (ancestral, then ``--ddim``) into a PNG grid of 256 px images,
    and ``--num_fid_samples 16 --per_batch 8`` into an ``arr_0`` of (16, 256, 256, 3) uint8; 28
@@ -191,7 +196,8 @@ Phases, each of which fails the run (non-zero exit, no result line) if anything 
    ranks scoring rows;
 34. ``dit_train --distributed`` on two ranks at DiT-XL/2 256 px, global batch 32: 3 float32
    steps whose losses are within 1e-4 relative of the one-process run's (rank 0's checkpoint
-   at step 2 within 4e-4 of its weights), and 1 ``--bf16`` step within 5e-3;
+   at step 2 within 4e-4 of its weights), and 1 ``--bf16`` step within 5e-3; 28 K1 and 28
+   backward launches a step on each rank;
 35. ``dit_sample --ddim`` on two ranks from the training checkpoint: the decoded images within
    1e-2 of the one-process run's.
 Two ranks on one card show that the sharded paths are right and what they cost, not how they
@@ -290,7 +296,7 @@ from diffsim_tpu_torch.ops.kernels import attention as kattn
 from diffsim_tpu_torch.ops.kernels import build, readout
 from diffsim_tpu_torch.ops.kernels import ff as kff
 from diffsim_tpu_torch.ops.kernels.attention import (
-    fused_self_attention, fused_self_attention_plain, round_bf16)
+    fused_self_attention, fused_self_attention_bwd, fused_self_attention_plain, round_bf16)
 from diffsim_tpu_torch.ops.kernels.attention_stream import (
     streaming_self_attention,
     streaming_self_attention_plain,
@@ -346,10 +352,10 @@ CLI_BATCH = 16  # comparisons per scoring call of the CLI phase (--batch_size)
 # exact launches of each scoring call, derived from the configs (each kernel-routed site of
 # the forward up to the tap, the readout's two directions per pair score, one K4 per VAE chunk)
 NONE = dict.fromkeys(("fused_self_attention", "fused_geglu_ff", "cross_self_partials",
-                      "streaming_self_attention"), 0)
+                      "streaming_self_attention", "fused_self_attention_bwd"), 0)
 SD15_CALL = {**NONE, "fused_self_attention": 8, "fused_geglu_ff": 4}
 SD15_K3_CALL = {**NONE, "fused_self_attention": 11, "fused_geglu_ff": 6, "cross_self_partials": 2}
-XL_FORWARD = {"fused_self_attention": 45, "fused_geglu_ff": 4}
+XL_FORWARD = {**NONE, "fused_self_attention": 45, "fused_geglu_ff": 4}
 XL_TRIPLET_CALL = {**XL_FORWARD, "cross_self_partials": 4, "streaming_self_attention": 3}
 XL_PAIRS_CALL = {**XL_FORWARD, "cross_self_partials": 2, "streaming_self_attention": 2}
 XL_ONE_PAIR_CALL = {**XL_FORWARD, "cross_self_partials": 2, "streaming_self_attention": 1}
@@ -359,8 +365,8 @@ XL_ONE_PAIR_CALL = {**XL_FORWARD, "cross_self_partials": 2, "streaming_self_atte
 XL_BF16_TRIPLET_CALL = {**XL_TRIPLET_CALL, "streaming_self_attention": 2}
 K4_XL_BF16 = ((4, 1, 16384, 512), K4_MAIN)
 TINY_SD15_CALL = {**NONE, "fused_self_attention": 3, "fused_geglu_ff": 3}  # K1: 2 UNet, 1 VAE
-TINY_XL_CALL = {"fused_self_attention": 7, "fused_geglu_ff": 7, "cross_self_partials": 2,
-                "streaming_self_attention": 1}
+TINY_XL_CALL = {**NONE, "fused_self_attention": 7, "fused_geglu_ff": 7,
+                "cross_self_partials": 2, "streaming_self_attention": 1}
 DIT_TRIPLET_CALL = {**NONE, "fused_self_attention": 13, "cross_self_partials": 4}
 DIT_PAIRS_CALL = {**NONE, "fused_self_attention": 13, "cross_self_partials": 2}
 # the tiny DiT at 128 px, tap block 1: K1 in block 0 and in the tiny VAE's mid attention
@@ -3268,11 +3274,12 @@ def cached_path(name, scorer, pix, s_ab, s_ac, args, miss_calls, hit_calls,
 # ---------------------------------------------------------------------------
 
 # DiT-XL/2 at 256 px, the published per-GPU batch of 32: every block's attention is
-# (32, 16, 256, 72), 28 per forward; under --remat the backward runs each block's forward again
+# (32, 16, 256, 72), 28 per forward and 28 backward launches (csrc/fused_attention_bwd.cu) a
+# step; under --remat the backward runs each block's forward again
 TRAIN_BATCH, TRAIN_SIZE = 32, 256
 DIT_TRAIN_SITE = (TRAIN_BATCH, 16, 256, 72)
-TRAIN_STEP = {**NONE, "fused_self_attention": 28}
-REMAT_STEP = {**NONE, "fused_self_attention": 56}
+TRAIN_STEP = {**NONE, "fused_self_attention": 28, "fused_self_attention_bwd": 28}
+REMAT_STEP = {**NONE, "fused_self_attention": 56, "fused_self_attention_bwd": 28}
 SAMPLE_STEPS = 50
 # the sampler's CFG batch: the 8 default labels and their null-class copies, in float32
 DIT_SAMPLE_SITE = (2 * 8, 16, 256, 72)
@@ -3281,16 +3288,47 @@ K1_GRAD_SHAPES = [DIT_TRAIN_SITE, (2, 3, 256, 72), (2, 3, 1024, 80)]
 # the tiny training step, card vs CPU: DiT-XL/2's head dim 72 at 256 tokens, so K1 routes
 TINY_TRAIN = dict(input_size=32, patch_size=2, hidden=144, depth=2, heads=2, num_classes=10,
                   learn_sigma=True)
-# K1 in the tiny VAE's mid attention (1024 tokens at D 64, no grad) and in both DiT blocks
-TINY_TRAIN_STEP = {**NONE, "fused_self_attention": 3}
+# K1 in the tiny VAE's mid attention (1024 tokens at D 64, no grad) and in both DiT blocks, and
+# its backward in both blocks
+TINY_TRAIN_STEP = {**NONE, "fused_self_attention": 3, "fused_self_attention_bwd": 2}
+# the backward's shapes that the training site does not reach, each against the plain version: a
+# head off the granule (D 36, zero-padded to 40), the widest head, the 512 px DiT's 1024 tokens,
+# and B*H past the grid's 65535 (two launches)
+K1_BWD_SHAPES = [(2, 3, 256, 36), (2, 3, 256, 160), (1, 4, 1024, 72), (65536, 1, 64, 8)]
+K1_GRAD_TOL = {torch.float32: (1e-5, 0.0), torch.bfloat16: (1e-2, 1e-2)}
+
+
+def _bwd_check(name, q, k, v, g, tol) -> float:
+    """The backward kernel's (dq, dk, dv) against ``fused_self_attention_bwd_plain`` on the same
+    inputs, with the launches its plan takes; a second call must give them bit for bit."""
+    plan = kattn.bwd_launch_plan(q.shape, q.dtype)
+    got, took = _counted(fused_self_attention_bwd, lambda: fused_self_attention_bwd(q, k, v, g))
+    torch.cuda.synchronize()
+    if took != len(plan.slices) or any(t.shape != q.shape or t.dtype != q.dtype
+                                       or not t.is_contiguous() for t in got):
+        raise SystemExit(f"{name} backward: {took} launch(es) for {len(plan.slices)} slice(s), "
+                         f"gradients {[(tuple(t.shape), t.dtype) for t in got]}")
+    with torch.no_grad():
+        ref = kattn.fused_self_attention_bwd_plain(q, k, v, g)
+    err = max(check_close(f"{name} backward kernel d{x}", a, b, *tol)
+              for x, a, b in zip("qkv", got, ref))
+    del ref
+    again = fused_self_attention_bwd(q, k, v, g)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise SystemExit(f"{name} backward: a second call gave other gradients")
+    return err
 
 
 def k1_grad_phase(gen) -> dict:
     phase("K1 under autograd (DiT training): the FusedSelfAttention Function's output (the "
-          "kernel's forward) vs fused_self_attention_plain, and torch.autograd.grad through the "
-          "Function (the port of _fused_bwd) vs through the plain version, on the card (float32 "
-          "atol 1e-5, bf16 atol=rtol=1e-2); then the sampler's no-grad forward at its CFG batch")
-    rows, err_of, grad_err_of = [], {}, {}
+          "kernel's forward) vs fused_self_attention_plain, torch.autograd.grad through the "
+          "Function (the backward kernel, csrc/fused_attention_bwd.cu) vs through the plain "
+          "version, and the backward kernel vs fused_self_attention_bwd_plain (the port of "
+          f"_fused_bwd), bit for bit on a second call, at {K1_GRAD_SHAPES}, and the backward "
+          f"alone at {K1_BWD_SHAPES}, on the card (float32 atol 1e-5, bf16 atol=rtol=1e-2); the "
+          "backward timed at the training site; then the sampler's no-grad forward at its CFG "
+          "batch")
+    rows, bwd_rows, err_of, grad_err_of, bwd_err_of = [], [], {}, {}, {}
     for shape in K1_GRAD_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v, g = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
@@ -3300,9 +3338,13 @@ def k1_grad_phase(gen) -> dict:
             if type(out.grad_fn).__name__ != "FusedSelfAttentionBackward":
                 raise SystemExit(f"K1 under grad: grad_fn {type(out.grad_fn).__name__}, not the "
                                  "FusedSelfAttention Function")
-            grads = torch.autograd.grad(out, qkv, g)
+            grads, took = _counted(fused_self_attention_bwd,
+                                   lambda: torch.autograd.grad(out, qkv, g))
             torch.cuda.synchronize()
-            tol = (1e-2, 1e-2) if dtype == torch.bfloat16 else (1e-5, 0.0)
+            if took != 1:
+                raise SystemExit(f"K1 under grad at {shape}: the backward launched {took} "
+                                 "kernel(s), not 1")
+            tol = K1_GRAD_TOL[dtype]
             name = f"K1 {shape} {str(dtype)[6:]}"
             with torch.no_grad():
                 err = check_close(f"{name} forward", out, fused_self_attention_plain(q, k, v),
@@ -3312,10 +3354,12 @@ def k1_grad_phase(gen) -> dict:
             grad_err = max(check_close(f"{name} grad d{x}", a, b, *tol)
                            for x, a, b in zip("qkv", grads, ref))
             del out, grads, ref, qkv, ref_qkv
+            bwd_err = _bwd_check(name, q, k, v, g, tol)
             row = {"shape": list(shape), "dtype": str(dtype)[6:], "max_abs_err": err,
                    "grad_max_abs_err": grad_err}
             err_of[dtype] = max(err_of.get(dtype, 0.0), err)
-            grad_err_of[dtype] = max(grad_err_of.get(dtype, 0.0), grad_err)
+            grad_err_of[dtype] = max(grad_err_of.get(dtype, 0.0), grad_err, bwd_err)
+            bwd_err_of[dtype] = max(bwd_err_of.get(dtype, 0.0), bwd_err)
             if shape == DIT_TRAIN_SITE:
                 b, h, s, d = shape
                 key = ("launches_dit_train_step" if dtype == torch.float32
@@ -3330,22 +3374,38 @@ def k1_grad_phase(gen) -> dict:
                            else None,
                            dtype=dtype, exps=b * h * s * s,
                            tf32_passes=3.0 if dtype == torch.float32 else 0.0)
-                # the backward, as information: the plain port of _fused_bwd (five (S, S)
-                # products, the weights recomputed) beside SDPA's backward on the same inputs
+                # the backward kernel beside its plain version (five (S, S) products in
+                # torch.matmul, the weights recomputed), SDPA's backward on the same inputs and
+                # the bound of the five products
+                print("    backward:", flush=True)
+                bwd_row = {"shape": list(shape), "dtype": str(dtype)[6:],
+                           "max_abs_err": bwd_err, key: TRAIN_STEP["fused_self_attention_bwd"]}
                 qs = [t.clone().requires_grad_() for t in (q, k, v)]
                 sdpa_out = F.scaled_dot_product_attention(*qs)
-                row["bwd_plain_ms"] = device_ms(
-                    lambda: kattn.fused_self_attention_bwd_plain(q, k, v, g))[0]
-                row["bwd_sdpa_ms"] = device_ms(
-                    lambda: torch.autograd.grad(sdpa_out, qs, g, retain_graph=True))[0]
-                row["bwd_bound_ms"] = bound(10 * b * h * s * s * d,
-                                            7 * b * h * s * d * q.element_size(), dtype,
-                                            b * h * s * s)[0]
-                print(f"    backward: plain {row['bwd_plain_ms']:.4f} ms, SDPA backward "
-                      f"{row['bwd_sdpa_ms']:.4f} ms, bound {row['bwd_bound_ms']:.4f} ms "
-                      "(information)", flush=True)
+                _timed(bwd_row, lambda: fused_self_attention_bwd(q, k, v, g),
+                       lambda: kattn.fused_self_attention_bwd_plain(q, k, v, g),
+                       10 * b * h * s * s * d, 7 * b * h * s * d * q.element_size(),
+                       library=lambda: torch.autograd.grad(sdpa_out, qs, g, retain_graph=True),
+                       dtype=dtype, exps=b * h * s * s,
+                       tf32_passes=3.0 if dtype == torch.float32 else 0.0)
+                steps = TRAIN_STEP["fused_self_attention_bwd"]
+                print(f"    backward a training step ({steps} launches): kernel "
+                      f"{bwd_row['ms'] * steps:.3f} ms, plain {bwd_row['plain_ms'] * steps:.3f}, "
+                      f"SDPA's backward {bwd_row['library_ms'] * steps:.3f}, bound "
+                      f"{bwd_row['bound_ms'] * steps:.3f} ({bwd_row['bound_by']})", flush=True)
+                bwd_rows.append(bwd_row)
                 del qs, sdpa_out
             rows.append(row)
+            del q, k, v, g
+            torch.cuda.empty_cache()
+    for shape in K1_BWD_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, g = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                          for _ in range(4))
+            err = _bwd_check(f"K1 {shape} {str(dtype)[6:]}", q, k, v, g, K1_GRAD_TOL[dtype])
+            bwd_rows.append({"shape": list(shape), "dtype": str(dtype)[6:], "max_abs_err": err,
+                             "launches": len(kattn.bwd_launch_plan(shape, dtype).slices)})
+            bwd_err_of[dtype] = max(bwd_err_of[dtype], err)
             del q, k, v, g
             torch.cuda.empty_cache()
     b, h, s, d = DIT_SAMPLE_SITE
@@ -3367,7 +3427,8 @@ def k1_grad_phase(gen) -> dict:
     err_of[torch.float32] = max(err_of[torch.float32], err)
     del q, k, v
     torch.cuda.empty_cache()
-    return {"rows": rows, "err": err_of, "grad_err": grad_err_of}
+    return {"rows": rows, "err": err_of, "grad_err": grad_err_of, "bwd_rows": bwd_rows,
+            "bwd_err": bwd_err_of}
 
 
 # K1-K3 at the shapes their kernels take only through the wrapper's launch plan: heads off the
@@ -3810,7 +3871,7 @@ def train_cli_phase(tmp: str, card_line: str) -> dict:
     phase(f"DiT training CLI at full width: dit_train --model DiT-XL/2 --image_size 256 "
           f"--global_batch_size {TRAIN_BATCH} over 96 random JPEGs, float32 (4 steps, checkpoint "
           "every 2), --resume from step 2, --bf16 (3 steps), --remat (2 steps, random VAE); "
-          "28 K1 launches a step (56 with --remat), none of K2-K4")
+          "28 K1 launches a step (56 with --remat) and 28 of its backward kernel, none of K2-K4")
     data = _train_tree(tmp)
     rng = np.random.default_rng(2339)
     t0 = time.perf_counter()
@@ -4870,23 +4931,34 @@ def kernel_entry(name, source, replaces, design, result, path, sdxl=None, dit=No
 
 
 TRAIN_PER = f"one DiT-XL/2 training step at batch {TRAIN_BATCH}, 256 px (the forward's launches)"
+TRAIN_BWD_PER = (f"one DiT-XL/2 training step at batch {TRAIN_BATCH}, 256 px (the backward's "
+                 "launches)")
+K1_BWD_DESIGN = ("two kernels, no atomics: A a block of 64 query rows, three sweeps over 64-key "
+                 "tiles (m and l; W, dp and Delta; dS and dQ), B a block of 64 keys, W^T and dS^T "
+                 "recomputed from A's m, l and Delta (dV, dK); mma.sync, 3xTF32 m16n8k8 in "
+                 "float32, bf16 m16n8k16 in bf16 with W and dS split into bf16 hi + lo")
 
 
 SAMPLE_PER = "one DiT-XL/2 denoising step with CFG on 8 labels, 256 px, float32"
 
 
 def train_entries(k1_grad: dict, runs: dict, sampled: dict) -> list[dict]:
-    """K1's rows on the training path, float32 (the trainer's default) and bf16 (``--bf16``):
-    the forward's time per step at the training site beside its bound and SDPA's, with the
-    launches per step of the CLI runs in that dtype. ``max_abs_err`` is the forward's error
-    against the plain version, ``grad_max_abs_err`` the gradient's. The float32 row carries the
-    sampler's numbers per denoising step under "sample"."""
+    """K1's rows on the training path, float32 (the trainer's default) and bf16 (``--bf16``),
+    each the forward's entry and then the backward kernel's: the time per step at the training
+    site beside its bound, its plain version's and SDPA's (forward or backward), with the
+    launches per step of the CLI runs in that dtype. The forward's ``max_abs_err`` is its error
+    against the plain version and ``grad_max_abs_err`` the gradients' (through autograd and the
+    backward kernel's own); the backward's ``max_abs_err`` is its gradients' against
+    ``fused_self_attention_bwd_plain``, over every shape it was checked at. The forward names the
+    backward under "backward". The float32 forward carries the sampler's numbers per denoising
+    step under "sample"."""
     entries = []
     for dtype, key, mode in ((torch.float32, "launches_dit_train_step", "float32"),
                              (torch.bfloat16, "launches_dit_train_step_bf16", "bf16")):
         name = str(dtype)[6:]
         run = runs[mode]
         per_step = run["counts"]["fused_self_attention"] // run["steps"]
+        bwd_per_step = run["counts"]["fused_self_attention_bwd"] // run["steps"]
         result = {"rows": [r for r in k1_grad["rows"] if r["dtype"] == name],
                   "max_abs_err": k1_grad["err"][dtype]}
         entry = kernel_entry(f"fused_self_attention (DiT train, {name})",
@@ -4894,21 +4966,33 @@ def train_entries(k1_grad: dict, runs: dict, sampled: dict) -> list[dict]:
                              "diffsim_tpu/ops/pallas/attention.py:101",
                              K1_DESIGN if dtype == torch.bfloat16 else K1_F32_DESIGN, result,
                              (per_step, key, TRAIN_PER))
-        entry["backward"] = ("fused_self_attention_bwd_plain (torch.matmul, the port of "
-                             "_fused_bwd, diffsim_tpu/ops/pallas/attention.py:132)")
-        row = next(r for r in result["rows"] if key in r)
-        for field in ("bwd_plain_ms", "bwd_sdpa_ms", "bwd_bound_ms"):
-            entry[field] = row[field] * per_step
+        bwd = kernel_entry(f"fused_self_attention_bwd (DiT train, {name})",
+                           "diffsim_tpu_torch/csrc/fused_attention_bwd.cu",
+                           "diffsim_tpu/ops/pallas/attention.py:132", K1_BWD_DESIGN,
+                           {"rows": [r for r in k1_grad["bwd_rows"] if r["dtype"] == name],
+                            "max_abs_err": k1_grad["bwd_err"][dtype]},
+                           (bwd_per_step, key, TRAIN_BWD_PER))
+        in_dtype = {m: r for m, r in runs.items() if (m == "bf16") == (dtype == torch.bfloat16)}
+        bwd["launches_run"] = {m: r["counts"]["fused_self_attention_bwd"]
+                               for m, r in in_dtype.items()}
+        entry["backward"] = {"kernel": bwd["name"], "source": bwd["source"],
+                             "replaces": "_fused_bwd, diffsim_tpu/ops/pallas/attention.py:132",
+                             **{f: bwd[f] for f in ("launches", "ms", "plain_ms", "library_ms",
+                                                    "bound_ms", "bound_by")},
+                             "grad_max_abs_err": k1_grad["bwd_err"][dtype]}
+        for field, of in (("bwd_ms", "ms"), ("bwd_plain_ms", "plain_ms"),
+                          ("bwd_sdpa_ms", "library_ms"), ("bwd_bound_ms", "bound_ms")):
+            entry[field] = bwd[of]
         entry["grad_max_abs_err"] = k1_grad["grad_err"][dtype]
-        entry["launches_run"] = {m: r["counts"]["fused_self_attention"] for m, r in runs.items()
-                                 if (m == "bf16") == (dtype == torch.bfloat16)}
+        entry["launches_run"] = {m: r["counts"]["fused_self_attention"]
+                                 for m, r in in_dtype.items()}
         if dtype == torch.float32:
             run = sampled["ancestral"]
             per_step = run["counts"]["fused_self_attention"] // (SAMPLE_STEPS * run["calls"])
             entry["sample"] = _path(result, per_step, "launches_dit_sample_step", SAMPLE_PER)
             entry["launches_run"].update({f"sample_{m}": r["counts"]["fused_self_attention"]
                                           for m, r in sampled.items()})
-        entries.append(entry)
+        entries += [entry, bwd]
     return entries
 
 
@@ -4926,7 +5010,7 @@ def main() -> int:
     print(f"  built {sorted(reports) or 'nothing (cached)'} in {time.perf_counter() - t0:.1f} s")
     for name, log in reports.items():
         for line in log.splitlines():
-            if "Used" in line or "spill" in line or "warning" in line:
+            if "Used" in line or "spill" in line or "warning" in line or "built in" in line:
                 print(f"  {name}: {line.strip()}")
     probe_timing()
     gen = torch.Generator(device="cuda")
@@ -5137,13 +5221,14 @@ def main() -> int:
               f"{res['bf16_repeat_ms']:.1f}), peak {res['peak_gib']:.2f} GiB, / limit against "
               f"the plain K2 and K3 {res['plain_limit_share']:.3f} (control "
               f"{res['control_limit_share']:.3f})", flush=True)
-    for entry in line["kernels"][-4:-2]:
-        v2 = f"previous design {entry['v2_ms']:.3f}, " if "v2_ms" in entry else ""
-        print(f"  {entry['name']} on {card_line}: {entry['ms']:.3f} ms per training step in "
-              f"{entry['launches']} launches ({v2}SDPA {entry['library_ms']:.3f}, bound "
-              f"{entry['bound_ms']:.3f}, {100 * entry['roofline_share']:.1f} %); the plain "
-              f"backward {entry['bwd_plain_ms']:.3f} ms per step (SDPA's backward "
-              f"{entry['bwd_sdpa_ms']:.3f})", flush=True)
+    for entry in line["kernels"]:
+        if "(DiT train," in entry["name"]:
+            v2 = f"previous design {entry['v2_ms']:.3f}, " if "v2_ms" in entry else ""
+            print(f"  {entry['name']} on {card_line}: {entry['ms']:.3f} ms per training step in "
+                  f"{entry['launches']} launches ({v2}plain {entry['plain_ms']:.3f}, SDPA "
+                  f"{entry['library_ms']:.3f}, bound {entry['bound_ms']:.3f}, "
+                  f"{100 * entry['roofline_share']:.1f} %); launches in the runs "
+                  f"{entry['launches_run']}", flush=True)
     guards = [sd15_out["guard"], xl_out["guard"], dit_out["guard"],
               *(f32[what]["guard"] for what in ("sd15", "sdxl", "dit"))]
     for guard in guards:

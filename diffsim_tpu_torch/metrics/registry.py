@@ -158,17 +158,30 @@ def build_metric(args, device=None) -> MetricAdapter:
     if mesh.world()[1] == 1:
         return adapter
     mesh.check_same_weights(adapter.scorer, f"--metric {args.metric}")
-    return _over_ranks(adapter)
+    return _over_ranks(adapter, guard_pairs=args.metric in DIFFUSION)
 
 
-def _over_ranks(adapter: MetricAdapter) -> MetricAdapter:
+def _over_ranks(adapter: MetricAdapter, guard_pairs: bool = False) -> MetricAdapter:
     """The adapter with every scoring path run on this rank's rows of each call and the scores
     all-gathered (:func:`over_ranks`); ``prewarm`` decodes only this rank's rows'
     misses. A pair's score does not depend on the rank that scores it: each call seeds one
-    generator and shares every draw across the batch (``core/prng.py``)."""
+    generator and shares every draw across the batch (``core/prng.py``).
 
-    def sharded(fn, parts):
-        return None if fn is None else over_ranks(fn, parts)
+    ``guard_pairs`` (the DiffSim adapters; the baselines have no guard, as in JAX): every rank
+    runs ``hbm_guard.check_pairs`` on the call's largest block, ceil(n / size) pairs, before it
+    scores its own, so an over-budget call raises ``HbmBudgetError`` on every rank alike, before
+    any rank uploads a byte or enters the gather. The check inside ``score_batch`` stays for
+    callers outside a group."""
+
+    def sharded(fn, parts, check=None):
+        return None if fn is None else over_ranks(fn, parts, check)
+
+    pair_check = None
+    if guard_pairs:
+        from diffsim_tpu_torch.runtime import hbm_guard
+
+        def pair_check(block):
+            hbm_guard.check_pairs(adapter.scorer, block)
 
     prewarm = None
     if adapter.prewarm is not None:
@@ -177,12 +190,12 @@ def _over_ranks(adapter: MetricAdapter) -> MetricAdapter:
             adapter.prewarm([role[sl] for role in paths_roles], loader)
 
     return dataclasses.replace(
-        adapter, score_pairs=sharded(adapter.score_pairs, 1),
+        adapter, score_pairs=sharded(adapter.score_pairs, 1, pair_check),
         score_triplets=sharded(adapter.score_triplets, 2),
         score_triplet_paths=sharded(adapter.score_triplet_paths, 2), prewarm=prewarm)
 
 
-def over_ranks(fn, parts: int = 1):
+def over_ranks(fn, parts: int = 1, check=None):
     """``fn(*rows, blocking=True, **kw)`` run on this rank's rows of every call
     (``mesh.shard_rows``), its scores all-gathered back into the call's order
     (``mesh.gather_rows``). Every positional argument, and each keyword in ``ROW_KEYS``, holds
@@ -191,7 +204,9 @@ def over_ranks(fn, parts: int = 1):
     zero-argument fetch of them. With ``blocking=False`` the wrapper returns a fetch too, and
     the gather runs inside it, so a caller's one batch in flight still overlaps the next batch's
     host work. A rank whose block is empty calls nothing and joins the gather. Every rank must
-    make the same calls in the same order.
+    make the same calls in the same order. ``check(block)``, where given, runs first on every
+    rank with the call's largest block, ceil(n / size) rows, so that what it raises, it raises
+    on every rank.
 
     ``wrapped.rows`` counts the rows this rank scored."""
 
@@ -201,6 +216,8 @@ def over_ranks(fn, parts: int = 1):
     @functools.wraps(fn)
     def wrapped(*args, blocking=True, **kw):
         n = len(args[0])
+        if check is not None and n:
+            check(-(-n // mesh.world()[1]))
         sl = mesh.shard_rows(n)
         local = None
         if sl.stop > sl.start:

@@ -8,14 +8,15 @@ also count the launches that took their ``bf16_probs`` mode (:func:`bf16_probs_l
 
 from __future__ import annotations
 
-from diffsim_tpu_torch.ops.kernels.attention import fused_self_attention
+from diffsim_tpu_torch.ops.kernels.attention import fused_self_attention, fused_self_attention_bwd
 from diffsim_tpu_torch.ops.kernels.attention_stream import streaming_self_attention
 from diffsim_tpu_torch.ops.kernels.ff import fused_geglu_ff
 from diffsim_tpu_torch.ops.kernels.readout import cross_self_partials
 
 WRAPPERS = {"fused_self_attention": fused_self_attention, "fused_geglu_ff": fused_geglu_ff,
             "cross_self_partials": cross_self_partials,
-            "streaming_self_attention": streaming_self_attention}
+            "streaming_self_attention": streaming_self_attention,
+            "fused_self_attention_bwd": fused_self_attention_bwd}
 
 
 # the wrappers with a bf16_probs mode, which also count the launches that took it

@@ -11,9 +11,10 @@ kernel's fast mode (``--bf16_softmax``, ``ops/attention.py:fast_softmax``).
 
 Under grad (grad mode on and an input that requires it) the call goes through
 :class:`FusedSelfAttention`, the counterpart of the TPU kernel's custom VJP: the forward is the
-same dispatch, the backward :func:`fused_self_attention_bwd_plain`, a port of ``_fused_bwd``
-(``diffsim_tpu/ops/pallas/attention.py:132-151``). The TPU package computes that backward in
-XLA outside any Pallas kernel, so its products here are ``torch.matmul``.
+same dispatch, the backward :func:`fused_self_attention_bwd`, the gradient rule ``_fused_bwd``
+(``diffsim_tpu/ops/pallas/attention.py:132-151``). On a CUDA tensor that is the kernel
+``csrc/fused_attention_bwd.cu`` (design and bound in its header); on a CPU tensor its plain
+version :func:`fused_self_attention_bwd_plain`, the rule line for line in ``torch.matmul``.
 """
 
 from __future__ import annotations
@@ -102,6 +103,15 @@ def _lib(name: str) -> ctypes.CDLL:
     return lib
 
 
+def _bwd_lib(name: str) -> ctypes.CDLL:
+    lib = build.library(name)
+    if lib.fused_attention_bwd.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.fused_attention_bwd.argtypes = [p] * 8 + [i, i, i, ctypes.c_float, i, p]
+        lib.fused_attention_bwd.restype = i
+    return lib
+
+
 def launch_plan(shape, dtype: torch.dtype) -> launch.LaunchPlan:
     """K1's launches for a (B, H, S, D) call in ``dtype``: D zero-padded to a multiple of 8 (at
     most 160), one launch a slice of at most 65535 B*H rows. Raises ValueError outside
@@ -114,11 +124,17 @@ def launch_plan(shape, dtype: torch.dtype) -> launch.LaunchPlan:
                              launch.row_slices(b * h))
 
 
+def bwd_launch_plan(shape, dtype: torch.dtype) -> launch.LaunchPlan:
+    """The backward's launches for a (B, H, S, D) call: the forward's plan (:func:`launch_plan`,
+    the same shapes admitted, D zero-padded to 8, slices of 65535 B*H rows) on the backward's
+    library."""
+    return launch_plan(shape, dtype)._replace(library="fused_attention_bwd")
+
+
 class FusedSelfAttention(torch.autograd.Function):
     """K1 under autograd: the forward dispatches as :func:`fused_self_attention` does without
     grad (counting its launches), saves q, k and v as the caller gave them (unpadded, so the
-    backward runs at the true D and scale); the backward is
-    :func:`fused_self_attention_bwd_plain`."""
+    backward runs at the true D and scale); the backward is :func:`fused_self_attention_bwd`."""
 
     @staticmethod
     def forward(ctx, q, k, v, bf16_probs):
@@ -127,7 +143,59 @@ class FusedSelfAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return (*fused_self_attention_bwd_plain(*ctx.saved_tensors, g), None)
+        return (*fused_self_attention_bwd(*ctx.saved_tensors, g.contiguous()), None)
+
+
+def fused_self_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             g: torch.Tensor):
+    """(dq, dk, dv) of :func:`fused_self_attention` at (q, k, v) for the output's gradient g,
+    the rule ``_fused_bwd``, each in its input's dtype.
+
+    CPU: :func:`fused_self_attention_bwd_plain`. CUDA: contiguous, 16-byte aligned bf16 or
+    float32 tensors of one (B, H, S, D) shape, at every shape the forward admits
+    (:func:`bwd_launch_plan`): D zero-padded to a multiple of 8 (the padded columns of the
+    gradients are zero and are dropped), the scale at the true D, one launch a slice of 65535
+    B*H rows. Each launch runs the kernel's two passes on a float32 scratch of 3 B*H*S (the
+    softmax statistics) and counts in ``fused_self_attention_bwd.launches`` and, in float32,
+    ``fused_self_attention_bwd.launches_float32``."""
+    if q.device.type == "cpu":
+        return fused_self_attention_bwd_plain(q, k, v, g)
+    if q.device.type != "cuda":
+        raise ValueError(f"fused_self_attention_bwd: unsupported device {q.device}")
+    if not (q.shape == k.shape == v.shape == g.shape and q.dim() == 4):
+        raise ValueError(f"fused_self_attention_bwd: q/k/v/g must share one (B, H, S, D) shape, "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}, "
+                         f"{tuple(g.shape)}")
+    if not (q.dtype == k.dtype == v.dtype == g.dtype and q.dtype in _DTYPES):
+        raise ValueError(f"fused_self_attention_bwd: dtype {q.dtype}/{k.dtype}/{v.dtype}/"
+                         f"{g.dtype}; the kernel takes one of bfloat16, float32")
+    if not (q.device == k.device == v.device == g.device):
+        raise ValueError("fused_self_attention_bwd: q/k/v/g on different devices")
+    for t in (q, k, v, g):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("fused_self_attention_bwd: q/k/v/g must be contiguous and 16-byte "
+                             "aligned")
+    plan = bwd_launch_plan(q.shape, q.dtype)
+    q, k, v, g = (launch.pad_to(t, plan.padded) for t in (q, k, v, g))
+    s, dp = q.shape[-2:]
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    rows = max((stop - start for start, stop in plan.slices), default=0)
+    stats = torch.empty(3 * rows * s, dtype=torch.float32, device=q.device)
+    lib = _bwd_lib(plan.library)
+    row = s * dp * q.element_size()  # bytes of one of the B*H rows
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        for start, stop in plan.slices:
+            at = start * row
+            rc = lib.fused_attention_bwd(
+                *(t.data_ptr() + at for t in (q, k, v, g, dq, dk, dv)), stats.data_ptr(),
+                stop - start, s, dp, float(plan.width**-0.5), _DTYPES[q.dtype], stream)
+            build.check(lib, rc, "fused_self_attention_bwd")
+            fused_self_attention_bwd.launches += 1
+            fused_self_attention_bwd.launches_float32 += int(q.dtype == torch.float32)
+    if dp == plan.width:
+        return dq, dk, dv
+    return tuple(t[..., :plan.width].contiguous() for t in (dq, dk, dv))
 
 
 def fused_self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -188,3 +256,5 @@ def _dispatch(q, k, v, bf16_probs: bool) -> torch.Tensor:
 fused_self_attention.launches = 0
 fused_self_attention.launches_float32 = 0
 fused_self_attention.launches_bf16_probs = 0
+fused_self_attention_bwd.launches = 0
+fused_self_attention_bwd.launches_float32 = 0

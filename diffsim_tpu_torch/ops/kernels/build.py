@@ -19,12 +19,13 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
-SOURCES = ("fused_attention", "geglu_ff", "fused_readout", "fused_readout_f32",
-           "streaming_attention", "streaming_attention_wide")
+SOURCES = ("fused_attention", "fused_attention_bwd", "geglu_ff", "fused_readout",
+           "fused_readout_f32", "streaming_attention", "streaming_attention_wide")
 # the previous designs of K1 (bf16 and float32) and K4 (attention_v2; the wide heads'
 # streaming_attention_wide_v1), K2 and K3 (both dtypes), built only by chip_smoke.py to time the
 # kernels against them
@@ -57,9 +58,11 @@ def _lib_path(name: str) -> str:
 
 def build(names=SOURCES) -> dict[str, str]:
     """Compile every source in ``names`` whose library is missing, one nvcc process per
-    source, all started together. Returns {name: ptxas report}; raises on a failed build."""
+    source, all started together. Returns {name: ptxas report}, each led by the line
+    "nvcc <name>.cu built in <s> s" (the wall time of its process); raises on a failed build."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     procs = {}
+    t0 = time.perf_counter()
     for name in names:
         out = _lib_path(name)
         if os.path.exists(out):
@@ -69,9 +72,19 @@ def build(names=SOURCES) -> dict[str, str]:
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                         text=True), tmp, out)
     reports, failed = {}, []
-    for name, (proc, tmp, out) in procs.items():
+
+    def finish(name, proc):  # each process's output read on a thread of its own, to its end
         log, _ = proc.communicate()
-        reports[name] = log
+        reports[name] = f"nvcc {name}.cu built in {time.perf_counter() - t0:.1f} s\n{log}"
+
+    threads = [threading.Thread(target=finish, args=(name, proc))
+               for name, (proc, _, _) in procs.items()]
+    for thread in threads:
+        thread.start()
+    for thread in threads:
+        thread.join()
+    for name, (proc, tmp, out) in procs.items():
+        log = reports[name]
         if proc.returncode != 0:
             failed.append(f"--- nvcc {name}.cu (rc {proc.returncode}) ---\n{log}")
             continue

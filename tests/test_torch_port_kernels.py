@@ -75,7 +75,8 @@ def test_cpu_tensors_take_the_plain_versions_without_counting_launches():
          enumerate([(256, 32), (256,), (32, 128), (32,)])]
     assert torch.equal(fused_geglu_ff(x, *w), fused_geglu_ff_plain(x, *w))
     assert kernels.launch_counts() == {"fused_self_attention": 0, "fused_geglu_ff": 0,
-                                       "cross_self_partials": 0, "streaming_self_attention": 0}
+                                       "cross_self_partials": 0, "streaming_self_attention": 0,
+                                       "fused_self_attention_bwd": 0}
 
 
 ATTN_SHAPES = [

@@ -130,7 +130,8 @@ def test_cpu_tensors_take_the_plain_versions_without_counting_launches():
     q = torch.from_numpy(_rand((1, 1, 512, 192), 25))
     assert torch.equal(streaming_self_attention(q, q, q), streaming_self_attention_plain(q, q, q))
     assert set(kernels.launch_counts()) == {"fused_self_attention", "fused_geglu_ff",
-                                            "cross_self_partials", "streaming_self_attention"}
+                                            "cross_self_partials", "streaming_self_attention",
+                                            "fused_self_attention_bwd"}
     assert not any(kernels.launch_counts().values())
 
 

@@ -212,3 +212,50 @@ def test_the_pair_estimate_stays_above_each_measured_slope(cls, img_size, dtype,
     the guard counts as static, not a pair's."""
     s = types.SimpleNamespace(hbm_scale=cls.hbm_scale, img_size=img_size, dtype=dtype)
     assert hbm_guard.per_pair_bytes(s) >= 1.1 * slope
+
+
+def _two_rank_adapter(monkeypatch, rank: int):
+    """The tiny DiT metric's adapter as ``build_metric`` wraps it on rank ``rank`` of a group
+    of two (``mesh.world`` patched; no collective is set up, so a gather fails the test)."""
+    from diffsim_tpu_torch.cli.args import arg_parse
+    from diffsim_tpu_torch.metrics import registry
+    from diffsim_tpu_torch.parallel import mesh
+
+    monkeypatch.setattr(mesh, "world", lambda: (rank, 2))
+    monkeypatch.setattr(mesh, "check_same_weights", lambda *_, **__: None)
+    monkeypatch.setattr(mesh, "gather_rows", _no_module)
+    return registry.build_metric(arg_parse(["--metric", "dit", "--model_scale", "tiny",
+                                            "--image_size", "32", "--target_layer", "0",
+                                            "--target_step", "600"]), device="cpu")
+
+
+@pytest.mark.parametrize("rank", [0, 1])
+def test_every_rank_refuses_a_call_whose_largest_block_is_over_budget(monkeypatch, rank):
+    """7 pairs over two ranks are blocks of 4 (rank 0) and 3 (rank 1). Under a budget of the
+    scorer's static bytes plus 3.5 pairs only rank 0's block is over, yet both ranks raise
+    before either calls ``score_batch`` or the gather, as JAX's ``check_pairs`` refuses one
+    padded P on every process. Under static plus 4.5 pairs each rank scores its own block."""
+    from diffsim_tpu_torch.parallel import mesh
+
+    adapter = _two_rank_adapter(monkeypatch, rank)
+    s = adapter.scorer
+    monkeypatch.setattr(s, "score_batch", _no_module)
+    static, per = hbm_guard.scorer_static_bytes(s), hbm_guard.per_pair_bytes(s)
+    monkeypatch.setenv("DIFFSIM_TPU_HBM_GB", str((static + 3.5 * per) / hbm_guard.MARGIN / 1e9))
+    hbm_guard.check_pairs(s, 3)  # rank 1's block alone would pass
+    a, b = _pix(7, 7), _pix(8, 7)
+    with pytest.raises(HbmBudgetError, match="4-pair call at 32px"):
+        adapter.score_pairs(a, b, [""] * 7)
+    assert adapter.score_pairs.rows == 0
+
+    scored = []
+
+    def score_batch(pa, pb, blocking=True, **_):
+        scored.append(len(pa))
+        return lambda: np.zeros(len(pa), np.float32)
+
+    monkeypatch.setattr(s, "score_batch", score_batch)
+    monkeypatch.setattr(mesh, "gather_rows", lambda local, n: torch.zeros(n))
+    _port_budget(monkeypatch, s)
+    assert adapter.score_pairs(a, b, [""] * 7).shape == (7,)
+    assert scored == [4 - rank]
