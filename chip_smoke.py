@@ -139,15 +139,17 @@ Phases, each of which fails the run (non-zero exit, no result line) if anything 
    ensemble`` (diffsim through the moment cache, clip_i, dino; its K1 / K2 launches predicted
    from the cached CLI run's forwards), each with its pairs/s;
 22. K1 under autograd (DiT training): ``torch.autograd.grad`` through its ``FusedSelfAttention``
-   Function (the kernel's forward; the backward the kernel ``csrc/fused_attention_bwd.cu``, the
-   JAX ``_fused_bwd``, one launch a call) against the same through
+   Function (the kernel's forward; the backward the kernels of ``csrc/fused_attention_bwd.cu``,
+   the JAX ``_fused_bwd``, one launch a call) against the same through
    ``fused_self_attention_plain``, and the backward kernel against
    ``fused_self_attention_bwd_plain``, bit for bit on a second call, at DiT-XL/2's 256 px
    training site (32, 16, 256, 72) and at (2, 3, 256, 72) and (2, 3, 1024, 80), in float32 and
    bf16; the backward alone at D 36 (zero-padded), D 160, 1024 tokens and B*H = 65536 (two
    launches); the output's ``grad_fn`` is the Function; the forward timed beside SDPA and its
    bound (float32: also beside the previous FMA design, at the training site and the
-   sampler's), the backward beside its plain version, SDPA's backward and its bound;
+   sampler's), the backward beside its first design (``csrc/fused_attention_bwd_v1.cu``, in
+   turns), its plain version, SDPA's backward and its bound, each design split by kernel, with
+   the backward kernels' registers and spills from the build's ptxas report;
 23. one DiT training step at tiny width (head dim 72 at 256 tokens, so K1 and its backward
    kernel route: 3 K1 and 2 backward launches asserted), card vs CPU from one seeded tree in
    float32 with TF32 off and injected noise, t and label drop: the loss, every gradient, the
@@ -767,6 +769,7 @@ YARDSTICKS = {
     "fused_readout_f32_v1_fwd": ("fused_readout_v2", [_P] * 6 + [_I] * 3 + [_F, _I, _P]),
     "streaming_attention_wide_v1_fwd": ("streaming_attention_wide_v1",
                                         [_P] * 4 + [_I] * 3 + [_F, _I, _I, _P]),
+    "fused_attention_bwd_v1": ("fused_attention_bwd_v1", [_P] * 8 + [_I] * 3 + [_F, _I, _P]),
 }
 
 
@@ -806,6 +809,43 @@ def v2_f32_attention(q, k, v, tol, bf16_probs: bool = False):
         check_close(f"K1 v2 (FMA){mode} {(b, h, s, d)} float32", call(),
                     fused_self_attention_plain(q, k, v, bf16_probs), *tol)
     return call
+
+
+def v1_bwd(q, k, v, g, tol):
+    """The first design of K1's backward (csrc/fused_attention_bwd_v1.cu) on these inputs, held
+    to the plain version within ``tol`` (atol, rtol) first; returns the call, the yardstick of
+    the shipped design's time."""
+    b, h, s, d = q.shape
+
+    def call():
+        grads = [torch.empty_like(t) for t in (q, k, v)]
+        stats = torch.empty(3 * b * h * s, dtype=torch.float32, device=q.device)
+        _yardstick("fused_attention_bwd_v1", *(t.data_ptr() for t in (q, k, v, g, *grads)),
+                   stats.data_ptr(), b * h, s, d, float(d**-0.5), kattn._DTYPES[q.dtype])
+        return grads
+
+    with torch.no_grad():
+        ref = kattn.fused_self_attention_bwd_plain(q, k, v, g)
+        for x, a, b_ in zip("qkv", call(), ref):
+            check_close(f"K1 backward {tuple(q.shape)} first design d{x}", a, b_, *tol)
+    return call
+
+
+# the build's ptxas report of each compiled source (build.build), kept for the phases that print
+# a kernel's registers and spills
+PTXAS = {}
+
+
+def ptxas_usage(source: str, like: str) -> list[str]:
+    """Registers and spills of each kernel of ``source`` whose mangled name contains ``like``,
+    from this run's build report (none if the source was built before this run)."""
+    out, name = [], None
+    for line in PTXAS.get(source, "").splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif name and like in name and ("spill" in line or "Used" in line):
+            out.append(f"{name}: {line.split(':', 1)[-1].strip()}")
+    return out
 
 
 def v2_geglu_ff(x, w1, b1, w2, b2):
@@ -3322,12 +3362,21 @@ def _bwd_check(name, q, k, v, g, tol) -> float:
 def k1_grad_phase(gen) -> dict:
     phase("K1 under autograd (DiT training): the FusedSelfAttention Function's output (the "
           "kernel's forward) vs fused_self_attention_plain, torch.autograd.grad through the "
-          "Function (the backward kernel, csrc/fused_attention_bwd.cu) vs through the plain "
-          "version, and the backward kernel vs fused_self_attention_bwd_plain (the port of "
+          "Function (the backward kernels, csrc/fused_attention_bwd.cu) vs through the plain "
+          "version, and the backward kernels vs fused_self_attention_bwd_plain (the port of "
           f"_fused_bwd), bit for bit on a second call, at {K1_GRAD_SHAPES}, and the backward "
           f"alone at {K1_BWD_SHAPES}, on the card (float32 atol 1e-5, bf16 atol=rtol=1e-2); the "
-          "backward timed at the training site; then the sampler's no-grad forward at its CFG "
-          "batch")
+          "backward timed at the training site in turns with its first design "
+          "(csrc/fused_attention_bwd_v1.cu), each split by kernel; then the sampler's no-grad "
+          "forward at its CFG batch")
+    for source in ("fused_attention_bwd", "fused_attention_bwd_v1"):
+        usage = ptxas_usage(source, "bwd_")
+        print(f"  {source}.cu, ptxas (the training site's instantiations, 80 columns, and the "
+              "float32 statistics pass's 72):" if usage else
+              f"  {source}.cu: built before this run, no ptxas report", flush=True)
+        for line in usage:
+            if "Li80E" in line or "Li72E" in line:
+                print(f"    {line}", flush=True)
     rows, bwd_rows, err_of, grad_err_of, bwd_err_of = [], [], {}, {}, {}
     for shape in K1_GRAD_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
@@ -3382,19 +3431,31 @@ def k1_grad_phase(gen) -> dict:
                            "max_abs_err": bwd_err, key: TRAIN_STEP["fused_self_attention_bwd"]}
                 qs = [t.clone().requires_grad_() for t in (q, k, v)]
                 sdpa_out = F.scaled_dot_product_attention(*qs)
+                v1 = v1_bwd(q, k, v, g, tol)
                 _timed(bwd_row, lambda: fused_self_attention_bwd(q, k, v, g),
                        lambda: kattn.fused_self_attention_bwd_plain(q, k, v, g),
                        10 * b * h * s * s * d, 7 * b * h * s * d * q.element_size(),
                        library=lambda: torch.autograd.grad(sdpa_out, qs, g, retain_graph=True),
-                       dtype=dtype, exps=b * h * s * s,
+                       v2=v1, dtype=dtype, exps=b * h * s * s,
                        tf32_passes=3.0 if dtype == torch.float32 else 0.0)
+                # the split by kernel: the statistics pass and the key kernel, the first
+                # design's two kernels
+                for what, fn in (("shipped", lambda: fused_self_attention_bwd(q, k, v, g)),
+                                 ("first design", v1)):
+                    split = device_ms(fn)[1]
+                    bwd_row["split_v1" if fn is v1 else "split"] = split
+                    print(f"    {what}, by kernel: " + ("; ".join(
+                        f"{t:.4f} {name[:70]}" for name, t in sorted(split.items(),
+                                                                     key=lambda kv: -kv[1]))
+                        or "no per-kernel split (CUDA events)"), flush=True)
                 steps = TRAIN_STEP["fused_self_attention_bwd"]
                 print(f"    backward a training step ({steps} launches): kernel "
-                      f"{bwd_row['ms'] * steps:.3f} ms, plain {bwd_row['plain_ms'] * steps:.3f}, "
+                      f"{bwd_row['ms'] * steps:.3f} ms, first design "
+                      f"{bwd_row['v2_ms'] * steps:.3f}, plain {bwd_row['plain_ms'] * steps:.3f}, "
                       f"SDPA's backward {bwd_row['library_ms'] * steps:.3f}, bound "
                       f"{bwd_row['bound_ms'] * steps:.3f} ({bwd_row['bound_by']})", flush=True)
                 bwd_rows.append(bwd_row)
-                del qs, sdpa_out
+                del qs, sdpa_out, v1
             rows.append(row)
             del q, k, v, g
             torch.cuda.empty_cache()
@@ -4933,10 +4994,11 @@ def kernel_entry(name, source, replaces, design, result, path, sdxl=None, dit=No
 TRAIN_PER = f"one DiT-XL/2 training step at batch {TRAIN_BATCH}, 256 px (the forward's launches)"
 TRAIN_BWD_PER = (f"one DiT-XL/2 training step at batch {TRAIN_BATCH}, 256 px (the backward's "
                  "launches)")
-K1_BWD_DESIGN = ("two kernels, no atomics: A a block of 64 query rows, three sweeps over 64-key "
-                 "tiles (m and l; W, dp and Delta; dS and dQ), B a block of 64 keys, W^T and dS^T "
-                 "recomputed from A's m, l and Delta (dV, dK); mma.sync, 3xTF32 m16n8k8 in "
-                 "float32, bf16 m16n8k16 in bf16 with W and dS split into bf16 hi + lo")
+K1_BWD_DESIGN = ("two kernels, seven products, no atomics: a statistics pass on K1's forward "
+                 "pipeline (L, Delta = g . O), then a block a head over its key blocks in order "
+                 "(S^T, dp^T, dV, dK, dQ's share summed in key block order); bf16 wgmma + TMA, 2 "
+                 "consumer warpgroups of 64 keys and a producer warp, W and dS in bf16; float32 "
+                 "3xTF32 mma.sync, 4 warps of 16 keys")
 
 
 SAMPLE_PER = "one DiT-XL/2 denoising step with CFG on 8 labels, 256 px, float32"
@@ -5007,6 +5069,7 @@ def main() -> int:
     phase("build")
     t0 = time.perf_counter()
     reports = build.build(build.SOURCES + build.BASELINES)
+    PTXAS.update(reports)
     print(f"  built {sorted(reports) or 'nothing (cached)'} in {time.perf_counter() - t0:.1f} s")
     for name, log in reports.items():
         for line in log.splitlines():

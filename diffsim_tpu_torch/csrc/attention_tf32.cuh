@@ -1,5 +1,6 @@
 // The 3xTF32 attention pass shared by the float32 paths of K1 (fused_attention.cu, one pass a
-// block) and K3 (fused_readout_f32.cu, the cross pass and then the self pass of one Q tile).
+// block; the statistics pass of its backward, fused_attention_bwd.cu) and K3
+// (fused_readout_f32.cu, the cross pass and then the self pass of one Q tile).
 //
 // A block of 4 warps owns 64 q rows of one head, each warp 16 rows across all of D
 // (FlashAttention-2's warp layout). Each D % 8 == 0 up to 160 has its own instantiation, so every
@@ -71,11 +72,13 @@ __device__ __forceinline__ void copy_q_f32(unsigned char* smem, const float* __r
 // s_len % 64 == 0. On return acc holds the unnormalised P V (acc[n] = rows g (0, 1) and g + 8
 // (2, 3), columns 8 n + 2 t, + 1) and l_run this thread's share of the two row sums (quad_sum
 // before use). The pass ends with a __syncthreads, so a second pass may refill both stages.
+// m_run: the two rows' maxima of the unscaled logits on return (the backward's statistics pass).
 template <int D, bool BF16P = false>
 __device__ __forceinline__ void attend_tf32(unsigned char* smem, const float* __restrict__ kh,
                                             const float* __restrict__ vh, int s_len,
                                             float scale_log2, float scale_bf16,
-                                            float (&acc)[D / 8][4], float (&l_run)[2]) {
+                                            float (&acc)[D / 8][4], float (&l_run)[2],
+                                            float (&m_run)[2]) {
   constexpr int KS = D / 8;    // k8 steps of Q K^T, n8 tiles of O
   constexpr int NS = BKV / 8;  // n8 tiles of a score tile, k8 steps of P V
   constexpr int LDK = ld_k_f32(D), LDV = ld_v_f32(D);
@@ -93,7 +96,7 @@ __device__ __forceinline__ void attend_tf32(unsigned char* smem, const float* __
 
 #pragma unroll
   for (int n = 0; n < KS; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
-  float m_run[2] = {-INFINITY, -INFINITY};  // rows g, g + 8, over unscaled logits
+  m_run[0] = m_run[1] = -INFINITY;  // rows g, g + 8, over unscaled logits
   l_run[0] = l_run[1] = 0.0f;
 
   for (int tile = 0; tile < n_tiles; ++tile) {
@@ -190,6 +193,16 @@ __device__ __forceinline__ void attend_tf32(unsigned char* smem, const float* __
       for (int e = 0; e < 4; ++e) acc[n][e] = fmaf(acc[n][e], corr[e / 2], part[n][e]);
     __syncthreads();  // every warp is done with this stage before it is refilled
   }
+}
+
+// attend_tf32 without the row maxima (the forward kernels').
+template <int D, bool BF16P = false>
+__device__ __forceinline__ void attend_tf32(unsigned char* smem, const float* __restrict__ kh,
+                                            const float* __restrict__ vh, int s_len,
+                                            float scale_log2, float scale_bf16,
+                                            float (&acc)[D / 8][4], float (&l_run)[2]) {
+  float m_run[2];
+  attend_tf32<D, BF16P>(smem, kh, vh, s_len, scale_log2, scale_bf16, acc, l_run, m_run);
 }
 
 }  // namespace attn

@@ -1,5 +1,6 @@
-// The Hopper (sm_90a) attention pipeline shared by the bf16 kernels of K1 (fused_attention.cu)
-// and K3 (fused_readout.cu), FlashAttention-3's shape:
+// The Hopper (sm_90a) attention pipeline shared by the bf16 kernels of K1 (fused_attention.cu,
+// and the statistics pass of its backward, fused_attention_bwd.cu) and K3 (fused_readout.cu),
+// FlashAttention-3's shape:
 //   * a persistent block of NWG consumer warpgroups of 64 q rows and one producer warpgroup.
 //     One producer thread loads each q block's Q with TMA into one of two buffers (item it's Q
 //     goes where item it - 2's was, so the next block's Q and first K/V tiles load while this
@@ -268,11 +269,13 @@ __device__ __forceinline__ void pack_p(uint32_t (&p)[KP][4], const float (&s)[KP
 // reduce over the lane quad (quad_sum) before use. acc[4 n + e] is row i = e / 2, column
 // 8 n + 2 t + e % 2 (t = lane % 4). `last_turn`: the block's last pass, after which the last
 // consumer hands no turn on. `release_q`: the pass's last read of Q frees item it's buffer.
-// BF16P: the bf16_probs mode, with the bf16-rounded scale `scale_bf16`.
+// BF16P: the bf16_probs mode, with the bf16-rounded scale `scale_bf16`. On return m_run holds the
+// two rows' maxima of the unscaled logits (the backward's statistics pass reads them).
 template <int DP, bool BF16P = false, class C>
 __device__ __forceinline__ void attend_pass(Pipeline<C>& pipe, float (&acc)[DP / 2],
-                                            float (&l_run)[2], const unsigned char* q_base, int it,
-                                            int s_len, float scale_log2, int c, bool last_turn,
+                                            float (&l_run)[2], float (&m_run)[2],
+                                            const unsigned char* q_base, int it, int s_len,
+                                            float scale_log2, int c, bool last_turn,
                                             bool release_q, float scale_bf16 = 0.0f) {
   using namespace hopper;
   constexpr int BN = C::BN, NWG = C::NWG;
@@ -301,8 +304,9 @@ __device__ __forceinline__ void attend_pass(Pipeline<C>& pipe, float (&acc)[DP /
     if (c != NWG - 1 || !last) named_arrive(BAR_TURN + (c + 1) % NWG, TURN_THREADS);
   };
 
-  float s[NS], m_run[2] = {-INFINITY, -INFINITY}, corr[2];
+  float s[NS], corr[2];
   uint32_t p[KP][4];
+  m_run[0] = m_run[1] = -INFINITY;
   l_run[0] = l_run[1] = 0.0f;
   int& g = pipe.g;
 
@@ -371,6 +375,17 @@ __device__ __forceinline__ void attend_pass(Pipeline<C>& pipe, float (&acc)[DP /
   for (int kk = 0; kk < KP; ++kk) fence_regs(p[kk]);
   release(g);
   ++g;
+}
+
+// attend_pass without the row maxima (the forward kernels').
+template <int DP, bool BF16P = false, class C>
+__device__ __forceinline__ void attend_pass(Pipeline<C>& pipe, float (&acc)[DP / 2],
+                                            float (&l_run)[2], const unsigned char* q_base, int it,
+                                            int s_len, float scale_log2, int c, bool last_turn,
+                                            bool release_q, float scale_bf16 = 0.0f) {
+  float m_run[2];
+  attend_pass<DP, BF16P>(pipe, acc, l_run, m_run, q_base, it, s_len, scale_log2, c, last_turn,
+                         release_q, scale_bf16);
 }
 
 }  // namespace attn

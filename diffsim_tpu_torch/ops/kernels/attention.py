@@ -12,9 +12,10 @@ kernel's fast mode (``--bf16_softmax``, ``ops/attention.py:fast_softmax``).
 Under grad (grad mode on and an input that requires it) the call goes through
 :class:`FusedSelfAttention`, the counterpart of the TPU kernel's custom VJP: the forward is the
 same dispatch, the backward :func:`fused_self_attention_bwd`, the gradient rule ``_fused_bwd``
-(``diffsim_tpu/ops/pallas/attention.py:132-151``). On a CUDA tensor that is the kernel
-``csrc/fused_attention_bwd.cu`` (design and bound in its header); on a CPU tensor its plain
-version :func:`fused_self_attention_bwd_plain`, the rule line for line in ``torch.matmul``.
+(``diffsim_tpu/ops/pallas/attention.py:132-151``). On a CUDA tensor that is the kernels of
+``csrc/fused_attention_bwd.cu`` (design and bound in its header: a statistics pass, then a
+key-parallel kernel); on a CPU tensor its plain version :func:`fused_self_attention_bwd_plain`,
+the rule line for line in ``torch.matmul``.
 """
 
 from __future__ import annotations
@@ -131,6 +132,15 @@ def bwd_launch_plan(shape, dtype: torch.dtype) -> launch.LaunchPlan:
     return launch_plan(shape, dtype)._replace(library="fused_attention_bwd")
 
 
+def bwd_scratch_floats(plan: launch.LaunchPlan, s: int) -> int:
+    """The float32 scratch that each launch of ``plan`` at S = ``s`` hands the backward's C
+    entry, reused slice after slice: (2 + padded D) values a row of the largest slice, its
+    row's log-sum-exp and Delta (the statistics pass's) and its row of dQ's float32 accumulator
+    over the key blocks."""
+    rows = max((stop - start for start, stop in plan.slices), default=0)
+    return (2 + plan.padded) * rows * s
+
+
 class FusedSelfAttention(torch.autograd.Function):
     """K1 under autograd: the forward dispatches as :func:`fused_self_attention` does without
     grad (counting its launches), saves q, k and v as the caller gave them (unpadded, so the
@@ -155,9 +165,9 @@ def fused_self_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     float32 tensors of one (B, H, S, D) shape, at every shape the forward admits
     (:func:`bwd_launch_plan`): D zero-padded to a multiple of 8 (the padded columns of the
     gradients are zero and are dropped), the scale at the true D, one launch a slice of 65535
-    B*H rows. Each launch runs the kernel's two passes on a float32 scratch of 3 B*H*S (the
-    softmax statistics) and counts in ``fused_self_attention_bwd.launches`` and, in float32,
-    ``fused_self_attention_bwd.launches_float32``."""
+    B*H rows. Each launch runs the statistics pass and the key kernel on a float32 scratch of
+    :func:`bwd_scratch_floats` and counts in ``fused_self_attention_bwd.launches`` and, in
+    float32, ``fused_self_attention_bwd.launches_float32``."""
     if q.device.type == "cpu":
         return fused_self_attention_bwd_plain(q, k, v, g)
     if q.device.type != "cuda":
@@ -179,8 +189,7 @@ def fused_self_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q, k, v, g = (launch.pad_to(t, plan.padded) for t in (q, k, v, g))
     s, dp = q.shape[-2:]
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    rows = max((stop - start for start, stop in plan.slices), default=0)
-    stats = torch.empty(3 * rows * s, dtype=torch.float32, device=q.device)
+    scratch = torch.empty(bwd_scratch_floats(plan, s), dtype=torch.float32, device=q.device)
     lib = _bwd_lib(plan.library)
     row = s * dp * q.element_size()  # bytes of one of the B*H rows
     with torch.cuda.device(q.device):
@@ -188,7 +197,7 @@ def fused_self_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         for start, stop in plan.slices:
             at = start * row
             rc = lib.fused_attention_bwd(
-                *(t.data_ptr() + at for t in (q, k, v, g, dq, dk, dv)), stats.data_ptr(),
+                *(t.data_ptr() + at for t in (q, k, v, g, dq, dk, dv)), scratch.data_ptr(),
                 stop - start, s, dp, float(plan.width**-0.5), _DTYPES[q.dtype], stream)
             build.check(lib, rc, "fused_self_attention_bwd")
             fused_self_attention_bwd.launches += 1

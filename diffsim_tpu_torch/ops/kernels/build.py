@@ -27,9 +27,10 @@ BUILD_DIR = os.path.join(PKG_DIR, "_build")
 SOURCES = ("fused_attention", "fused_attention_bwd", "geglu_ff", "fused_readout",
            "fused_readout_f32", "streaming_attention", "streaming_attention_wide")
 # the previous designs of K1 (bf16 and float32) and K4 (attention_v2; the wide heads'
-# streaming_attention_wide_v1), K2 and K3 (both dtypes), built only by chip_smoke.py to time the
-# kernels against them
-BASELINES = ("attention_v2", "geglu_ff_v2", "fused_readout_v2", "streaming_attention_wide_v1")
+# streaming_attention_wide_v1), K2 and K3 (both dtypes) and K1's backward
+# (fused_attention_bwd_v1), built only by chip_smoke.py to time the kernels against them
+BASELINES = ("attention_v2", "geglu_ff_v2", "fused_readout_v2", "streaming_attention_wide_v1",
+             "fused_attention_bwd_v1")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
