@@ -12,7 +12,8 @@ a batcher thread that fuses everything waiting (up to 2 x ``--batch_size`` pairs
     POST /score    {"pairs": [[a, b], ...], "prompt": "..."}    -> {"scores": [...]}
         each of a/b: an image file path visible to the server, or
         {"b64": "<base64-encoded image file>"}
-    GET  /healthz  -> {"ok": true, "metric": "...", "pending": N}
+    GET  /healthz  -> {"ok": true, "metric": "...", "pending": N, and Batcher.stats:
+                       "rounds", "pairs", "requests", "queue_wait_s"}
 
 Only the batcher thread touches the card. A round scores exactly the pairs it fused: eager
 PyTorch has no compiled graph to keep to one batch shape, so the JAX batcher's padding to
@@ -43,6 +44,7 @@ import numpy as np
 
 from diffsim_tpu_torch.cli.args import arg_parse
 from diffsim_tpu_torch.core.image import ImageLoader, load_image, process_image
+from diffsim_tpu_torch.runtime.profiling import span
 
 IDLE_S = 60.0  # an idle leader's keep-alive period (the group's collective timeout is 5 min)
 MODULE = "diffsim_tpu_torch.cli.serve"
@@ -50,7 +52,7 @@ MODULE = "diffsim_tpu_torch.cli.serve"
 
 class _Work:
     __slots__ = ("pix_a", "pix_b", "prompts", "event", "scores", "error", "cancelled",
-                 "siblings")
+                 "siblings", "t_submit")
 
     def __init__(self, pix_a, pix_b, prompts):
         self.pix_a, self.pix_b, self.prompts = pix_a, pix_b, prompts
@@ -59,6 +61,7 @@ class _Work:
         self.error = None
         self.cancelled = False  # set when a sibling chunk of the same request failed
         self.siblings = ()  # chunks of the same oversize request (all fail together)
+        self.t_submit = 0.0  # time.perf_counter() at submit
 
 
 class Batcher:
@@ -69,7 +72,8 @@ class Batcher:
     before each round, ``("idle",)`` after ``IDLE_S`` seconds without one, ``("stop",)`` at
     :meth:`close`. Alone, a failed round fails its requests and the next round goes on; in a
     group, a failure after a round's ``tell`` (or of a ``tell``) ends the thread, and
-    :meth:`join` raises it."""
+    :meth:`join` raises it. :attr:`stats` counts the rounds run; on the thread, each round is
+    the span ``batcher.round`` and each wait for a round's first request ``batcher.idle``."""
 
     def __init__(self, score_pairs, max_batch: int, max_wait_ms: float = 5.0, *, device=None,
                  tell=None):
@@ -80,6 +84,8 @@ class Batcher:
         self._tell = tell
         self.fatal: BaseException | None = None  # what ended the thread, if not close()
         self._q: queue.Queue[_Work | None] = queue.Queue()  # None: close
+        self._stats = {"rounds": 0, "pairs": 0, "requests": 0, "queue_wait_s": 0.0}
+        self._stats_lock = threading.Lock()
         self._thread = threading.Thread(target=self._run, daemon=True)
         self._thread.start()
 
@@ -100,7 +106,16 @@ class Batcher:
     def pending(self) -> int:
         return self._q.qsize()
 
+    @property
+    def stats(self) -> dict:
+        """Of the rounds run so far: ``rounds``; the ``pairs`` and ``requests`` they took (an
+        oversize request once, in its first chunk's round); ``queue_wait_s``, summed over the
+        requests and chunks they took, from ``submit`` to the start of the round's call."""
+        with self._stats_lock:
+            return dict(self._stats)
+
     def submit(self, work: _Work) -> _Work:
+        work.t_submit = time.perf_counter()
         if len(work.prompts) > self._max_batch:
             # a request never makes a round larger than max_batch: the card's memory holds it
             chunks = [
@@ -110,6 +125,7 @@ class Batcher:
             ]
             for c in chunks:
                 c.siblings = chunks  # a failed chunk cancels the rest (batcher-side, racelessly)
+                c.t_submit = work.t_submit
                 self._q.put(c)
             work.scores = []
             for c in chunks:
@@ -151,71 +167,87 @@ class Batcher:
         carry: _Work | None = None
         closing = False
         while not closing:
-            first = carry if carry is not None else self._next()
-            carry = None
+            first, carry = carry, None
+            if first is None:
+                with span("batcher.idle"):
+                    first = self._next()
             if first is None:
                 break
             if first.cancelled:
                 first.event.set()  # nobody waits on a cancelled chunk; just drop it
                 continue
-            batch = [first]
-            n = len(first.prompts)
-            deadline = time.monotonic() + self._max_wait
-            # fuse whatever arrives within the wait window, strictly capped at max_batch —
-            # an over-cap arrival carries to the next round
-            while n < self._max_batch:
-                timeout = deadline - time.monotonic()
-                if timeout <= 0:
-                    break
-                try:
-                    w = self._q.get(timeout=timeout)
-                except queue.Empty:
-                    break
-                if w is None:  # close after this round
-                    closing = True
-                    break
-                if w.cancelled:
-                    w.event.set()
-                    continue
-                if n + len(w.prompts) > self._max_batch:
-                    carry = w
-                    break
-                batch.append(w)
-                n += len(w.prompts)
-            told = False  # whether the followers may have joined this round
-            try:
-                pix_a = np.concatenate([w.pix_a for w in batch], axis=0)
-                pix_b = np.concatenate([w.pix_b for w in batch], axis=0)
-                prompts = [p for w in batch for p in w.prompts]
-                if self._tell is not None:
-                    told = True
-                    self._tell(("round", pix_a, pix_b, prompts))
-                scores = np.asarray(self._score(pix_a, pix_b, prompts), np.float32)
-                off = 0
-                for w in batch:
-                    k = len(w.prompts)
-                    w.scores = scores[off : off + k].tolist()
-                    off += k
-            except BaseException as e:  # propagate to every waiter
-                err = e if isinstance(e, Exception) else RuntimeError(f"fatal batcher error: {e!r}")
-                for w in batch:
-                    w.error = err
-                    # cancel the failed request's still-queued sibling chunks BEFORE the next
-                    # q.get(): a failed chunk fails the whole oversize request, so scoring its
-                    # siblings would only burn device rounds on discarded results
-                    for s in w.siblings:
-                        if s is not w and s.scores is None:
-                            s.cancelled = True
-                if told or not isinstance(e, Exception):
-                    # fatal (KeyboardInterrupt/SystemExit/..., or a round the followers joined:
-                    # their collectives no longer pair with the leader's): let the thread die —
-                    # _wait's liveness check turns subsequent requests into errors, not hangs
-                    raise
-            finally:
-                for w in batch:
-                    w.event.set()
+            with span("batcher.round"):
+                carry, closing = self._round(first)
         if self._tell is not None:
             self._tell(("stop",))
+
+    def _round(self, first: _Work) -> tuple[_Work | None, bool]:
+        """One round from its first work: fuse, score, fan out. Returns (the work carried to
+        the next round, whether close() came)."""
+        carry, closing = None, False
+        batch = [first]
+        n = len(first.prompts)
+        deadline = time.monotonic() + self._max_wait
+        # fuse whatever arrives within the wait window, strictly capped at max_batch —
+        # an over-cap arrival carries to the next round
+        while n < self._max_batch:
+            timeout = deadline - time.monotonic()
+            if timeout <= 0:
+                break
+            try:
+                w = self._q.get(timeout=timeout)
+            except queue.Empty:
+                break
+            if w is None:  # close after this round
+                closing = True
+                break
+            if w.cancelled:
+                w.event.set()
+                continue
+            if n + len(w.prompts) > self._max_batch:
+                carry = w
+                break
+            batch.append(w)
+            n += len(w.prompts)
+        t = time.perf_counter()
+        with self._stats_lock:
+            self._stats["rounds"] += 1
+            self._stats["pairs"] += n
+            self._stats["requests"] += sum(not w.siblings or w.siblings[0] is w for w in batch)
+            self._stats["queue_wait_s"] += sum(t - w.t_submit for w in batch)
+        told = False  # whether the followers may have joined this round
+        try:
+            pix_a = np.concatenate([w.pix_a for w in batch], axis=0)
+            pix_b = np.concatenate([w.pix_b for w in batch], axis=0)
+            prompts = [p for w in batch for p in w.prompts]
+            if self._tell is not None:
+                told = True
+                self._tell(("round", pix_a, pix_b, prompts))
+            scores = np.asarray(self._score(pix_a, pix_b, prompts), np.float32)
+            off = 0
+            for w in batch:
+                k = len(w.prompts)
+                w.scores = scores[off : off + k].tolist()
+                off += k
+        except BaseException as e:  # propagate to every waiter
+            err = e if isinstance(e, Exception) else RuntimeError(f"fatal batcher error: {e!r}")
+            for w in batch:
+                w.error = err
+                # cancel the failed request's still-queued sibling chunks BEFORE the next
+                # q.get(): a failed chunk fails the whole oversize request, so scoring its
+                # siblings would only burn device rounds on discarded results
+                for s in w.siblings:
+                    if s is not w and s.scores is None:
+                        s.cancelled = True
+            if told or not isinstance(e, Exception):
+                # fatal (KeyboardInterrupt/SystemExit/..., or a round the followers joined:
+                # their collectives no longer pair with the leader's): let the thread die —
+                # _wait's liveness check turns subsequent requests into errors, not hangs
+                raise
+        finally:
+            for w in batch:
+                w.event.set()
+        return carry, closing
 
 
 def _broadcast(message):
@@ -272,7 +304,7 @@ def make_server(args, port: int, max_wait_ms: float = 5.0, *, device=None):
         def do_GET(self):
             if self.path == "/healthz":
                 return self._reply(200, {"ok": True, "metric": args.metric,
-                                         "pending": batcher.pending})
+                                         "pending": batcher.pending, **batcher.stats})
             return self._reply(404, {"error": "unknown path"})
 
         def do_POST(self):

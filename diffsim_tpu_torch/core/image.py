@@ -18,6 +18,8 @@ from typing import Sequence
 import numpy as np
 from PIL import Image
 
+from diffsim_tpu_torch.runtime.profiling import span
+
 
 CLIP_MEAN = np.array([0.48145466, 0.4578275, 0.40821073], np.float32)
 CLIP_STD = np.array([0.26862954, 0.26130258, 0.27577711], np.float32)
@@ -147,7 +149,8 @@ class ImageLoader:
                 if hit is not None:
                     self._cache.move_to_end(key)
                     return hit
-        arr = self._preprocess(load_image(path, self.img_size if self.fast_decode else None))
+        with span("loader.decode"):
+            arr = self._preprocess(load_image(path, self.img_size if self.fast_decode else None))
         if key is not None:
             with self._cache_lock:
                 if key not in self._cache:

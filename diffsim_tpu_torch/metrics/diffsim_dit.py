@@ -45,6 +45,7 @@ from diffsim_tpu_torch.models.dit import DiT, DiTConfig, pos_embed_2d
 from diffsim_tpu_torch.models.vae import Encoder, VAEConfig, encode_chunked, sample_latents
 from diffsim_tpu_torch.ops.taps import QKV, TapSpec
 from diffsim_tpu_torch.runtime import hbm_guard
+from diffsim_tpu_torch.runtime.profiling import span, spanned
 
 KINDS = ("dit", "vae")
 
@@ -126,15 +127,19 @@ class DiffSimDiT:
         class]."""
         P, n = moments.shape[:2]
         sf = self.vae_cfg.scaling_factor
-        if eps_vae is None:
-            z = sample_latents(moments, sf, mode=True)
-        else:
-            z = sample_latents(moments, sf, noise=eps_vae[None])
-        x = (spec.a * z.float() + spec.b * eps_noise[None]).to(z.dtype)
-        x_in = x.repeat_interleave(2, dim=1).reshape((P * n * 2,) + x.shape[2:])
-        y = torch.tensor([1, self.dit_cfg.num_classes], device=self.device).repeat(P * n)
-        model_t = torch.tensor(spec.model_t, dtype=torch.float32, device=self.device)
-        _, taps = self.dit(x_in, model_t, y, tap=tap)
+        with span("noise"):
+            if eps_vae is None:
+                z = sample_latents(moments, sf, mode=True)
+            else:
+                z = sample_latents(moments, sf, noise=eps_vae[None])
+            x = (spec.a * z.float() + spec.b * eps_noise[None]).to(z.dtype)
+            x_in = x.repeat_interleave(2, dim=1).reshape((P * n * 2,) + x.shape[2:])
+        with span("sync.class_labels"):
+            y = torch.tensor([1, self.dit_cfg.num_classes], device=self.device)
+        with span("sync.model_t"):
+            model_t = torch.tensor(spec.model_t, dtype=torch.float32, device=self.device)
+        with span("unet"):  # the denoiser to the tap: the DiT here
+            _, taps = self.dit(x_in, model_t, y.repeat(P * n), tap=tap)
         return per_item(taps, P)
 
     def _triplet_tail(self, moments, prompts, spec, tap: TapSpec, seed: int, similarity: str):
@@ -143,7 +148,8 @@ class DiffSimDiT:
         each play "image B". ``prompts`` is unused (the chunk loop passes it to every tail)."""
         h, w = moments.shape[-2:]
         eps_vae, eps_noise = role_noise(seed, h, w, self.vae_cfg.latent_channels, self.device)
-        idx = torch.tensor([0, 1, 1], device=self.device)  # roles A, B, B
+        with span("sync.role_index"):
+            idx = torch.tensor([0, 1, 1], device=self.device)  # roles A, B, B
         taps = self._taps(moments, None if self.vae_mode else eps_vae[idx], eps_noise[idx],
                           spec, tap)
         a, b, c = slice(0, 2), slice(2, 4), slice(4, 6)
@@ -153,6 +159,7 @@ class DiffSimDiT:
     # public API
     # ------------------------------------------------------------------
 
+    @spanned("score_batch")
     @torch.inference_mode()
     def score_batch(
         self,
@@ -184,6 +191,7 @@ class DiffSimDiT:
         taps = self._taps(moments, eps_vae, eps_noise, spec, tap)
         return fetchable(pair_score(taps, slice(0, 2), slice(2, 4), similarity), blocking)
 
+    @spanned("score_triplet_batch")
     @torch.inference_mode()
     def score_triplet_batch(
         self,
@@ -212,6 +220,7 @@ class DiffSimDiT:
     def _ensure_moment_cache(self):
         return moment_cache(self, self.dtype)
 
+    @spanned("score_triplet_paths")
     @torch.inference_mode()
     def score_triplet_paths(
         self,

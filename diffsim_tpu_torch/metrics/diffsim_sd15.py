@@ -52,6 +52,7 @@ from diffsim_tpu_torch.models.vae import Encoder, VAEConfig, encode_chunked, sam
 from diffsim_tpu_torch.ops.attention import fast_softmax as fast_softmax_mode
 from diffsim_tpu_torch.ops.taps import IP_QKV, OUTPUT, QKV, TapSpec
 from diffsim_tpu_torch.runtime import hbm_guard
+from diffsim_tpu_torch.runtime.profiling import span, spanned
 
 
 def sd15_tap(target_block: str, target_layer, ip_adapter: bool = False,
@@ -157,19 +158,24 @@ class DiffSimSD15(IPAdapterMixin):
     def encode_prompt(self, prompt: str) -> torch.Tensor:
         """(2, 77, hidden) [uncond(""), cond(prompt)] final-LN hidden states on the device."""
         if prompt not in self._prompt_cache:
-            ids = torch.from_numpy(self.tokenizer(["", prompt]).astype(np.int64)).to(self.device)
+            ids = torch.from_numpy(self.tokenizer(["", prompt]).astype(np.int64))
+            with span("sync.prompt_ids"):
+                ids = ids.to(self.device)
             self._prompt_cache[prompt] = self.text(ids).to(self.dtype)
         return self._prompt_cache[prompt]
 
     def _embeds(self, prompts) -> torch.Tensor:
         """(P, 2, 77, hidden) per-item embeds, gathered from the unique-prompt table."""
-        uniq, index, idx = [], {}, []
-        for p in prompts:
-            if p not in index:
-                index[p] = len(uniq)
-                uniq.append(self.encode_prompt(p))
-            idx.append(index[p])
-        return torch.stack(uniq)[torch.as_tensor(idx, device=self.device)]
+        with span("prompts"):
+            uniq, index, idx = [], {}, []
+            for p in prompts:
+                if p not in index:
+                    index[p] = len(uniq)
+                    uniq.append(self.encode_prompt(p))
+                idx.append(index[p])
+            with span("sync.prompt_index"):
+                sel = torch.as_tensor(idx, device=self.device)
+            return torch.stack(uniq)[sel]
 
     # ------------------------------------------------------------------
     # the scoring graph
@@ -191,23 +197,26 @@ class DiffSimSD15(IPAdapterMixin):
         ``ip``: the UNet's IP-Adapter arguments (``IPAdapterMixin._ip_args``)."""
         P, n = moments.shape[:2]
         sf = self.vae_cfg.scaling_factor
-        if eps_vae is None:
-            z = sample_latents(moments, sf, mode=True)
-        else:
-            z = sample_latents(moments, sf, noise=eps_vae[None])
-        x = (spec.a * z.float() + spec.b * eps_noise[None]).to(z.dtype)
-        seq, hid = embeds.shape[-2:]
-        if self.cfg_parity:
-            # per-image CFG doubling: [uncond_a, cond_a, uncond_b, cond_b, ...]
-            x_in = x.repeat_interleave(2, dim=1).reshape((P * n * 2,) + x.shape[2:])
-            ctx = embeds.repeat(1, n, 1, 1).reshape(P * n * 2, seq, hid)
-            per_img = 2
-        else:
-            x_in = x.reshape((P * n,) + x.shape[2:])
-            ctx = embeds[:, 1:2].expand(P, n, seq, hid).reshape(P * n, seq, hid)
-            per_img = 1
-        model_t = torch.tensor(spec.model_t, dtype=torch.float32, device=self.device)
-        _, taps = self.unet(x_in, model_t, ctx, tap=tap, **(ip or {}))
+        with span("noise"):
+            if eps_vae is None:
+                z = sample_latents(moments, sf, mode=True)
+            else:
+                z = sample_latents(moments, sf, noise=eps_vae[None])
+            x = (spec.a * z.float() + spec.b * eps_noise[None]).to(z.dtype)
+            seq, hid = embeds.shape[-2:]
+            if self.cfg_parity:
+                # per-image CFG doubling: [uncond_a, cond_a, uncond_b, cond_b, ...]
+                x_in = x.repeat_interleave(2, dim=1).reshape((P * n * 2,) + x.shape[2:])
+                ctx = embeds.repeat(1, n, 1, 1).reshape(P * n * 2, seq, hid)
+                per_img = 2
+            else:
+                x_in = x.reshape((P * n,) + x.shape[2:])
+                ctx = embeds[:, 1:2].expand(P, n, seq, hid).reshape(P * n, seq, hid)
+                per_img = 1
+        with span("sync.model_t"):
+            model_t = torch.tensor(spec.model_t, dtype=torch.float32, device=self.device)
+        with span("unet"):
+            _, taps = self.unet(x_in, model_t, ctx, tap=tap, **(ip or {}))
         return per_item(taps, P), per_img
 
     def _triplet_tail(self, moments, prompts, spec, tap: TapSpec, seed: int, similarity: str):
@@ -216,7 +225,8 @@ class DiffSimSD15(IPAdapterMixin):
         each play "image B". Runs in the fast mode when the scorer has it."""
         h, w = moments.shape[-2:]
         eps_vae, eps_noise = role_noise(seed, h, w, self.vae_cfg.latent_channels, self.device)
-        idx = torch.tensor([0, 1, 1], device=self.device)  # roles A, B, B
+        with span("sync.role_index"):
+            idx = torch.tensor([0, 1, 1], device=self.device)  # roles A, B, B
         with fast_softmax_mode(self.fast_softmax):
             taps, per_img = self._taps(moments, self._embeds(prompts),
                                        None if self.vae_mode else eps_vae[idx], eps_noise[idx],
@@ -253,8 +263,9 @@ class DiffSimSD15(IPAdapterMixin):
             if masks is not None and tap.capture == QKV:
                 # a self-attention tap has one token per latent cell
                 side = int(round(taps["q"].shape[-2] ** 0.5))
-                weights = readout.mask_to_latent(
-                    torch.as_tensor(np.asarray(masks, np.float32), device=self.device), side)
+                with span("sync.masks"):
+                    masks = torch.as_tensor(np.asarray(masks, np.float32), device=self.device)
+                weights = readout.mask_to_latent(masks, side)
             return pair_score(taps, slice(0, per_img), slice(per_img, 2 * per_img), similarity,
                               weights)
 
@@ -262,6 +273,7 @@ class DiffSimSD15(IPAdapterMixin):
     # public API
     # ------------------------------------------------------------------
 
+    @spanned("score_batch")
     @torch.inference_mode()
     def score_batch(
         self,
@@ -294,6 +306,7 @@ class DiffSimSD15(IPAdapterMixin):
         return fetchable(self._score_pairs(pix_a, pix_b, prompt, tap, target_step, similarity,
                                            seed, noise_override, masks), blocking)
 
+    @spanned("score_triplet_batch")
     @torch.inference_mode()
     def score_triplet_batch(
         self,
@@ -326,6 +339,7 @@ class DiffSimSD15(IPAdapterMixin):
     def _ensure_moment_cache(self):
         return moment_cache(self, self.dtype)
 
+    @spanned("score_triplet_paths")
     @torch.inference_mode()
     def score_triplet_paths(
         self,

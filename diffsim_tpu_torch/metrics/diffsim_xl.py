@@ -56,6 +56,7 @@ from diffsim_tpu_torch.models.unet import UNet, UNetConfig
 from diffsim_tpu_torch.models.vae import Encoder, VAEConfig, encode_chunked, sample_latents
 from diffsim_tpu_torch.ops.taps import IP_QKV, QKV, TapSpec
 from diffsim_tpu_torch.runtime import hbm_guard
+from diffsim_tpu_torch.runtime.profiling import span, spanned
 
 KINDS = ("unet", "vae", "text", "text2")
 
@@ -160,7 +161,9 @@ class DiffSimXL(IPAdapterMixin):
         device in the scoring dtype."""
         if prompt not in self._prompt_cache:
             def ids(tok):
-                return torch.from_numpy(tok([prompt]).astype(np.int64)).to(self.device)
+                ids = torch.from_numpy(tok([prompt]).astype(np.int64))
+                with span("sync.prompt_ids"):
+                    return ids.to(self.device)
 
             out1 = self.text.encode(ids(self.tokenizer), output_hidden_states=True)
             out2 = self.text2.encode(ids(self.tokenizer2), output_hidden_states=True)
@@ -175,14 +178,17 @@ class DiffSimXL(IPAdapterMixin):
     def _embeds(self, prompts):
         """(P, 2, 77, hid) embeds and (P, 2, pooled_dim) pooled per item, gathered from the
         unique-prompt table."""
-        uniq, index, idx = [], {}, []
-        for p in prompts:
-            if p not in index:
-                index[p] = len(uniq)
-                uniq.append(self.encode_prompt(p))
-            idx.append(index[p])
-        sel = torch.as_tensor(idx, device=self.device)
-        return (torch.stack([e for e, _ in uniq])[sel], torch.stack([p for _, p in uniq])[sel])
+        with span("prompts"):
+            uniq, index, idx = [], {}, []
+            for p in prompts:
+                if p not in index:
+                    index[p] = len(uniq)
+                    uniq.append(self.encode_prompt(p))
+                idx.append(index[p])
+            with span("sync.prompt_index"):
+                sel = torch.as_tensor(idx, device=self.device)
+            return (torch.stack([e for e, _ in uniq])[sel],
+                    torch.stack([p for _, p in uniq])[sel])
 
     @staticmethod
     def default_time_ids() -> np.ndarray:
@@ -210,29 +216,33 @@ class DiffSimXL(IPAdapterMixin):
         IP-Adapter arguments (``IPAdapterMixin._ip_args``)."""
         P, n = moments.shape[:2]
         sf = self.vae_cfg.scaling_factor
-        if eps_vae is None:
-            z = sample_latents(moments, sf, mode=True)
-        else:
-            z = sample_latents(moments, sf, noise=eps_vae[None])
-        z = z.to(self.dtype)
-        x = (spec.a * z.float() + spec.b * eps_noise[None]).to(self.dtype)
-        seq, hid = embeds.shape[-2:]
-        if self.cfg_parity:
-            # per-image CFG doubling: [uncond_a, cond_a, uncond_b, cond_b, ...]
-            x_in = x.repeat_interleave(2, dim=1).reshape((P * n * 2,) + x.shape[2:])
-            ctx = embeds.repeat(1, n, 1, 1).reshape(P * n * 2, seq, hid)
-            pool = pooled.repeat(1, n, 1).reshape(P * n * 2, -1)
-            per_img = 2
-        else:
-            x_in = x.reshape((P * n,) + x.shape[2:])
-            ctx = embeds[:, 1:2].expand(P, n, seq, hid).reshape(P * n, seq, hid)
-            pool = pooled[:, 1:2].expand(P, n, pooled.shape[-1]).reshape(P * n, -1)
-            per_img = 1
-        time_ids = torch.as_tensor(self.default_time_ids(), device=self.device)
+        with span("noise"):
+            if eps_vae is None:
+                z = sample_latents(moments, sf, mode=True)
+            else:
+                z = sample_latents(moments, sf, noise=eps_vae[None])
+            z = z.to(self.dtype)
+            x = (spec.a * z.float() + spec.b * eps_noise[None]).to(self.dtype)
+            seq, hid = embeds.shape[-2:]
+            if self.cfg_parity:
+                # per-image CFG doubling: [uncond_a, cond_a, uncond_b, cond_b, ...]
+                x_in = x.repeat_interleave(2, dim=1).reshape((P * n * 2,) + x.shape[2:])
+                ctx = embeds.repeat(1, n, 1, 1).reshape(P * n * 2, seq, hid)
+                pool = pooled.repeat(1, n, 1).reshape(P * n * 2, -1)
+                per_img = 2
+            else:
+                x_in = x.reshape((P * n,) + x.shape[2:])
+                ctx = embeds[:, 1:2].expand(P, n, seq, hid).reshape(P * n, seq, hid)
+                pool = pooled[:, 1:2].expand(P, n, pooled.shape[-1]).reshape(P * n, -1)
+                per_img = 1
+        with span("sync.time_ids"):
+            time_ids = torch.as_tensor(self.default_time_ids(), device=self.device)
         added = {"text_embeds": pool.to(self.dtype),
                  "time_ids": time_ids[None].expand(x_in.shape[0], -1)}
-        model_t = torch.tensor(spec.model_t, dtype=torch.float32, device=self.device)
-        _, taps = self.unet(x_in, model_t, ctx, tap=tap, added_cond=added, **(ip or {}))
+        with span("sync.model_t"):
+            model_t = torch.tensor(spec.model_t, dtype=torch.float32, device=self.device)
+        with span("unet"):
+            _, taps = self.unet(x_in, model_t, ctx, tap=tap, added_cond=added, **(ip or {}))
         return per_item(taps, P), per_img
 
     def _triplet_tail(self, moments, prompts, spec, tap: TapSpec, seed: int, similarity: str):
@@ -241,7 +251,8 @@ class DiffSimXL(IPAdapterMixin):
         each play "image B"."""
         h, w = moments.shape[-2:]
         eps_vae, eps_noise = role_noise(seed, h, w, self.vae_cfg.latent_channels, self.device)
-        idx = torch.tensor([0, 1, 1], device=self.device)  # roles A, B, B
+        with span("sync.role_index"):
+            idx = torch.tensor([0, 1, 1], device=self.device)  # roles A, B, B
         taps, per_img = self._taps(moments, *self._embeds(prompts),
                                    None if self.vae_mode else eps_vae[idx], eps_noise[idx],
                                    spec, tap)
@@ -252,6 +263,7 @@ class DiffSimXL(IPAdapterMixin):
     # public API
     # ------------------------------------------------------------------
 
+    @spanned("score_batch")
     @torch.inference_mode()
     def score_batch(
         self,
@@ -297,6 +309,7 @@ class DiffSimXL(IPAdapterMixin):
         scores = pair_score(taps, slice(0, per_img), slice(per_img, 2 * per_img), similarity)
         return fetchable(scores, blocking)
 
+    @spanned("score_triplet_batch")
     @torch.inference_mode()
     def score_triplet_batch(
         self,
@@ -327,6 +340,7 @@ class DiffSimXL(IPAdapterMixin):
     def _ensure_moment_cache(self):
         return moment_cache(self, self.enc_dtype)
 
+    @spanned("score_triplet_paths")
     @torch.inference_mode()
     def score_triplet_paths(
         self,

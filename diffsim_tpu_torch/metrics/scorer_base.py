@@ -32,6 +32,7 @@ from diffsim_tpu_torch.runtime.device_cache import (
     make_moment_cache,
     resolve_cached_chunk,
 )
+from diffsim_tpu_torch.runtime.profiling import span
 
 
 def resolve_device(device) -> torch.device:
@@ -48,7 +49,8 @@ def fetchable(scores: torch.Tensor, blocking: bool):
     zero-arg callable that fetches them, so the caller's host work overlaps the device's."""
 
     def fetch():
-        return scores.float().cpu().numpy()
+        with span("fetch"):
+            return scores.float().cpu().numpy()
 
     return fetch() if blocking else fetch
 
@@ -57,7 +59,8 @@ def fetchable_pair(s_ab: torch.Tensor, s_ac: torch.Tensor, blocking: bool):
     """Triplet-path variant of :func:`fetchable`: one fetch for both (T,) score arrays."""
 
     def fetch():
-        both = torch.stack([s_ab.float(), s_ac.float()]).cpu().numpy()
+        with span("fetch"):
+            both = torch.stack([s_ab.float(), s_ac.float()]).cpu().numpy()
         return both[0], both[1]
 
     return fetch() if blocking else fetch
@@ -97,11 +100,13 @@ def to_device_pixels(roles, device: torch.device, dtype: torch.dtype) -> torch.T
     (``u8 / 127.5 - 1`` in f32, then cast)."""
     if np.asarray(roles[0]).dtype == np.uint8:
         pix = torch.from_numpy(np.concatenate([np.asarray(r, np.uint8) for r in roles]))
-        pix = pix.to(device)
+        with span("sync.pixels"):
+            pix = pix.to(device)
         pix = (pix.float() / 127.5 - 1.0).to(dtype)
     else:
         pix = torch.from_numpy(np.concatenate([np.asarray(r, np.float32) for r in roles]))
-        pix = pix.to(device=device, dtype=dtype)
+        with span("sync.pixels"):
+            pix = pix.to(device=device, dtype=dtype)
     return pix.permute(0, 3, 1, 2).contiguous()
 
 
@@ -142,12 +147,14 @@ def role_noise(seed: int, h: int, w: int, channels: int, device: torch.device,
     """(eps_vae, eps_noise), each (2, C, h, w) f32 on ``device``: roles [A, B]. The draws come
     from ``seed`` (``core/prng.py``) unless ``noise_override`` gives them as two NHWC arrays
     (2, h, w, C), the cross-framework parity mode."""
-    if noise_override is not None:
-        return tuple(torch.as_tensor(np.asarray(e, np.float32), device=device)
-                     .permute(0, 3, 1, 2) for e in noise_override)
-    vae_a, vae_b, noise_a, noise_b = prng.role_noise(seed, (h, w, channels), device)
-    return (torch.stack([vae_a, vae_b]).permute(0, 3, 1, 2),
-            torch.stack([noise_a, noise_b]).permute(0, 3, 1, 2))
+    with span("noise"):
+        if noise_override is not None:
+            with span("sync.noise_override"):
+                return tuple(torch.as_tensor(np.asarray(e, np.float32), device=device)
+                             .permute(0, 3, 1, 2) for e in noise_override)
+        vae_a, vae_b, noise_a, noise_b = prng.role_noise(seed, (h, w, channels), device)
+        return (torch.stack([vae_a, vae_b]).permute(0, 3, 1, 2),
+                torch.stack([noise_a, noise_b]).permute(0, 3, 1, 2))
 
 
 def per_item(taps: dict, P: int) -> dict:
@@ -166,22 +173,23 @@ def pair_score(taps: dict, sl_a: slice, sl_b: slice, similarity: str,
     the readout of the tap's kind: the IP-Adapter readout of IP_QKV taps, the ``diffeats``
     readout (min-max normalised) of OUTPUT taps, the cross-image attention readout of QKV taps.
     ``mask_weights`` (P, 2, S) weights the QKV taps' queries of A and B per token."""
-    if "ip_k" in taps:
-        q, ks, vs = taps["q"], taps["ip_k"], taps["ip_v"]
-        return readout.cross_attention_score_ip(
-            q[:, sl_a], [k[:, sl_a] for k in ks], [v[:, sl_a] for v in vs],
-            q[:, sl_b], [k[:, sl_b] for k in ks], [v[:, sl_b] for v in vs], similarity)
-    if "out" in taps:
-        out = taps["out"]
-        return readout.feature_score(out[:, sl_a], out[:, sl_b], similarity,
-                                     minmax_normalize=True)
-    q, k, v = taps["q"], taps["k"], taps["v"]
-    qa, qb = q[:, sl_a], q[:, sl_b]
-    if mask_weights is not None:
-        qa = qa * mask_weights[:, 0, None, None, :, None].to(qa.dtype)
-        qb = qb * mask_weights[:, 1, None, None, :, None].to(qb.dtype)
-    return readout.cross_attention_score(qa, k[:, sl_a], v[:, sl_a], qb, k[:, sl_b],
-                                         v[:, sl_b], similarity)
+    with span("readout"):
+        if "ip_k" in taps:
+            q, ks, vs = taps["q"], taps["ip_k"], taps["ip_v"]
+            return readout.cross_attention_score_ip(
+                q[:, sl_a], [k[:, sl_a] for k in ks], [v[:, sl_a] for v in vs],
+                q[:, sl_b], [k[:, sl_b] for k in ks], [v[:, sl_b] for v in vs], similarity)
+        if "out" in taps:
+            out = taps["out"]
+            return readout.feature_score(out[:, sl_a], out[:, sl_b], similarity,
+                                         minmax_normalize=True)
+        q, k, v = taps["q"], taps["k"], taps["v"]
+        qa, qb = q[:, sl_a], q[:, sl_b]
+        if mask_weights is not None:
+            qa = qa * mask_weights[:, 0, None, None, :, None].to(qa.dtype)
+            qb = qb * mask_weights[:, 1, None, None, :, None].to(qb.dtype)
+        return readout.cross_attention_score(qa, k[:, sl_a], v[:, sl_a], qb, k[:, sl_b],
+                                             v[:, sl_b], similarity)
 
 
 def triplet_scores(scorer, moments_of: Callable, prompts, spec, tap, seed: int, similarity: str,
@@ -217,7 +225,8 @@ def pool_moments(scorer, paths_roles, pix_roles, loader, row_map) -> Callable:
     cache = scorer._ensure_moment_cache()
     idx3 = ensure_image_slots(cache, paths_roles, pix_roles, loader,
                               lambda k: load_and_process_u8(k, scorer.img_size), row_map=row_map)
-    slots = torch.from_numpy(idx3).long().to(scorer.device)
+    with span("sync.slots"):
+        slots = torch.from_numpy(idx3).long().to(scorer.device)
     return lambda rows: cache.pool[slots[rows]]
 
 
@@ -321,8 +330,9 @@ class IPAdapterMixin:
         the scoring-resolution pixels on the device (``readout.resize_bilinear``, as the JAX
         package does: its documented divergence)."""
         x = readout.resize_bilinear(pix, self._ip["encoder_cfg"].image_size)
-        mean, std = (torch.as_tensor(c, device=x.device)[None, :, None, None]
-                     for c in (CLIP_MEAN, CLIP_STD))
+        with span("sync.clip_norm"):
+            mean, std = (torch.as_tensor(c, device=x.device)[None, :, None, None]
+                         for c in (CLIP_MEAN, CLIP_STD))
         return self._ip_tokens((((x + 1.0) / 2.0 - mean) / std).to(self.dtype))
 
     def _ip_args(self, pix: torch.Tensor, P: int) -> dict:

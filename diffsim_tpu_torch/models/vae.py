@@ -24,6 +24,7 @@ from diffsim_tpu_torch.ops.blocks import (
     conv3x3,
     silu,
 )
+from diffsim_tpu_torch.runtime.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -175,7 +176,8 @@ def encode_chunked(encoder: Encoder, x: torch.Tensor, chunk: int | None = None) 
     ``encoder_apply_chunked`` (``lax.map`` plus one remainder slice). Slicing bounds the
     full-resolution activations, the largest live buffers of the scoring graph."""
     chunk = chunk or default_chunk(x)
-    return torch.cat([encoder(x[i:i + chunk]) for i in range(0, x.shape[0], chunk)])
+    with span("vae"):
+        return torch.cat([encoder(x[i:i + chunk]) for i in range(0, x.shape[0], chunk)])
 
 
 def sample_latents(moments, scaling_factor: float, noise=None, mode: bool = False):

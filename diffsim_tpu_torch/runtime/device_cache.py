@@ -24,6 +24,8 @@ from typing import Callable, Hashable, Sequence
 import numpy as np
 import torch
 
+from diffsim_tpu_torch.runtime.profiling import span
+
 MAX_SLAB = 64  # images per miss slab: bounds the encoder's activations
 DEFAULT_BUDGET_MB = 512.0  # holds ~8000 unique images of SD-1.5 moments at 512 px in bf16
 
@@ -67,13 +69,14 @@ class DeviceFeatureCache:
         self.hits += len(keys) - len(seen_missing)
         self.misses += len(missing)
         if missing:
-            # decode before any slot is assigned: if rows_for fails (an unreadable image), no
-            # key may point at an unwritten row
-            rows = np.ascontiguousarray(rows_for(missing))
-            if rows.shape[0] != len(missing):
-                raise ValueError(
-                    f"rows_for returned {rows.shape[0]} rows for {len(missing)} missing keys")
-            self._scatter(missing, rows, pinned)
+            with span("cache.fill"):
+                # decode before any slot is assigned: if rows_for fails (an unreadable image),
+                # no key may point at an unwritten row
+                rows = np.ascontiguousarray(rows_for(missing))
+                if rows.shape[0] != len(missing):
+                    raise ValueError(
+                        f"rows_for returned {rows.shape[0]} rows for {len(missing)} missing keys")
+                self._scatter(missing, rows, pinned)
         return np.asarray([self._slot_of[k] for k in keys], np.int32)
 
     def _assign(self, key: Hashable, pinned: set) -> int:
@@ -136,10 +139,13 @@ def make_moment_cache(scorer, enc_dtype: torch.dtype) -> DeviceFeatureCache:
 
     def update(pool, rows_u8, slots):
         with torch.inference_mode():
-            x = torch.from_numpy(rows_u8).to(device)
+            with span("sync.cache_pixels"):
+                x = torch.from_numpy(rows_u8).to(device)
             x = (x.float() / 127.5 - 1.0).to(enc_dtype).permute(0, 3, 1, 2).contiguous()
             m = encode_chunked(vae, x)
-            pool.index_copy_(0, torch.from_numpy(slots).long().to(device), m.to(pool.dtype))
+            with span("sync.cache_slots"):
+                index = torch.from_numpy(slots).long().to(device)
+            pool.index_copy_(0, index, m.to(pool.dtype))
         return pool
 
     return DeviceFeatureCache(pool, update, cap)
@@ -152,19 +158,20 @@ def resolve_cached_chunk(t: int, chunk: int | None, scorer=None) -> int:
     largest that fits; it raises when not even one triplet fits."""
     from diffsim_tpu_torch.runtime import hbm_guard
 
-    safe = hbm_guard.max_triplets(scorer) if scorer is not None else None
-    if safe is not None and safe < 1:
-        raise hbm_guard.HbmBudgetError(
-            f"not even one triplet at {scorer.img_size}px fits the device budget "
-            f"({hbm_guard.budget_bytes(scorer.device) / 1e9:.2f} GB): lower img_size or the "
-            "moment cache budget, or set DIFFSIM_TPU_HBM_GB")
-    if chunk is None:
-        return min(t, safe) if safe is not None else t
-    if chunk < 1:
-        raise ValueError(f"chunk must be >= 1, got {chunk}")
-    if scorer is not None:
-        hbm_guard.check_chunk(scorer, chunk)
-    return chunk
+    with span("guard"):
+        safe = hbm_guard.max_triplets(scorer) if scorer is not None else None
+        if safe is not None and safe < 1:
+            raise hbm_guard.HbmBudgetError(
+                f"not even one triplet at {scorer.img_size}px fits the device budget "
+                f"({hbm_guard.budget_bytes(scorer.device) / 1e9:.2f} GB): lower img_size or "
+                "the moment cache budget, or set DIFFSIM_TPU_HBM_GB")
+        if chunk is None:
+            return min(t, safe) if safe is not None else t
+        if chunk < 1:
+            raise ValueError(f"chunk must be >= 1, got {chunk}")
+        if scorer is not None:
+            hbm_guard.check_chunk(scorer, chunk)
+        return chunk
 
 
 def image_key(path) -> tuple:

@@ -40,6 +40,8 @@ import os
 
 import torch
 
+from diffsim_tpu_torch.runtime.profiling import span
+
 # Each measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 at a 700 W power limit, and held
 # there above what it measures in the same run. The device memory one SD-1.5 triplet adds to the
 # scoring tail (UNet to the tap and readout) at 512 px in bf16: the slope of
@@ -76,7 +78,8 @@ def budget_bytes(device: torch.device) -> float:
     if env is not None:
         return float(env) * 1e9
     if device.type == "cuda":
-        return float(torch.cuda.mem_get_info(device)[1])
+        with span("sync.mem_get_info"):
+            return float(torch.cuda.mem_get_info(device)[1])
     return 0.0
 
 
@@ -136,10 +139,11 @@ def per_pair_bytes(scorer) -> float:
 def check_pairs(scorer, n_pairs: int) -> None:
     """Refuse a ``score_batch`` call of ``n_pairs`` pairs whose estimate exceeds the budget.
     The pair paths have no chunk loop, so the remedy is a smaller batch."""
-    budget = budget_bytes(scorer.device)
-    if budget <= 0:
-        return
-    est = scorer_static_bytes(scorer) + per_pair_bytes(scorer) * n_pairs
+    with span("guard"):
+        budget = budget_bytes(scorer.device)
+        if budget <= 0:
+            return
+        est = scorer_static_bytes(scorer) + per_pair_bytes(scorer) * n_pairs
     if est > budget * MARGIN:
         raise HbmBudgetError(
             f"a {n_pairs}-pair call at {scorer.img_size}px is estimated at {est / 1e9:.2f} GB "
